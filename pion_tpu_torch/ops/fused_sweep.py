@@ -1,0 +1,292 @@
+"""Fused sweep kernels: wrappers, plain versions, and the fused update.
+
+Two CUDA kernels (sources in ``csrc/sweep.cu``) take the place of the two
+TPU kernels of ``pion_tpu/ops/pallas_sweep.py``:
+
+- :func:`sweep_axis` replaces ``_sweep_axis_pallas``: one axis's ``dt*dU``,
+  the whole pipeline of :func:`..ops.sweep.dynamics_dU` per cell in
+  registers.
+- :func:`final_axis` replaces ``_final_axis_pallas``: the axis-0 sweep plus
+  ``U(P) + dU + sum(contribs)`` -> ``cons_to_prim`` -> GLM psi damping; it
+  returns the new primitive state.
+
+Both are bound by bytes on an H100, not by operations; what the design does
+about it is written at the head of ``csrc/sweep.cu``.
+
+Beside each kernel stands its plain PyTorch version (:func:`sweep_axis_plain`,
+:func:`final_axis_plain`), built from :mod:`..ops.sweep`.  A wrapper takes
+the plain version only because the tensor it was given lies on the CPU; for a
+CUDA tensor it launches the kernel or raises.  Each wrapper counts its
+launches in its ``launches`` attribute.
+
+The reconstruction differs in the last bit between the two: the plain sweep
+divides the one-sided differences by the centre-of-volume spacing and
+multiplies the slopes by ``del_n``/``del_p``; the kernels divide by the
+constant ``dx`` and use ``+-dx/2``.  Tests hold them at ``rtol=1e-10`` in
+float64.
+
+Scope (:func:`supports`): Cartesian 2D and 3D, MHD and GLM-MHD, the HLL and
+HLLD solvers (HLLD with or without the fallback mask), Falle viscosity or
+none, any number of tracers up to slot 63, sCMA off, on, or with element
+slots, orders 1 and 2, float32 and float64.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from ..config import SimConfig
+from ..constants import AV, SI, Coord, Eqn, Solver
+from ..grid import Geometry
+from .eqns import BASE_RHO, cons_to_prim, prim_to_cons
+from .sweep import dynamics_dU, hlld_fallback_cells
+
+MAX_NVAR = 64  # element slots travel as a 64-bit mask
+
+
+def supports(cfg: SimConfig) -> bool:
+    """Whether the CUDA kernels cover this configuration (everything else
+    takes the plain torch sweep)."""
+    return (
+        cfg.coords is Coord.CARTESIAN
+        and cfg.ndim in (2, 3)
+        and cfg.eqn in (Eqn.MHD, Eqn.GLM)
+        and cfg.solver in (Solver.HLL, Solver.HLLD)
+        and cfg.av in (AV.NONE, AV.FALLE)
+        and cfg.nvar <= MAX_NVAR
+        and cfg.dtype in ("float32", "float64")
+    )
+
+
+def _uses_mask(cfg: SimConfig) -> bool:
+    return (cfg.solver is Solver.HLLD and cfg.eqn.is_mhd
+            and cfg.hlld_fallback)
+
+
+def flops_per_interface(cfg: SimConfig, order: int) -> int:
+    """Floating-point operations of one interface solve, counted by hand
+    from the formulas of the plain version (an add, multiply, divide,
+    square root, compare-and-select each count one).  Used for the
+    operations side of the kernels' roofline bound."""
+    nb = cfg.eqn.nbase
+    n = 0
+    if order == 2:
+        n += cfg.nvar * 29          # 3 differences/dx, 2 limiters, 2 edges
+    n += 2 * 27 + 2 * 33            # prim_to_cons and flux_from_pu, both sides
+    n += 2 * 18 + 5                 # fast speeds and the two wave speeds
+    if cfg.solver is Solver.HLLD:
+        n += 30 + 2 * 62 + 10 + 45 + 2 * 16 + 8 * 7   # star, double-star, assembly
+        if cfg.hlld_fallback:
+            n += 8 + 8 * 11         # the HLL fallback of flagged interfaces
+    else:
+        n += 8 + 8 * 11
+    if cfg.eqn is Eqn.GLM:
+        n += 14
+    if cfg.av is AV.FALLE:
+        n += 5 + 18 + 2 + 3 * 5 + 1 + 2 * 5 + 1
+    n += cfg.ntracer * 6
+    n += nb * 3 + 24                # divergence, Powell and GLM sources, dt
+    return n
+
+
+def _el_mask(cfg: SimConfig, scma) -> tuple:
+    """(clamp flag, element bit mask) of an ``scma`` argument."""
+    if not scma or not cfg.ntracer:
+        return 0, 0
+    bits = 0
+    if isinstance(scma, (tuple, list)):
+        for e in scma:
+            if not cfg.eqn.nbase <= int(e) < cfg.nvar:
+                raise ValueError(
+                    f"element slot {e} is not a tracer slot of this config")
+            bits |= 1 << int(e)
+    return 1, bits
+
+
+def _scalar(x, like: torch.Tensor) -> torch.Tensor:
+    """A number as a 0-d tensor of the state's dtype on its device; the
+    kernels read it through its device pointer.  A tensor that already
+    lives there is passed on untouched, so nothing is read back."""
+    return torch.as_tensor(0.0 if x is None else x, dtype=like.dtype,
+                           device=like.device).reshape(())
+
+
+def _check_state(name: str, A: torch.Tensor, shape, like: torch.Tensor):
+    if tuple(A.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(A.shape)}, expected "
+                         f"{tuple(shape)}")
+    if A.dtype != like.dtype or A.device != like.device:
+        raise ValueError(f"{name} is {A.dtype} on {A.device}, expected "
+                         f"{like.dtype} on {like.device}")
+    if not A.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch_args(Ph_pad, cfg: SimConfig, geom: Geometry, strong):
+    """What both launches share: checks, the library, mask pointer, the
+    interior shape as (nz, ny, nx) and the by-value constants."""
+    from .. import _build
+
+    if not supports(cfg):
+        raise ValueError("configuration outside fused_sweep.supports()")
+    if Ph_pad.dtype != cfg.torch_dtype:
+        raise ValueError(f"state is {Ph_pad.dtype}, config says {cfg.dtype}")
+    ng = cfg.ng
+    padded = (cfg.nvar,) + tuple(n + 2 * ng for n in cfg.shape)
+    _check_state("Ph_pad", Ph_pad, padded, Ph_pad)
+    mask_ptr = None
+    if _uses_mask(cfg):
+        if strong is None:
+            strong = hlld_fallback_cells(Ph_pad, cfg, geom.dx)
+        if (strong.dtype != torch.bool or strong.device != Ph_pad.device
+                or tuple(strong.shape) != padded[1:]
+                or not strong.is_contiguous()):
+            raise ValueError("mask must be a contiguous bool tensor of the "
+                             "padded spatial shape on the state's device")
+        mask_ptr = strong.data_ptr()
+    lib = _build.get_lib(cfg.dtype, cfg.solver.value)
+    nz, ny, nx = ((1,) + tuple(cfg.shape))[-3:]
+    dx = float(geom.dx)
+    consts = (dx, float(cfg.gamma), float(cfg.etav),
+              BASE_RHO * cfg.rho_ref, 1.0e-6 * cfg.p_ref,
+              cfg.glm_cr_factor / dx)
+    # ``strong`` is returned so that it outlives the launch in the caller
+    return lib, mask_ptr, strong, (nz, ny, nx), consts
+
+
+def sweep_axis(Ph_pad: torch.Tensor, cfg: SimConfig, geom: Geometry,
+               axis: int, order: int, dt, ch=None, scma=False,
+               strong: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``dt*dU`` of one axis for the interior cells, ``(nvar, *shape)``.
+
+    ``Ph_pad`` is the fully padded primitive state.  ``strong`` is the
+    per-cell HLLD->HLL flag of :func:`..ops.sweep.hlld_fallback_cells`
+    (padded, bool); it is computed here when the config needs it and the
+    caller has none.  ``dt`` and ``ch`` may be numbers or 0-d tensors.
+    A CPU tensor takes :func:`sweep_axis_plain`; a CUDA tensor launches
+    the kernel or raises.
+    """
+    if not Ph_pad.is_cuda:
+        return sweep_axis_plain(Ph_pad, cfg, geom, axis, order, dt, ch=ch,
+                                scma=scma)
+    if not 0 <= axis < cfg.ndim or order not in (1, 2):
+        raise ValueError(f"bad axis {axis} or order {order}")
+    lib, mask_ptr, strong, (nz, ny, nx), consts = _launch_args(
+        Ph_pad, cfg, geom, strong)
+    dt_t = _scalar(dt, Ph_pad)
+    if cfg.eqn is Eqn.GLM and ch is None:
+        ch = cfg.cfl * geom.dx / dt_t
+    ch_t = _scalar(ch, Ph_pad)
+    clamp, bits = _el_mask(cfg, scma)
+    out = torch.empty((cfg.nvar,) + tuple(cfg.shape), dtype=Ph_pad.dtype,
+                      device=Ph_pad.device)
+    err = lib.pion_sweep_axis(
+        Ph_pad.data_ptr(), mask_ptr, out.data_ptr(), dt_t.data_ptr(),
+        ch_t.data_ptr(), cfg.ndim, nz, ny, nx, axis, cfg.nvar,
+        1 if cfg.eqn is Eqn.GLM else 0, 1 if cfg.av is AV.FALLE else 0,
+        order, clamp, bits, *consts,
+        torch.cuda.current_stream(Ph_pad.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sweep_axis kernel launch failed: CUDA error {err}")
+    sweep_axis.launches += 1
+    return out
+
+
+sweep_axis.launches = 0
+
+
+def sweep_axis_plain(Ph_pad, cfg: SimConfig, geom: Geometry, axis: int,
+                     order: int, dt, ch=None, scma=False) -> torch.Tensor:
+    """The plain PyTorch version of :func:`sweep_axis`."""
+    return dynamics_dU(Ph_pad, cfg, geom, dt, order, ch=ch, scma=scma,
+                       axes=[axis])[0]
+
+
+def final_axis(P: torch.Tensor, Ph_pad: torch.Tensor,
+               contribs: Sequence[torch.Tensor], cfg: SimConfig,
+               geom: Geometry, order: int, dt, ch=None,
+               strong: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The new primitive state of a pure-dynamics partial update.
+
+    ``P`` is the base state (interior shape), ``Ph_pad`` the padded state
+    the fluxes are taken from, ``contribs`` the other axes' ``dt*dU``
+    (at most two).  Computes the axis-0 sweep, adds it and the contribs to
+    ``U(P)``, converts back with the floors and damps psi.  Neither ``P``
+    nor ``Ph_pad`` is written.
+    """
+    if not Ph_pad.is_cuda:
+        return final_axis_plain(P, Ph_pad, contribs, cfg, geom, order, dt,
+                                ch=ch)
+    if order not in (1, 2):
+        raise ValueError(f"bad order {order}")
+    if len(contribs) > 2:
+        raise ValueError("at most two contribs")
+    lib, mask_ptr, strong, (nz, ny, nx), consts = _launch_args(
+        Ph_pad, cfg, geom, strong)
+    interior = (cfg.nvar,) + tuple(cfg.shape)
+    _check_state("P", P, interior, Ph_pad)
+    for i, c in enumerate(contribs):
+        _check_state(f"contribs[{i}]", c, interior, Ph_pad)
+    dt_t = _scalar(dt, Ph_pad)
+    if cfg.eqn is Eqn.GLM and ch is None:
+        ch = cfg.cfl * geom.dx / dt_t
+    ch_t = _scalar(ch, Ph_pad)
+    cptr = [c.data_ptr() for c in contribs] + [None, None]
+    out = torch.empty(interior, dtype=Ph_pad.dtype, device=Ph_pad.device)
+    err = lib.pion_final_axis(
+        Ph_pad.data_ptr(), mask_ptr, P.data_ptr(), cptr[0], cptr[1],
+        out.data_ptr(), dt_t.data_ptr(), ch_t.data_ptr(), cfg.ndim, nz, ny,
+        nx, cfg.nvar, 1 if cfg.eqn is Eqn.GLM else 0,
+        1 if cfg.av is AV.FALLE else 0, order, *consts,
+        torch.cuda.current_stream(Ph_pad.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"final_axis kernel launch failed: CUDA error {err}")
+    final_axis.launches += 1
+    return out
+
+
+final_axis.launches = 0
+
+
+def final_axis_plain(P, Ph_pad, contribs, cfg: SimConfig, geom: Geometry,
+                     order: int, dt, ch=None) -> torch.Tensor:
+    """The plain PyTorch version of :func:`final_axis`: the axis-0 sweep,
+    then the conserved update, the floors and the psi damping in the order
+    the kernel applies them."""
+    if cfg.eqn is Eqn.GLM and ch is None:
+        ch = cfg.cfl * geom.dx / dt
+    U = prim_to_cons(P, cfg) + sweep_axis_plain(Ph_pad, cfg, geom, 0, order,
+                                                dt, ch=ch)
+    for c in contribs:
+        U = U + c
+    Pn = cons_to_prim(U, cfg)
+    if cfg.eqn is Eqn.GLM:
+        cr = cfg.glm_cr_factor / geom.dx
+        # Pn was created just above, so it is damped in place
+        Pn[SI] *= torch.exp(torch.as_tensor(-dt * ch * cr, dtype=Pn.dtype,
+                                            device=Pn.device))
+    return Pn
+
+
+def advance_dynamics(P: torch.Tensor, Ph_pad: torch.Tensor, cfg: SimConfig,
+                     geom: Geometry, dt, order: int, ch=None) -> torch.Tensor:
+    """One fused pure-dynamics partial update: ``P + dt*dU[Ph] -> P-new``.
+
+    The transverse axes run :func:`sweep_axis`; the axis-0 launch of
+    :func:`final_axis` also applies the conserved update, the floors and the
+    GLM psi damping.  The fallback mask is one plain pass shared by the
+    launches.  Only valid when no microphysics or conduction term joins the
+    update."""
+    if not supports(cfg):
+        raise ValueError("configuration outside fused_sweep.supports()")
+    if cfg.eqn is Eqn.GLM and ch is None:
+        ch = cfg.cfl * geom.dx / dt
+    strong = None
+    if Ph_pad.is_cuda and _uses_mask(cfg):
+        strong = hlld_fallback_cells(Ph_pad, cfg, geom.dx)
+    contribs = [sweep_axis(Ph_pad, cfg, geom, axis, order, dt, ch=ch,
+                           strong=strong)
+                for axis in range(1, cfg.ndim)]
+    return final_axis(P, Ph_pad, contribs, cfg, geom, order, dt, ch=ch,
+                      strong=strong)
