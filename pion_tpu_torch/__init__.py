@@ -1,9 +1,11 @@
 """pion_tpu_torch: the PyTorch/CUDA port of the pion_tpu finite-volume MHD
 framework, for NVIDIA Hopper GPUs.
 
-Plain tensor code is PyTorch; the fused sweep kernels are CUDA C++ under
-``csrc/``, built at first use.  Ported so far: single-grid Cartesian MHD and
-GLM-MHD dynamics (HLL/HLLD, Falle viscosity, tracers) driven by
+Plain tensor code is PyTorch; the fused kernels are CUDA C++ under ``csrc/``,
+built at first use.  Ported so far: single-grid Cartesian MHD and GLM-MHD
+dynamics (HLL/HLLD, Falle viscosity, tracers), MPv3 chemistry
+(:mod:`.microphysics`), point-source and parallel-ray raytracing
+(:mod:`.raytracing`) and their coupling (:mod:`.physics`), driven by
 :class:`Simulation`.
 """
 from .config import SimConfig

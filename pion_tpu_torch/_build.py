@@ -8,8 +8,10 @@ sources and the flags: a changed source builds anew, an unchanged one is
 loaded from disk.  The build happens at first use, never at import, so the
 package imports on a machine without a CUDA toolkit.
 
-One library per (scalar type, Riemann solver); :func:`load_all` starts every
-missing build at once, one ``nvcc`` process each.
+One library per translation unit and scalar type: ``sweep.cu`` once per
+(scalar type, Riemann solver), ``mpv3.cu`` and ``trace.cu`` once per scalar
+type.  :func:`load_all` starts every missing build at once, one ``nvcc``
+process each.
 """
 from __future__ import annotations
 
@@ -25,14 +27,22 @@ from typing import Dict, Tuple
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
-SOURCES = ("sweep.cu", "riemann_mhd.cuh", "eqns.cuh")
+# every file a translation unit is made of: a change to any rebuilds all
+SOURCES = ("sweep.cu", "riemann_mhd.cuh", "eqns.cuh", "mpv3.cu", "trace.cu")
 
-# (dtype name, solver name) -> compile-time definitions of sweep.cu
-VARIANTS: Dict[Tuple[str, str], Tuple[str, ...]] = {
-    ("float32", "hll"): ("-DPION_REAL=float", "-DPION_SOLVER=0"),
-    ("float32", "hlld"): ("-DPION_REAL=float", "-DPION_SOLVER=1"),
-    ("float64", "hll"): ("-DPION_REAL=double", "-DPION_SOLVER=0"),
-    ("float64", "hlld"): ("-DPION_REAL=double", "-DPION_SOLVER=1"),
+_REAL = {"float32": "-DPION_REAL=float", "float64": "-DPION_REAL=double"}
+
+# library key -> (translation unit, compile-time definitions).  The sweep
+# libraries keep their two-part key (dtype name, solver name).
+VARIANTS: Dict[Tuple[str, ...], Tuple[str, Tuple[str, ...]]] = {
+    ("float32", "hll"): ("sweep.cu", (_REAL["float32"], "-DPION_SOLVER=0")),
+    ("float32", "hlld"): ("sweep.cu", (_REAL["float32"], "-DPION_SOLVER=1")),
+    ("float64", "hll"): ("sweep.cu", (_REAL["float64"], "-DPION_SOLVER=0")),
+    ("float64", "hlld"): ("sweep.cu", (_REAL["float64"], "-DPION_SOLVER=1")),
+    ("mpv3", "float32"): ("mpv3.cu", (_REAL["float32"],)),
+    ("mpv3", "float64"): ("mpv3.cu", (_REAL["float64"],)),
+    ("trace", "float32"): ("trace.cu", (_REAL["float32"],)),
+    ("trace", "float64"): ("trace.cu", (_REAL["float64"],)),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -40,13 +50,30 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_long
 _D = ctypes.c_double
 _SWEEP_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                ctypes.c_ulonglong, _D, _D, _D, _D, _D, _D, _P]
 _FINAL_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                _D, _D, _D, _D, _D, _D, _P]
+_DP = ctypes.POINTER(ctypes.c_double)
+_MP_HEAD = [_P, _P, _P, _P, _I, _P, _P, _P]           # cells, sources, tables
+_MP_TAIL = [_L, _I, _I, _DP, _I, _I]                  # n, modes, constants
+_YDOT_ARGS = _MP_HEAD + [_P, _P] + _MP_TAIL + [_P]
+_UPDATE_ARGS = (_MP_HEAD + [_P, _P, _P, _P, _P, _P] + _MP_TAIL
+                + [_I, _I, _D, _P])
+_TRACE_ARGS = [_P, _P, _I, _I, _I, _I, _I, _I, _D, _P]
 
-_libs: Dict[Tuple[str, str], ctypes.CDLL] = {}
+# C functions of each translation unit: name -> argument types
+_FUNCTIONS = {
+    "sweep.cu": {"pion_sweep_axis": _SWEEP_ARGS,
+                 "pion_final_axis": _FINAL_ARGS},
+    "mpv3.cu": {"pion_mpv3_ydot": _YDOT_ARGS,
+                "pion_mpv3_update": _UPDATE_ARGS},
+    "trace.cu": {"pion_octant_trace": _TRACE_ARGS},
+}
+
+_libs: Dict[Tuple[str, ...], ctypes.CDLL] = {}
 _info: Dict[str, dict] = {}
 
 
@@ -74,21 +101,23 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _paths(key: Tuple[str, str], digest: str) -> Tuple[str, str]:
-    stem = f"libpion_sweep_{key[0]}_{key[1]}_{digest}"
+def _paths(key: Tuple[str, ...], digest: str) -> Tuple[str, str]:
+    unit = VARIANTS[key][0][:-3]
+    tag = "_".join(k for k in key if k != unit)
+    stem = f"libpion_{unit}_{tag}_{digest}"
     return (os.path.join(BUILD_DIR, stem + ".so"),
             os.path.join(BUILD_DIR, stem + ".log"))
 
 
 def _short_name(mangled: str) -> str:
     """``sweep_axis<f,1,1,1,2>`` from a mangled kernel name: scalar type,
-    then EQN, SOLVER, AV, ORDER (and K for the final-axis kernel)."""
-    m = re.search(r"(sweep_axis|final_axis)_kernelI([fd])((?:Li\d+E)+)E",
-                  mangled)
+    then the kernel's integer template arguments."""
+    m = re.search(r"\d([a-z_]+)_kernelI([fd])((?:Li\d+E)*)E", mangled)
     if not m:
         return mangled
-    return (f"{m.group(1)}<{m.group(2)},"
-            + ",".join(re.findall(r"Li(\d+)E", m.group(3))) + ">")
+    return (f"{m.group(1)}<"
+            + ",".join([m.group(2)] + re.findall(r"Li(\d+)E", m.group(3)))
+            + ">")
 
 
 def parse_ptxas(log: str) -> list:
@@ -116,12 +145,12 @@ def parse_ptxas(log: str) -> list:
     return out
 
 
-def _bind(path: str) -> ctypes.CDLL:
+def _bind(path: str, unit: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
-    lib.pion_sweep_axis.argtypes = _SWEEP_ARGS
-    lib.pion_sweep_axis.restype = _I
-    lib.pion_final_axis.argtypes = _FINAL_ARGS
-    lib.pion_final_axis.restype = _I
+    for name, argtypes in _FUNCTIONS[unit].items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I
     return lib
 
 
@@ -143,8 +172,9 @@ def load_all() -> dict:
         # build under a private name and rename when complete, so that a
         # build that was cut off never leaves a library that loads
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, *VARIANTS[key], "-I", CSRC,
-               "-o", tmp, os.path.join(CSRC, "sweep.cu")]
+        unit, defs = VARIANTS[key]
+        cmd = [_nvcc(), *NVCC_FLAGS, *defs, "-I", CSRC,
+               "-o", tmp, os.path.join(CSRC, unit)]
         logf = open(log, "w")
         procs.append((key, tmp, so, log, logf,
                       subprocess.Popen(cmd, stdout=logf,
@@ -155,7 +185,8 @@ def load_all() -> dict:
         logf.close()
         if rc != 0:
             with open(log) as f:
-                failed.append(f"{key}: nvcc exit {rc}\n{f.read()[-4000:]}")
+                # the first errors say the most
+                failed.append(f"{key}: nvcc exit {rc}\n{f.read()[:5000]}")
             continue
         os.replace(tmp, so)
     if failed:
@@ -163,7 +194,7 @@ def load_all() -> dict:
     for key in keys:
         so, log = _paths(key, digest)
         if key not in _libs:
-            _libs[key] = _bind(so)
+            _libs[key] = _bind(so, VARIANTS[key][0])
         if os.path.exists(log):
             with open(log) as f:
                 _info["_".join(key)] = parse_ptxas(f.read())
@@ -172,12 +203,25 @@ def load_all() -> dict:
                          for k in keys}}
 
 
-def get_lib(dtype_name: str, solver_name: str) -> ctypes.CDLL:
-    """The loaded library for one (dtype, solver), building every variant
-    that is still missing at first use."""
-    key = (dtype_name, solver_name)
+def _get(key: Tuple[str, ...]) -> ctypes.CDLL:
     if key not in VARIANTS:
         raise ValueError(f"no kernel build for {key}")
     if key not in _libs:
         load_all()
     return _libs[key]
+
+
+def get_lib(dtype_name: str, solver_name: str) -> ctypes.CDLL:
+    """The loaded sweep library for one (dtype, solver), building every
+    library that is still missing at first use."""
+    return _get((dtype_name, solver_name))
+
+
+def get_mpv3_lib(dtype_name: str) -> ctypes.CDLL:
+    """The loaded MPv3 chemistry library for one dtype."""
+    return _get(("mpv3", dtype_name))
+
+
+def get_trace_lib(dtype_name: str) -> ctypes.CDLL:
+    """The loaded octant-trace library for one dtype."""
+    return _get(("trace", dtype_name))

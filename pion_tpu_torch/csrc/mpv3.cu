@@ -1,0 +1,640 @@
+// MPv3 chemistry kernels for Hopper (sm_90a): the ODE right-hand side of every
+// cell (ydot_kernel) and the whole cell update — forward Euler or a
+// backward-Euler Newton ladder — of every cell (update_kernel).
+//
+// Replaces the TPU kernels of pion_tpu/microphysics/pallas_mpv3.py:
+//   ydot_kernel    <- ydot_pallas    (the pallas_call at :314)
+//   update_kernel  <- update_pallas  (the pallas_call at :489)
+//
+// What they compute is MPv3.ydot term by term (reference: MPv3.cpp:1619-1936)
+// and the integrator of update_pallas.  What is not carried over is the TPU's
+// tiling: the hat-basis matrix products that stood in for table lookups are
+// plain reads here — the rate curves (11 x NT) and, where they fit beside them
+// in the 48 KB a block gets without opting in, the per-source tau tables
+// (K x 4 x NTAU) are staged in shared memory once a block; tau tables that do
+// not fit are read in place (L1/L2).  The bin index is arithmetic (the grids
+// are log-uniform), and a lookup is two reads.  The number of ionizing sources
+// K is a run-time loop over a table of plane pointers in device memory, so a
+// launch takes any K.
+//
+// One thread block owns one TILE of 1024 consecutive cells of the flattened
+// grid, 256 threads with 4 cells each.  The tile is the integrator's unit of
+// adaptivity and must stay so: a tile takes its substep count from its own
+// largest relative change among the cells past the Euler cutoff, skips the
+// ladder when it has none, and stops each Newton iteration on its own largest
+// correction — block-wide reductions.  Cells beyond the end of the grid in
+// the last tile take part with benign values (1-x 0.5, E 1, nH 1, tau 1e6,
+// ds 0), as the padded lanes of the TPU kernel do.
+//
+// The Newton step needs the exact 2x2 Jacobian of ydot.  ydot_cell is one
+// template on its scalar type; the update instantiates it with a forward-mode
+// dual number carrying two tangents (d/d(1-x), d/dE), the ydot kernel with
+// the plain scalar: the two kernels share the formulas letter for letter.
+// Derivative conventions follow the JAX package: max/min give half the
+// tangent at a tie (a cell sitting exactly on MIN_NEUTRAL is common), integer
+// bin indices carry none.
+//
+// Bound: bytes for ydot_kernel and for an Euler-only update (8 planes read, 2
+// written for one source; ~250 flops and ~12 transcendentals a cell are well
+// under the card's rate for that many bytes).  A tile that runs the ladder
+// does up to 32 x 8 dual-number evaluations a cell and is bound by
+// operations; how many tiles do depends on the state.  The column to a cell's
+// entry does not change through the ladder, so its four-curve lookup is made
+// once per cell before the ladder for the first HOIST sources and handed to
+// every evaluation (further sources repeat it at each evaluation: the same
+// values, more work).
+// This first version still re-reads a cell's other inputs from global memory
+// (L1/L2) at every evaluation: the registers of a dual-number evaluation are
+// the scarcer resource.
+//
+// Compiled once per scalar type (-DPION_REAL=float|double), without
+// --use_fast_math: exp, log and division keep their IEEE rounding and
+// subnormals are kept, so the kernels stay within rounding of their plain
+// PyTorch versions (pion_tpu_torch/microphysics/fused_mpv3.py).
+#include <cuda_runtime.h>
+#include <math.h>
+
+#ifndef PION_REAL
+#define PION_REAL float
+#endif
+
+namespace pion {
+
+constexpr int TILE = 1024;     // cells a block owns: the unit of adaptivity
+constexpr int THREADS = 256;
+constexpr int CPT = TILE / THREADS;
+constexpr int HOIST = 4;       // sources whose tau0 lookup is kept through the ladder
+constexpr int NCURVE = 10;     // temperature curves after the grid row
+
+constexpr double MIN_NEUTRAL = 1.0e-20;
+constexpr double EULER_CUTOFF = 0.05;
+constexpr double SIGMA0 = 6.3042e-18;
+constexpr double E_EXCESS = 8.01e-12;
+constexpr double LOGTEN = 2.302585092994046;
+
+enum { ION_NONE = 0, ION_MONO = 1, ION_MFION = 2 };
+
+// ---------------------------------------------------------------------------
+// scalar maths, overloaded so that one formula serves float and double
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float m_exp(float x) { return expf(x); }
+__device__ __forceinline__ double m_exp(double x) { return exp(x); }
+__device__ __forceinline__ float m_log(float x) { return logf(x); }
+__device__ __forceinline__ double m_log(double x) { return log(x); }
+__device__ __forceinline__ float m_log10(float x) { return log10f(x); }
+__device__ __forceinline__ double m_log10(double x) { return log10(x); }
+__device__ __forceinline__ float m_sqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double m_sqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float m_pow(float x, float p) { return powf(x, p); }
+__device__ __forceinline__ double m_pow(double x, double p) { return pow(x, p); }
+__device__ __forceinline__ float m_abs(float x) { return fabsf(x); }
+__device__ __forceinline__ double m_abs(double x) { return fabs(x); }
+__device__ __forceinline__ float m_ceil(float x) { return ceilf(x); }
+__device__ __forceinline__ double m_ceil(double x) { return ceil(x); }
+
+// max that hands a NaN on, as the reductions of the plain version do
+template <class R>
+__device__ __forceinline__ R nan_max(R a, R b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return a > b ? a : b;
+}
+
+// ---------------------------------------------------------------------------
+// forward-mode dual number with two tangents
+// ---------------------------------------------------------------------------
+template <class R>
+struct Dual {
+  R v, a, b;
+};
+
+__device__ __forceinline__ float val(float x) { return x; }
+__device__ __forceinline__ double val(double x) { return x; }
+template <class R> __device__ __forceinline__ R val(const Dual<R>& x) { return x.v; }
+
+#define PION_DD template <class R> __device__ __forceinline__ Dual<R>
+PION_DD operator-(const Dual<R>& x) { return {-x.v, -x.a, -x.b}; }
+PION_DD operator+(const Dual<R>& x, const Dual<R>& y) { return {x.v + y.v, x.a + y.a, x.b + y.b}; }
+PION_DD operator+(const Dual<R>& x, R y) { return {x.v + y, x.a, x.b}; }
+PION_DD operator+(R x, const Dual<R>& y) { return {x + y.v, y.a, y.b}; }
+PION_DD operator-(const Dual<R>& x, const Dual<R>& y) { return {x.v - y.v, x.a - y.a, x.b - y.b}; }
+PION_DD operator-(const Dual<R>& x, R y) { return {x.v - y, x.a, x.b}; }
+PION_DD operator-(R x, const Dual<R>& y) { return {x - y.v, -y.a, -y.b}; }
+PION_DD operator*(const Dual<R>& x, const Dual<R>& y) {
+  return {x.v * y.v, x.a * y.v + x.v * y.a, x.b * y.v + x.v * y.b};
+}
+PION_DD operator*(const Dual<R>& x, R y) { return {x.v * y, x.a * y, x.b * y}; }
+PION_DD operator*(R x, const Dual<R>& y) { return {x * y.v, x * y.a, x * y.b}; }
+PION_DD operator/(const Dual<R>& x, const Dual<R>& y) {
+  const R q = x.v / y.v;
+  return {q, (x.a - q * y.a) / y.v, (x.b - q * y.b) / y.v};
+}
+PION_DD operator/(const Dual<R>& x, R y) { return {x.v / y, x.a / y, x.b / y}; }
+PION_DD operator/(R x, const Dual<R>& y) {
+  const R q = x / y.v;
+  return {q, -q * y.a / y.v, -q * y.b / y.v};
+}
+PION_DD m_exp(const Dual<R>& x) {
+  const R e = m_exp(x.v);
+  return {e, e * x.a, e * x.b};
+}
+PION_DD m_log(const Dual<R>& x) { return {m_log(x.v), x.a / x.v, x.b / x.v}; }
+PION_DD m_log10(const Dual<R>& x) {
+  const R d = x.v * R(LOGTEN);
+  return {m_log10(x.v), x.a / d, x.b / d};
+}
+PION_DD m_sqrt(const Dual<R>& x) {
+  const R s = m_sqrt(x.v);
+  const R d = R(0.5) / s;
+  return {s, d * x.a, d * x.b};
+}
+PION_DD m_pow(const Dual<R>& x, R p) {
+  const R d = p * m_pow(x.v, p - R(1));
+  return {m_pow(x.v, p), d * x.a, d * x.b};
+}
+#undef PION_DD
+
+// max/min against a constant or another value: the larger (smaller) operand's
+// tangent, half of each at a tie
+__device__ __forceinline__ float m_max(float x, float c) { return x > c ? x : c; }
+__device__ __forceinline__ double m_max(double x, double c) { return x > c ? x : c; }
+__device__ __forceinline__ float m_min(float x, float c) { return x < c ? x : c; }
+__device__ __forceinline__ double m_min(double x, double c) { return x < c ? x : c; }
+template <class R>
+__device__ __forceinline__ Dual<R> m_max(const Dual<R>& x, R c) {
+  if (x.v > c) return x;
+  if (x.v < c) return {c, R(0), R(0)};
+  return {c, R(0.5) * x.a, R(0.5) * x.b};
+}
+template <class R>
+__device__ __forceinline__ Dual<R> m_min(const Dual<R>& x, R c) {
+  if (x.v < c) return x;
+  if (x.v > c) return {c, R(0), R(0)};
+  return {c, R(0.5) * x.a, R(0.5) * x.b};
+}
+template <class R>
+__device__ __forceinline__ Dual<R> m_max(const Dual<R>& x, const Dual<R>& y) {
+  if (x.v > y.v) return x;
+  if (x.v < y.v) return y;
+  return {x.v, R(0.5) * (x.a + y.a), R(0.5) * (x.b + y.b)};
+}
+
+// ---------------------------------------------------------------------------
+// what a launch is given
+// ---------------------------------------------------------------------------
+template <class R>
+struct Params {
+  R gm1, kB, n_ion, n_elec, Z, Tmin, Tmax;
+  R lt0, inv_dlt;                  // log10 T grid: origin and bins per dex
+  R ltau0, inv_dltau, tau_lo, tau_hi;
+  R mono_frac;
+  int nt, ntau, K;
+  long n;                          // cells of the grid
+  const R* omx;
+  const R* E;
+  const R* nH;
+  // device array of 4 pointers a source: the planes of the column to the
+  // cell's entry, of the path length through the cell and of Ndot/Vshell
+  // (mono) or scale/Vshell (mfion), then the (4, NTAU) log10 rate tables
+  const R* const* src;
+  int stage_tau;                   // the tau tables fit in shared memory
+  const R* g0uv;
+  const R* g0ir;
+  const R* t1;                     // (11, NT): the T grid, then the 10 curves
+};
+
+enum { SRC_TAU0 = 0, SRC_DS = 1, SRC_NVSV = 2, SRC_TAB = 3 };
+
+// Stage the tables in shared memory: [11*nt | K*4*ntau], the second part
+// only where it fits.
+template <class R>
+__device__ void stage_tables(const Params<R>& p, R* s_t1, R* s_tau, int ion) {
+  for (int i = threadIdx.x; i < (NCURVE + 1) * p.nt; i += blockDim.x) s_t1[i] = p.t1[i];
+  if (ion == ION_MFION && p.stage_tau) {
+    for (int k = 0; k < p.K; ++k) {
+      const R* tab = p.src[4 * k + SRC_TAB];
+      for (int i = threadIdx.x; i < 4 * p.ntau; i += blockDim.x)
+        s_tau[k * 4 * p.ntau + i] = tab[i];
+    }
+  }
+  __syncthreads();
+}
+
+// Source k's (4, NTAU) table: the staged copy, or the caller's in place.
+template <class R>
+__device__ __forceinline__ const R* tau_table(const Params<R>& p, const R* s_tau, int k) {
+  return p.stage_tau ? s_tau + k * 4 * p.ntau : p.src[4 * k + SRC_TAB];
+}
+
+// One curve of a tau table at fractional coordinate (i, w).
+template <class R, class S>
+__device__ __forceinline__ S tau_curve(const R* tab, int ntau, int c, int i, const S& w) {
+  const R lo = tab[c * ntau + i];
+  const R hi = tab[c * ntau + i + 1];
+  return m_exp(R(LOGTEN) * (lo + w * (hi - lo)));
+}
+
+// Bin and clipped weight of a column density on the log10 tau grid.
+template <class R, class S>
+__device__ __forceinline__ void tau_coord(const Params<R>& p, const S& tau, int& i, S& w) {
+  const S lt = m_log10(m_min(m_max(tau, p.tau_lo), p.tau_hi));
+  const S f = (lt - p.ltau0) * p.inv_dltau;
+  i = (int)val(f);
+  i = i < 0 ? 0 : (i > p.ntau - 2 ? p.ntau - 2 : i);
+  w = m_min(m_max(f - R(i), R(0)), R(1));
+}
+
+// The four curves of a source's table at the column to the cell's entry.
+template <class R>
+__device__ __forceinline__ void tau0_curves(const Params<R>& p, const R* tab, R tau0, R* out) {
+  int i0;
+  R w0;
+  tau_coord<R, R>(p, tau0, i0, w0);
+  for (int c = 0; c < 4; ++c) out[c] = tau_curve<R, R>(tab, p.ntau, c, i0, w0);
+}
+
+// The right-hand side of one cell: MPv3.ydot term by term.  S is R or
+// Dual<R>.  idx/valid address the per-source planes; a cell past the end of
+// the grid takes the pad values.  r0: the cell's tau0_curves of the first
+// HOIST sources (4 a source) made beforehand, or null to make them here.
+template <class R, class S, int ION, int UV>
+__device__ void ydot_cell(const Params<R>& p, const R* s_t1, const R* s_tau, long idx,
+                          bool valid, const S& omx_in, const S& Eint, R nH, const R* r0,
+                          S& omx_dot, S& Edot) {
+  const S omx = m_max(omx_in, R(MIN_NEUTRAL));
+  const S x = R(1) - omx;
+  const S ntot = (p.n_ion + p.n_elec * x) * nH;
+  const S T = p.gm1 * Eint / (p.kB * ntot);
+  const S Tc = m_min(m_max(T, p.Tmin), p.Tmax);
+  const R expnh = m_exp(-nH / R(1.0e4));
+  const S ne = p.n_elec * x * nH + nH * R(1.5e-4) * p.Z * expnh;
+
+  // the ten temperature curves: bin from log10(Tc), weight from the stored grid
+  int iT = (int)((m_log10(val(Tc)) - p.lt0) * p.inv_dlt);
+  iT = iT < 0 ? 0 : (iT > p.nt - 2 ? p.nt - 2 : iT);
+  const R Tg0 = s_t1[iT], Tg1 = s_t1[iT + 1];
+  const S wT = (Tc - Tg0) / (Tg1 - Tg0);
+#define PION_CURVE(k) \
+  (s_t1[((k) + 1) * p.nt + iT] + wT * (s_t1[((k) + 1) * p.nt + iT + 1] - s_t1[((k) + 1) * p.nt + iT]))
+  const S cirh = PION_CURVE(0), C_cih0 = PION_CURVE(1), rrhp = PION_CURVE(2);
+  const S C_rrh = PION_CURVE(3), C_ffhe = PION_CURVE(4), C_cxh0 = PION_CURVE(5);
+  const S C_fbdn = PION_CURVE(6), C_cie = PION_CURVE(7), C_cxch = PION_CURVE(8);
+  const S C_cxo = PION_CURVE(9);
+#undef PION_CURVE
+
+  // Wolfire+ (2003) closed forms in (T, ne)
+  const S lnT = m_log(Tc);
+  const S sqT = m_sqrt(Tc);
+  const S H_pah = R(1.083e-25) * p.Z / (R(1) + R(9.77e-3) * m_pow(sqT / ne, R(0.73)));
+  const S C_pah = R(3.02e-30) * p.Z *
+                  m_exp(R(0.94) * lnT + R(0.74) * m_pow(Tc, R(-0.068)) * m_log(R(3.4) * sqT / ne)) *
+                  ne;
+  const S C_cxce = R(1.4e-23) * p.Z * m_exp(R(-0.5) * lnT - R(92.0) / Tc) * ne /
+                   (R(1) + R(0.05) * ne * m_pow(Tc / R(2000.0), R(-0.37)));
+
+  // collisional ionization + cooling
+  omx_dot = -(cirh * ne * omx);
+  Edot = -(C_cih0 * ne * omx);
+
+  // photoionization, summed over the ionizing sources
+  if (ION != ION_NONE) {
+    for (int k = 0; k < p.K; ++k) {
+      const R tau0 = valid ? p.src[4 * k + SRC_TAU0][idx] : R(1.0e6);
+      const R ds = valid ? p.src[4 * k + SRC_DS][idx] : R(0);
+      const R nv = valid ? p.src[4 * k + SRC_NVSV][idx] : R(0);
+      if (ION == ION_MONO) {
+        const S dtau = nH * ds * omx * R(SIGMA0) * p.mono_frac;
+        R rate0 = nv * m_exp(-tau0 * p.mono_frac);
+        const S att = val(dtau) < R(1.0e-4) ? dtau : R(1) - m_exp(-dtau);
+        const S rate = rate0 * att / nH;
+        omx_dot = omx_dot - rate;
+        Edot = Edot + rate * R(E_EXCESS);
+      } else {
+        const S dtau_cur = nH * ds * omx * R(SIGMA0);
+        const R* tab = tau_table(p, s_tau, k);
+        R here[4];
+        const R* c0 = here;      // rate, heat and their low-tau slopes at tau0
+        if (r0 != nullptr && k < HOIST) {
+          c0 = r0 + 4 * k;
+        } else {
+          tau0_curves<R>(p, tab, tau0, here);
+        }
+        S pir, pih;
+        if (val(dtau_cur) < R(0.01)) {
+          pir = c0[2] * dtau_cur / (R(SIGMA0) * nH);
+          pih = c0[3] * dtau_cur / (R(SIGMA0) * nH);
+        } else {
+          int i1;
+          S w1;
+          tau_coord<R, S>(p, tau0 + dtau_cur, i1, w1);
+          pir = c0[0] - tau_curve<R, S>(tab, p.ntau, 0, i1, w1);
+          pih = c0[1] - tau_curve<R, S>(tab, p.ntau, 1, i1, w1);
+        }
+        omx_dot = omx_dot - pir * nv / nH;
+        Edot = Edot + pih * nv / nH;
+      }
+    }
+  }
+
+  // recombination + cooling, He free-free, H0 collisional excitation
+  omx_dot = omx_dot + rrhp * x * ne;
+  Edot = Edot - C_rrh * x * ne;
+  Edot = Edot - C_ffhe * x * ne;
+  Edot = Edot - C_cxh0 * omx * ne;
+
+  // UV/IR heating (Henney+09)
+  if (UV) {
+    const R g0uv = valid ? p.g0uv[idx] : R(0);
+    const R g0ir = valid ? p.g0ir[idx] : R(0);
+    const R q = R(1) + R(3.0e4) / nH;
+    Edot = Edot + R(1.9e-26) * p.Z * g0uv / (R(1) + R(6.4) * (g0uv / nH));
+    Edot = Edot + R(7.7e-32) * p.Z * g0ir / (q * q);
+  }
+
+  // cosmic-ray heating and ionization, PAH heating
+  Edot = Edot + R(5.0e-28) * omx;
+  omx_dot = omx_dot - R(1.8e-17) * omx;
+  Edot = Edot + omx * H_pah;
+
+  // metal cooling: max(forbidden-line, CIE + CII-e)
+  const S fbdn = C_fbdn * x * ne;
+  const S cie = C_cie * x * x * nH + C_cxce;
+  Edot = Edot - m_max(fbdn, cie);
+
+  // CII/OI cooling by neutral H collisions, PAH cooling
+  Edot = Edot - C_cxch * nH * omx * expnh;
+  Edot = Edot - C_cxo * nH * omx;
+  Edot = Edot - C_pah;
+
+  Edot = Edot * nH;
+  // limit cooling near the temperature floor
+  if (val(Edot) < R(0) && val(T) < R(2) * p.Tmin) {
+    Edot = m_min(Edot * (T - p.Tmin) / p.Tmin, R(0));
+  }
+}
+
+// Largest value over the block, NaN handed on; every thread gets it.
+template <class R>
+__device__ R block_max(R v, R* scratch) {
+  for (int off = 16; off > 0; off >>= 1) v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, off));
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) scratch[warp] = v;
+  __syncthreads();
+  R out = scratch[0];
+  for (int w = 1; w < (THREADS + 31) / 32; ++w) out = nan_max(out, scratch[w]);
+  __syncthreads();
+  return out;
+}
+
+// ---------------------------------------------------------------------------
+// B4: ydot over the grid
+// ---------------------------------------------------------------------------
+template <class R, int ION, int UV>
+__global__ void __launch_bounds__(THREADS)
+    ydot_kernel(Params<R> p, R* __restrict__ out_o, R* __restrict__ out_e) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  R* s_t1 = reinterpret_cast<R*>(smem_raw);
+  R* s_tau = s_t1 + (NCURVE + 1) * p.nt;
+  stage_tables(p, s_t1, s_tau, ION);
+  const long base = (long)blockIdx.x * TILE;
+#pragma unroll 1
+  for (int j = 0; j < CPT; ++j) {
+    const long idx = base + j * THREADS + threadIdx.x;
+    if (idx >= p.n) continue;
+    R od, ed;
+    ydot_cell<R, R, ION, UV>(p, s_t1, s_tau, idx, true, p.omx[idx], p.E[idx], p.nH[idx], nullptr,
+                             od, ed);
+    out_o[idx] = od;
+    out_e[idx] = ed;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B3: the cell update, one tile a block
+// ---------------------------------------------------------------------------
+template <class R, int ION, int UV>
+__global__ void __launch_bounds__(THREADS)
+    update_kernel(Params<R> p, const R* __restrict__ dt_ptr, const R* __restrict__ f0o,
+                  const R* __restrict__ f0e, int n_sub, int n_newton, R tol,
+                  R* __restrict__ out_o, R* __restrict__ out_e, int* __restrict__ stats) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ R scratch[(THREADS + 31) / 32];
+  R* s_t1 = reinterpret_cast<R*>(smem_raw);
+  R* s_tau = s_t1 + (NCURVE + 1) * p.nt;
+  stage_tables(p, s_t1, s_tau, ION);
+  const R dt = *dt_ptr;
+  const long base = (long)blockIdx.x * TILE;
+
+  R o[CPT], e[CPT], o_eul[CPT], e_eul[CPT], nHc[CPT];
+  bool euler[CPT];
+  R stiff = R(0);
+#pragma unroll 1
+  for (int j = 0; j < CPT; ++j) {
+    const long idx = base + j * THREADS + threadIdx.x;
+    const bool valid = idx < p.n;
+    o[j] = valid ? p.omx[idx] : R(0.5);
+    e[j] = valid ? p.E[idx] : R(1);
+    nHc[j] = valid ? p.nH[idx] : R(1);
+    R f0v, f1v;
+    if (f0o != nullptr) {
+      // first evaluation handed over by the caller (pad cells: 0)
+      f0v = valid ? f0o[idx] : R(0);
+      f1v = valid ? f0e[idx] : R(0);
+    } else {
+      ydot_cell<R, R, ION, UV>(p, s_t1, s_tau, idx, valid, o[j], e[j], nHc[j], nullptr, f0v,
+                               f1v);
+    }
+    const R maxdelta = nan_max(m_abs(f0v * dt / o[j]), m_abs(f1v * dt / e[j]));
+    o_eul[j] = o[j] + dt * f0v;
+    e_eul[j] = e[j] + dt * f1v;
+    euler[j] = maxdelta < R(EULER_CUTOFF);
+    if (!euler[j]) stiff = nan_max(stiff, maxdelta);
+  }
+  const R stiffness = block_max(stiff, scratch);
+
+  if (stiffness > R(0)) {   // the same for every thread of the block
+    if (threadIdx.x == 0 && stats != nullptr) atomicAdd(stats, 1);
+    // the tile's substep count from its own stiffness, clipped as a real so
+    // that an infinite stiffness takes the most substeps
+    R nf = m_ceil(R(4) * stiffness);
+    nf = nf < R(2) ? R(2) : (nf > R(n_sub) ? R(n_sub) : nf);
+    const int n_eff = (int)nf;
+    const R h = dt / R(n_eff);
+    R op[CPT], ep[CPT];
+    // tau0 is constant through the ladder: its lookup is made once per cell
+    R r0[CPT][4 * HOIST];
+    if (ION == ION_MFION) {
+#pragma unroll 1
+      for (int j = 0; j < CPT; ++j) {
+        const long idx = base + j * THREADS + threadIdx.x;
+        for (int k = 0; k < p.K && k < HOIST; ++k)
+          tau0_curves<R>(p, tau_table(p, s_tau, k),
+                         idx < p.n ? p.src[4 * k + SRC_TAU0][idx] : R(1.0e6), r0[j] + 4 * k);
+      }
+    }
+    for (int s = 0; s < n_eff; ++s) {
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        op[j] = o[j];
+        ep[j] = e[j];
+      }
+      R err = R(INFINITY);
+      for (int it = 0; it < n_newton && err > tol; ++it) {
+        R lerr = R(0);
+#pragma unroll 1
+        for (int j = 0; j < CPT; ++j) {
+          const long idx = base + j * THREADS + threadIdx.x;
+          const Dual<R> od{o[j], R(1), R(0)};
+          const Dual<R> ed{e[j], R(0), R(1)};
+          Dual<R> fo, fe;
+          ydot_cell<R, Dual<R>, ION, UV>(p, s_t1, s_tau, idx, idx < p.n, od, ed, nHc[j],
+                                         ION == ION_MFION ? r0[j] : nullptr, fo, fe);
+          // g(y) = y - y_prev - h f(y);  J_g = I - h J_f
+          const R g0 = o[j] - op[j] - h * fo.v;
+          const R g1 = e[j] - ep[j] - h * fe.v;
+          const R a = R(1) - h * fo.a;
+          const R b = -h * fo.b;
+          const R cc = -h * fe.a;
+          const R d = R(1) - h * fe.b;
+          R det = a * d - b * cc;
+          // 1e-300 is 0 in float: the guard then only catches an exact zero
+          det = m_abs(det) > R(1e-300) ? det : R(1);
+          R d_o = (d * g0 - b * g1) / det;
+          R d_e = (a * g1 - cc * g0) / det;
+          d_o = m_min(m_max(d_o, R(-0.3)), R(0.3));
+          d_e = m_min(m_max(d_e, R(-0.6) * e[j]), R(0.6) * e[j]);
+          const R o_n = m_min(m_max(o[j] - d_o, R(MIN_NEUTRAL)), R(1.0 - MIN_NEUTRAL));
+          const R e_n = m_max(e[j] - d_e, R(1.0e-10) * ep[j]);
+          lerr = nan_max(lerr, m_abs(o_n - o[j]));
+          lerr = nan_max(lerr, m_abs((e_n - e[j]) / m_max(e[j], R(1e-300))));
+          o[j] = o_n;
+          e[j] = e_n;
+        }
+        err = block_max(lerr, scratch);
+        if (threadIdx.x == 0 && stats != nullptr) atomicAdd(stats + 1, 1);
+      }
+    }
+  }
+
+#pragma unroll 1
+  for (int j = 0; j < CPT; ++j) {
+    const long idx = base + j * THREADS + threadIdx.x;
+    if (idx >= p.n) continue;
+    out_o[idx] = euler[j] ? o_eul[j] : o[j];
+    out_e[idx] = euler[j] ? e_eul[j] : e[j];
+  }
+}
+
+}  // namespace pion
+
+using real = PION_REAL;
+using namespace pion;
+
+// consts: gm1, kB, n_ion, n_elec, Z, Tmin, Tmax, lt0, inv_dlt, ltau0,
+// inv_dltau, tau_lo, tau_hi, mono_frac (14 doubles on the host).
+// srcs: 4*K device pointers in device memory, source by source: tau0, ds,
+// nvsv, tau table (null unless mfion).
+static int make_params(Params<real>& p, const void* omx, const void* E, const void* nH,
+                       const void* srcs, int K, const void* g0uv, const void* g0ir,
+                       const void* t1, long n, int ion, int has_uv, const double* consts, int nt,
+                       int ntau) {
+  if (n <= 0 || nt < 2 || K < 0 || ion < ION_NONE || ion > ION_MFION) return 1;
+  if (ion != ION_NONE && (K < 1 || srcs == nullptr)) return 1;
+  if (ion == ION_MFION && ntau < 2) return 1;
+  if (has_uv && (g0uv == nullptr || g0ir == nullptr)) return 1;
+  p.gm1 = (real)consts[0];
+  p.kB = (real)consts[1];
+  p.n_ion = (real)consts[2];
+  p.n_elec = (real)consts[3];
+  p.Z = (real)consts[4];
+  p.Tmin = (real)consts[5];
+  p.Tmax = (real)consts[6];
+  p.lt0 = (real)consts[7];
+  p.inv_dlt = (real)consts[8];
+  p.ltau0 = (real)consts[9];
+  p.inv_dltau = (real)consts[10];
+  p.tau_lo = (real)consts[11];
+  p.tau_hi = (real)consts[12];
+  p.mono_frac = (real)consts[13];
+  p.nt = nt;
+  p.ntau = ntau;
+  p.K = ion == ION_NONE ? 0 : K;
+  p.n = n;
+  p.omx = (const real*)omx;
+  p.E = (const real*)E;
+  p.nH = (const real*)nH;
+  p.src = (const real* const*)srcs;
+  p.g0uv = (const real*)g0uv;
+  p.g0ir = (const real*)g0ir;
+  p.t1 = (const real*)t1;
+  return 0;
+}
+
+// Shared memory of a launch; sets p.stage_tau.  0: the temperature curves
+// alone do not fit.
+static size_t table_bytes(Params<real>& p, int ion) {
+  const size_t limit = 48 * 1024;
+  const size_t t1 = (size_t)(NCURVE + 1) * p.nt * sizeof(real);
+  const size_t tau = ion == ION_MFION ? (size_t)p.K * 4 * p.ntau * sizeof(real) : 0;
+  if (t1 > limit) return 0;
+  p.stage_tau = t1 + tau <= limit;
+  return p.stage_tau ? t1 + tau : t1;
+}
+
+#define PION_MP_DISPATCH(CALL)                        \
+  if (ion == ION_NONE) {                              \
+    if (has_uv) { CALL(ION_NONE, 1); } else { CALL(ION_NONE, 0); }   \
+  } else if (ion == ION_MONO) {                       \
+    if (has_uv) { CALL(ION_MONO, 1); } else { CALL(ION_MONO, 0); }   \
+  } else {                                            \
+    if (has_uv) { CALL(ION_MFION, 1); } else { CALL(ION_MFION, 0); } \
+  }
+
+// ydot of every cell.  Returns cudaGetLastError() of the launch, or
+// cudaErrorInvalidValue for arguments the kernel does not take (among them
+// temperature curves that do not fit in 48 KB of shared memory).
+extern "C" int pion_mpv3_ydot(const void* omx, const void* E, const void* nH,
+                              const void* srcs, int K, const void* g0uv, const void* g0ir,
+                              const void* t1, void* out_o, void* out_e, long n, int ion,
+                              int has_uv, const double* consts, int nt, int ntau, void* stream) {
+  Params<real> p;
+  if (make_params(p, omx, E, nH, srcs, K, g0uv, g0ir, t1, n, ion, has_uv, consts, nt, ntau))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = table_bytes(p, ion);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((n + TILE - 1) / TILE);
+  cudaStream_t s = (cudaStream_t)stream;
+#define PION_YDOT_CALL(I, U) \
+  ydot_kernel<real, I, U><<<blocks, THREADS, smem, s>>>(p, (real*)out_o, (real*)out_e)
+  PION_MP_DISPATCH(PION_YDOT_CALL)
+#undef PION_YDOT_CALL
+  return (int)cudaGetLastError();
+}
+
+// The update of every cell by *dt (a device scalar).  f0o/f0e: the caller's
+// first ydot evaluation, or null.  stats: two device ints to which the kernel
+// adds the number of tiles that ran the ladder and the Newton iterations they
+// took in all (diagnostics), or null.
+extern "C" int pion_mpv3_update(const void* omx, const void* E, const void* nH,
+                                const void* srcs, int K, const void* g0uv,
+                                const void* g0ir, const void* t1, const void* dt, const void* f0o,
+                                const void* f0e, void* out_o, void* out_e, void* stats,
+                                long n, int ion, int has_uv, const double* consts, int nt,
+                                int ntau, int n_sub, int n_newton, double tol, void* stream) {
+  Params<real> p;
+  if (make_params(p, omx, E, nH, srcs, K, g0uv, g0ir, t1, n, ion, has_uv, consts, nt, ntau))
+    return (int)cudaErrorInvalidValue;
+  if ((f0o == nullptr) != (f0e == nullptr) || dt == nullptr || n_sub < 2 || n_newton < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = table_bytes(p, ion);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((n + TILE - 1) / TILE);
+  cudaStream_t s = (cudaStream_t)stream;
+#define PION_UPDATE_CALL(I, U)                                                              \
+  update_kernel<real, I, U><<<blocks, THREADS, smem, s>>>(                                   \
+      p, (const real*)dt, (const real*)f0o, (const real*)f0e, n_sub, n_newton, (real)tol,    \
+      (real*)out_o, (real*)out_e, (int*)stats)
+  PION_MP_DISPATCH(PION_UPDATE_CALL)
+#undef PION_UPDATE_CALL
+  return (int)cudaGetLastError();
+}

@@ -269,6 +269,27 @@ def final_axis_plain(P, Ph_pad, contribs, cfg: SimConfig, geom: Geometry,
     return Pn
 
 
+def dynamics_dU_fused(Ph_pad: torch.Tensor, cfg: SimConfig, geom: Geometry,
+                      dt, order: int, ch=None, scma=False) -> torch.Tensor:
+    """``dt*dU`` of the whole sweep, every axis through :func:`sweep_axis`,
+    summed in ascending axis order (no face fluxes).  The partial update
+    takes this form when a microphysics term joins ``dU`` before the
+    conserved update, so that :func:`final_axis` cannot apply it."""
+    if not supports(cfg):
+        raise ValueError("configuration outside fused_sweep.supports()")
+    if cfg.eqn is Eqn.GLM and ch is None:
+        ch = cfg.cfl * geom.dx / dt
+    strong = None
+    if Ph_pad.is_cuda and _uses_mask(cfg):
+        strong = hlld_fallback_cells(Ph_pad, cfg, geom.dx)
+    dU = None
+    for axis in range(cfg.ndim):
+        contrib = sweep_axis(Ph_pad, cfg, geom, axis, order, dt, ch=ch,
+                             scma=scma, strong=strong)
+        dU = contrib if dU is None else dU.add_(contrib)
+    return dU
+
+
 def advance_dynamics(P: torch.Tensor, Ph_pad: torch.Tensor, cfg: SimConfig,
                      geom: Geometry, dt, order: int, ch=None) -> torch.Tensor:
     """One fused pure-dynamics partial update: ``P + dt*dU[Ph] -> P-new``.

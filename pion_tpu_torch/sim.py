@@ -38,7 +38,7 @@ class Simulation:
     opfreq: int = 0
     opfreq_time: float = 0.0
     checkpoint_freq: int = 0
-    physics: Optional[object] = None   # must be None: not ported yet
+    physics: Optional[object] = None   # pion_tpu_torch.physics.Physics
     log_freq: int = 0                  # per-step status line cadence
     # None: the CUDA device (raises if there is none); "cpu" on request
     device: Optional[object] = None
@@ -51,9 +51,6 @@ class Simulation:
             raise NotImplementedError("thermal conduction is not ported yet")
         if cfg.halo == "explicit" or cfg.mesh == "on":
             raise NotImplementedError("multi-device runs are not ported yet")
-        if self.physics is not None:
-            raise NotImplementedError(
-                "microphysics, radiation and winds are not ported yet")
         if (self.outfile is not None or self.opfreq or self.opfreq_time
                 or self.checkpoint_freq):
             raise NotImplementedError(_NO_IO)
@@ -74,8 +71,11 @@ class Simulation:
         self.geom: Geometry = make_geometry(cfg)
         self.bdata: BoundaryData = make_fixed_strips(
             P_host.astype(cfg.np_dtype), cfg)
+        if self.physics is not None:
+            # raises for what is not ported yet (stellar winds)
+            self.physics.setup(cfg, self.geom)
         self.fns = make_step_fns(cfg, self.geom, self.bdata,
-                                 device=self.device)
+                                 physics=self.physics, device=self.device)
 
     @classmethod
     def restart(cls, path: str, **kw) -> "Simulation":
@@ -102,8 +102,10 @@ class Simulation:
         return dt
 
     def step(self) -> float:
+        sp = (self.physics.update_sources(self.t)
+              if self.physics is not None and self.physics.sources else None)
         Pn, dt, dt_raw = self.fns.step(self.P, self.t, self.last_dt,
-                                       self._dt_cap())
+                                       self._dt_cap(), sp)
         # the step's one read-back from the device
         dt, dt_raw = torch.stack([dt, dt_raw]).tolist()
         if dt_raw < self.cfg.min_timestep:

@@ -26,7 +26,13 @@ def test_every_submodule_imports_without_jax_or_reference_package():
     names = _submodules()
     for needed in ("pion_tpu_torch.ops.fused_sweep", "pion_tpu_torch.sim",
                    "pion_tpu_torch._build", "pion_tpu_torch.convert",
-                   "pion_tpu_torch.ics.blast"):
+                   "pion_tpu_torch.ics.blast", "pion_tpu_torch.physics",
+                   "pion_tpu_torch.microphysics.tables",
+                   "pion_tpu_torch.microphysics.base",
+                   "pion_tpu_torch.microphysics.mpv3",
+                   "pion_tpu_torch.microphysics.fused_mpv3",
+                   "pion_tpu_torch.raytracing.tracer",
+                   "pion_tpu_torch.raytracing.fused_trace"):
         assert needed in names
     code = (
         "import importlib, sys\n"
@@ -65,12 +71,20 @@ def test_build_fails_loudly_without_a_compiler(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    try:
-        _build.get_lib("float32", "hlld")
-    except RuntimeError as e:
-        assert "nvcc" in str(e)
-    else:
-        raise AssertionError("expected a RuntimeError without nvcc")
+    for get in (lambda: _build.get_lib("float32", "hlld"),
+                lambda: _build.get_mpv3_lib("float64"),
+                lambda: _build.get_trace_lib("float32")):
+        try:
+            get()
+        except RuntimeError as e:
+            assert "nvcc" in str(e)
+        else:
+            raise AssertionError("expected a RuntimeError without nvcc")
+    # every translation unit is built once per variant from its own source
+    units = {unit for unit, _ in _build.VARIANTS.values()}
+    assert units == {"sweep.cu", "mpv3.cu", "trace.cu"} == set(_build._FUNCTIONS)
+    assert all(os.path.exists(os.path.join(_build.CSRC, f))
+               for f in _build.SOURCES)
     rows = _build.parse_ptxas(
         "ptxas info    : Compiling entry function "
         "'_ZN4pion17final_axis_kernelIdLi1ELi1ELi1ELi2ELi2EEEvPKT_' for 'sm_90a'\n"
@@ -78,3 +92,6 @@ def test_build_fails_loudly_without_a_compiler(monkeypatch, tmp_path):
         "ptxas info    : Used 168 registers, 680 bytes cmem[0]\n")
     assert rows == [{"kernel": "final_axis<d,1,1,1,2,2>", "registers": 168,
                      "spill_stores": 4, "spill_loads": 12}]
+    assert _build._short_name(
+        "_ZN4pion19octant_trace_kernelIfEEvPKT_PS1_NS_9TraceGeomES1_"
+    ) == "octant_trace<f>"

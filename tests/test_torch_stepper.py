@@ -146,14 +146,18 @@ def test_unported_io_and_physics_raise():
     cfg, Pt, _ = to_port(rcfg, noisy_state(rcfg, 17))
     with pytest.raises(NotImplementedError):
         Simulation(cfg, Pt, device="cpu", outfile="run")
+    # physics is ported but for the stellar winds
+    from pion_tpu_torch.physics import Physics
+
     with pytest.raises(NotImplementedError):
-        Simulation(cfg, Pt, device="cpu", physics=object())
+        Simulation(cfg, Pt, device="cpu",
+                   physics=Physics(wind_sources=[object()]))
     with pytest.raises(NotImplementedError):
         Simulation.restart("run.00000001")
     with pytest.raises(NotImplementedError):
         Simulation(cfg, Pt, device="cpu").save("run")
     with pytest.raises(NotImplementedError):
-        advance(Pt, DT, cfg, pion_tpu_torch.make_geometry(cfg),
-                physics=object())
+        advance(Pt, DT, dataclasses.replace(cfg, conduction=True),
+                pion_tpu_torch.make_geometry(cfg))
     with pytest.raises(ValueError, match="shape"):
         Simulation(cfg, Pt[:, :4], device="cpu")
