@@ -6,11 +6,13 @@
 
 Needs one CUDA device and ``nvcc``; there is no CPU mode.  It builds the CUDA
 kernels of ``pion_tpu_torch/csrc`` from source, holds each kernel against its
-plain PyTorch version on the card, then drives the port's two main paths
-through ``Simulation.run`` at 128^3 in float32 — the 3D GLM-MHD blast wave,
-and the photoionised H II region around an O star (MPv3 chemistry, point-source
-raytrace, GLM-MHD) — and checks that each run went through its kernels and
-that what came out is right.  Every phase prints one JSON line; any failed
+plain PyTorch version on the card, then drives the port's main paths at
+128^3 in float32 — the 3D GLM-MHD blast wave and the photoionised H II region
+around an O star (MPv3 chemistry, point-source raytrace, GLM-MHD) through
+``Simulation.run``, and the coupled flagship (a 2-level nested grid with that
+H II region and a magnetised stellar wind) through ``NGHierarchy.step`` — and
+checks that each run went through its kernels and that what came out is
+right.  Every phase prints one JSON line; any failed
 check raises, and the process then exits non-zero without the closing
 ``{"ok": true, ...}`` line.
 """
@@ -38,6 +40,15 @@ MP_SOURCE = "pion_tpu_torch/csrc/mpv3.cu"
 TRACE_SOURCE = "pion_tpu_torch/csrc/trace.cu"
 TOL = {torch.float64: 1.0e-10,   # same arithmetic, other order and FMA use
        torch.float32: 2.0e-5}    # FMA contraction and reassociation in float32
+
+
+_T_START = time.perf_counter()
+
+
+def elapsed_s() -> float:
+    """Seconds since the script began; every phase's record carries it, to
+    show where the script's time goes."""
+    return time.perf_counter() - _T_START
 
 
 def main_cfg(shape, dtype, **kw):
@@ -434,11 +445,13 @@ def check_mpv3(device, shape=(7, 33, 41)):
     with and without the caller's first evaluation, on a grid that is no
     multiple of the 1024-cell tile.  Five sources: more than the update keeps
     its column lookup for through the ladder, and in float64 more tables than
-    fit in shared memory."""
+    fit in shared memory.  This is the script's longest phase: the plain
+    ladder steps all tiles together, so each of its 24 runs costs the host up
+    to 32 substeps of 8 Newton iterations whatever the grid's size."""
     from pion_tpu_torch.microphysics import fused_mpv3 as fm
 
     worst = {}
-    ncase = 0
+    ncase = n_seeded = 0
     ladder = []
     for dtype in (torch.float64, torch.float32):
         wy = wu = ws = 0.0
@@ -459,15 +472,18 @@ def check_mpv3(device, shape=(7, 33, 41)):
                         f"{err:.3e} > {tol:.1e} ({dtype} ion={ion} K={k} "
                         f"uv={n_diff})")
                 wy = max(wy, err)
-            # the caller's first evaluation: once per dtype is enough
-            # and the step far too long once per rate model
-            seeded = ion == "mfion" and k == 1 and not n_diff
+            # the caller's first evaluation (as the nested-grid step hands
+            # the dt limit's ydot to each level's first predictor): once per
+            # dtype and rate model; and the step far too long once per rate
+            # model
+            seeded = ion is not None and k == 1 and not n_diff
             runs = [(1.0e3, None)]
             if seeded:
                 runs.append((1.0e3, ref))
             if ion is not None and k == 1 and not n_diff:
                 runs.append((1.0e9, None))
             for dt, f0 in runs:
+                n_seeded += f0 is not None
                 stats = torch.zeros(2, dtype=torch.int32, device=device)
                 got_u = fm.update(mp, omx, E, nH, dt, rt, f0=f0, stats=stats)
                 *ref_u, ref_stats = fm.update_plain(mp, omx, E, nH, dt, rt,
@@ -509,7 +525,7 @@ def check_mpv3(device, shape=(7, 33, 41)):
         worst[str(dtype).split(".")[-1]] = {"ydot": wy, "update": wu,
                                             "update_stiff": ws}
     ntile = -(-int(np.prod(shape)) // fm.TILE)
-    return worst, ncase, {"tiles": ntile,
+    return worst, ncase, {"tiles": ntile, "updates_with_f0": n_seeded,
                           "ladder_tiles_min": min(r[0] for r in ladder),
                           "ladder_tiles_max": max(r[0] for r in ladder),
                           "newton_iterations_kernel_vs_plain":
@@ -896,6 +912,7 @@ def device_time_by_kernel(run, steps: int, top_n: int = 10):
     # kernels only: an operator's row repeats the time of the kernels it
     # launched
     by_name = {}
+    n_kernels = 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -904,6 +921,7 @@ def device_time_by_kernel(run, steps: int, top_n: int = 10):
             us = getattr(e, "self_cuda_time_total", 0.0)
         if us > 0:
             by_name[e.key] = by_name.get(e.key, 0.0) + us
+            n_kernels += e.count
     dev_ms = sum(by_name.values()) / 1.0e3
     # names cut to 60 characters: instantiations that share the prefix add up
     short = {}
@@ -918,6 +936,8 @@ def device_time_by_kernel(run, steps: int, top_n: int = 10):
         "profiled_steps": steps,
         # null when the profiler saw no device activity
         "device_ms_per_step": dev_ms / steps if dev_ms > 0 else None,
+        # every kernel and device copy, PyTorch's and the port's
+        "device_launches_per_step": n_kernels / steps,
         "top_device_ms_per_step": {k: v / 1.0e3 / steps for k, v in top},
         "device_ms_per_step_by_group": {
             k: v / 1.0e3 / steps
@@ -1023,6 +1043,580 @@ def timed_run(sim, steps: int):
     return sec, torch.cuda.max_memory_allocated()
 
 
+# ---------------------------------------------------------------------------
+# the coupled flagship on a nested grid
+# ---------------------------------------------------------------------------
+
+# launches of one hierarchy step with 2 levels, one point source and the
+# chemistry dt limit: three level-advances (level 0 once, level 1 twice).
+# B1: 3 axes x (predictor + corrector) x 3.  B3: 2 x 3, two of them (the first
+# predictor of each level) seeded with B4's output.  B4: once a level, for the
+# dt limit.  B5: level 0 traces for the dt limit (shared with its predictor)
+# and for its corrector; level 1 the same on its first substep, and for
+# predictor and corrector on its second.
+NG_LAUNCHES = {"sweep_axis": 18, "final_axis": 0, "mpv3_update": 6,
+               "mpv3_ydot": 2, "octant_trace": 6}
+NG_SEEDED = 2
+
+
+def coupled_problem(n: int, dtype: str, kernels: str = "auto"):
+    """The coupled flagship: the H II region of :func:`hii_problem` on a
+    2-level nested grid of n^3 cells a level, with a magnetised stellar wind
+    (1e-6 Msun/yr, 2000 km/s, 10 G at the surface) blown from the star's
+    position inside a radius of six fine cells.  Returns (cfg, one state a
+    level, make_physics)."""
+    from pion_tpu_torch.constants import MSUN, YEAR
+    from pion_tpu_torch.physics import Physics
+    from pion_tpu_torch.winds import WindSource
+
+    cfg1, P0, make_hii = hii_problem(n, dtype, kernels)
+    cfg = dataclasses.replace(cfg1, nlevels=2)
+    ctr = tuple(0.5 * (lo + hi) for lo, hi in zip(cfg.xmin, cfg.xmax))
+    fine_dx = cfg.dx / 2
+
+    def make_physics():
+        hii = make_hii()
+        return Physics(mp=hii.mp, sources=hii.sources, dt_limit=True,
+                       wind_sources=[WindSource(
+                           position=ctr, radius=6.0 * fine_dx,
+                           mdot=1.0e-6 * MSUN / YEAR, vinf=2.0e8,
+                           t_wind=3.0e4, b_star=10.0, tracers=(1.0,))])
+
+    return cfg, [P0.copy(), P0.copy()], make_physics
+
+
+def time_steps(hier, steps: int):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        hier.step()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def level_errs(a: torch.Tensor, b: torch.Tensor, dx_over_dt: float) -> dict:
+    """max|a-b| / max|b| within each group of variables (mass, velocity,
+    pressure, field, psi, tracer); psi, which holds next to nothing but
+    rounding noise times the cleaning speed, is scaled by the field times
+    dx/dt where that is larger."""
+    from pion_tpu_torch.constants import BX, PG, RO, SI, VX
+
+    groups = {"mass": [RO], "velocity": [VX, VX + 1, VX + 2],
+              "pressure": [PG], "field": [BX, BX + 1, BX + 2],
+              "tracer": list(range(SI + 1, a.shape[0]))}
+    out = {k: grouped_err(a, b, [g]) for k, g in groups.items()}
+    psi_scale = max(float(b[SI].abs().max()),
+                    float(b[BX:BX + 3].abs().max()) * dx_over_dt)
+    out["psi"] = float((a[SI] - b[SI]).abs().max()) / psi_scale
+    return out
+
+
+# What the chemistry update writes: pressure and the ionization fraction.
+# There the kernel path and the plain path run two different integrators: the
+# kernel (and ``update_plain``, which ``measure_ng_physics`` holds it
+# against call by call on this very state) takes the substep count of its
+# Newton ladder from each 1024-cell tile's stiffness, the plain path's
+# ``MPv3._update_impl`` from the whole grid's.  After two hierarchy steps
+# (two or four updates a level) these groups may stand as far apart as one
+# call of the kernel may stand from its plain version (read: 5.5e-5 in the
+# pressure of level 1, in the heated cells beside the wind region, which take
+# the ladder at this run's dt of 300 to 1100 s; on that state one call of the
+# kernel stands 2e-7 from ``update_plain``, and ``update_plain`` 2.7e-5
+# from the whole-grid ladder, which ``measure_ng_physics`` prints).
+CHEMISTRY_GROUPS = ("pressure", "tracer")
+
+
+def clone_hierarchy(hier, cfg, physics):
+    """A new hierarchy on ``hier``'s states and clock."""
+    from pion_tpu_torch import NGHierarchy
+
+    h = NGHierarchy(cfg, hier.n_levels, physics=physics)
+    h.t, h.step_count, h.last_dt = hier.t, hier.step_count, hier.last_dt
+    h.set_states(hier.P)
+    return h
+
+
+def measure_ng_sweep(device, hier):
+    """B1 as the nested-grid path launches it on the fine level: the padded
+    state has prolonged ghosts instead of a domain boundary, the cell size is
+    half the root's, and the wind region holds cells of rho = p = 1e-31 beside
+    a 2000 km/s outflow.  All three axes, both orders, float32, 128^3:
+    against the plain version (errors by groups of variables), and timed."""
+    from pion_tpu_torch.constants import BX, PG, RO, SI, VX
+    from pion_tpu_torch.ops import fused_sweep as fs
+    from pion_tpu_torch.ops.sweep import hlld_fallback_cells
+    from pion_tpu_torch.stepper import _scma_flag
+
+    cfg, geom = hier.cfgs[1], hier.geoms[1]
+    scma = _scma_flag(hier.phys[1])
+    Ppad = hier._pad_level(1, hier.P[1], hier.P[0])
+    dt = 0.5 * hier._level_dt(hier.P)
+    ch = cfg.cfl * geom.dx / dt
+    strong = hlld_fallback_cells(Ppad, cfg, geom.dx)
+    nb = cfg.eqn.nbase
+    groups = [[RO], [VX, VX + 1, VX + 2], [PG], [BX, BX + 1, BX + 2], [SI],
+              list(range(nb, cfg.nvar))]
+    tol = TOL[Ppad.dtype]
+    worst = abs_err = 0.0
+    ms, plain_ms, by_case = [], [], {}
+    for axis in range(cfg.ndim):
+        for order in (1, 2):
+            def kern():
+                return fs.sweep_axis(Ppad, cfg, geom, axis, order, dt, ch=ch,
+                                     scma=scma, strong=strong)
+
+            def plain():
+                return fs.sweep_axis_plain(Ppad, cfg, geom, axis, order, dt,
+                                           ch=ch, scma=scma)
+
+            out, ref = kern(), plain()
+            rel = grouped_err(out, ref, groups)
+            if not rel <= tol:
+                raise AssertionError(
+                    f"sweep_axis on the nested-grid path axis={axis} "
+                    f"order={order}: {rel:.3e} > {tol:.1e}")
+            worst = max(worst, rel)
+            abs_err = max(abs_err, float((out - ref).abs().max()))
+            k_ms = time_ms(kern, 20)
+            ms.append(k_ms)
+            plain_ms.append(time_ms(plain, 2, warmup=1))
+            by_case[f"axis{axis}_order{order}"] = k_ms
+    cells = int(np.prod(cfg.shape))
+    esz = Ppad.element_size()
+    n_if = cells // cfg.shape[0] * (cfg.shape[0] + 1)
+    b_ms, b_by = bound(
+        Ppad.numel() * esz + strong.numel() + 2 * esz + cfg.nvar * cells * esz,
+        n_if * (fs.flops_per_interface(cfg, 1)
+                + fs.flops_per_interface(cfg, 2)) // 2, Ppad.dtype)
+    return {"level": 1, "scma": True, "axes": [0, 1, 2], "orders": [1, 2],
+            "dx_over_root_dx": 0.5, "max_rel_err": worst, "launches": None,
+            "max_abs_err": abs_err, "ms": float(np.mean(ms)),
+            "plain_ms": float(np.mean(plain_ms)), "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "ms_by_case": by_case}
+
+
+def measure_ng_physics(device, hier, timed: bool = True):
+    """B4, B3 and B5 as the nested-grid path launches them, on both levels of
+    the evolved coupled state: wind cells of rho = p = 1e-31 beside a
+    2000 km/s outflow, the fine level's half cell size, the step the run just
+    took (so the heated cells beside the wind region take the ladder), and
+    B3 seeded with B4's output as each level's first predictor seeds it.
+    Each against its plain version on the same inputs, at the limits of
+    ``mpv3_checks`` and ``trace_checks``; timed (``timed``) on the fine
+    level.  Returns one record a kernel."""
+    from pion_tpu_torch.constants import PG
+    from pion_tpu_torch.microphysics import fused_mpv3 as fm
+    from pion_tpu_torch.raytracing import fused_trace as ft
+
+    recs = {"mpv3_ydot": {}, "mpv3_update": {}, "octant_trace": {}}
+    cfg_off = dataclasses.replace(hier.cfgs[0], kernels="off")
+    for l in range(hier.n_levels):
+        P, cfg, phys = hier.P[l], hier.cfgs[l], hier.phys[l]
+        mp = phys.mp
+        dtype = P.dtype
+        what = f"on the nested-grid state, level {l} ({dtype})"
+        dt = hier.last_dt / 2 ** l
+        # as the step's dt computation builds them
+        rt = phys.raytrace(P)
+        omx, E, nH = mp.local_state(P)
+
+        # --- B4
+        f0 = fm.ydot(mp, omx, E, nH, rt)
+        ref0 = fm.ydot_plain(mp, omx, E, nH, rt)
+        errs = [soft_err(g, r) for g, r in zip(f0, ref0)]
+        for e, tol in zip(errs, YDOT_TOL[dtype]):
+            if not e <= tol:
+                raise AssertionError(f"mpv3 ydot {what}: {e:.3e} > {tol:.1e}")
+        recs["mpv3_ydot"][f"level{l}"] = {
+            "max_soft_rel_err": max(errs),
+            "max_abs_err": max(float((g - r).abs().max())
+                               for g, r in zip(f0, ref0))}
+
+        # --- B3: the predictor's half step seeded with the kernel's ydot,
+        # the corrector's whole step unseeded
+        up = {}
+        for label, h, seed in (("predictor_seeded", 0.5 * dt, f0),
+                               ("corrector", dt, None)):
+            stats = torch.zeros(2, dtype=torch.int32, device=device)
+            got = fm.update(mp, omx, E, nH, h, rt, f0=seed, stats=stats)
+            *ref, ref_stats = fm.update_plain(mp, omx, E, nH, h, rt, f0=seed,
+                                              return_stats=True)
+            torch.cuda.synchronize()
+            tiles, newton = stats.tolist()
+            err = max(soft_err(g, r) for g, r in zip(got, ref))
+            if not (err <= UPDATE_TOL[dtype]
+                    and all(bool(torch.isfinite(g).all()) for g in got)):
+                raise AssertionError(f"mpv3 update {what}, {label}: "
+                                     f"{err:.3e} > {UPDATE_TOL[dtype]:.1e}")
+            if not ladder_agrees(tiles, ref_stats[0]):
+                raise AssertionError(
+                    f"mpv3 update {what}, {label}: ladder on {tiles} tiles "
+                    f"in the kernel, {ref_stats[0]} in the plain version")
+            up[label] = {"dt": h, "max_soft_rel_err": err,
+                         "max_abs_err": max(float((g - r).abs().max())
+                                            for g, r in zip(got, ref)),
+                         "ladder_tiles": tiles, "newton_iterations": newton,
+                         "newton_iterations_plain": ref_stats[1]}
+        # a reading, not a limit: how far the plain path's integrator (one
+        # ladder for the whole grid) stands from the per-tile plain version
+        # in one whole step on this state, in the pressure
+        whole = mp._update_impl(P, dt, cfg_off, rt)
+        tiled = mp._finish_update(P, nH, *ref)
+        up["plain_per_tile_vs_plain_whole_grid_pressure"] = grouped_err(
+            tiled, whole, [[PG]])
+        recs["mpv3_update"][f"level{l}"] = up
+
+        # --- B5
+        tr = phys.raytracer.point_tracers[0]
+        dtau = phys.dtau_for(phys.sources[0], P,
+                             phys.raytracer.static_fields(0, P)[0])
+        got_c = ft.octant_trace(dtau, tr.src_idx, tr.tau_min)
+        ref_c = ft.octant_trace_plain(dtau, tr.src_idx, tr.tau_min)
+        err = float((got_c - ref_c).abs().max() / ref_c.abs().max())
+        if not (err <= TRACE_TOL[dtype]
+                and bool(torch.isfinite(got_c).all())):
+            raise AssertionError(f"octant_trace {what}: {err:.3e} > "
+                                 f"{TRACE_TOL[dtype]:.1e}")
+        recs["octant_trace"][f"level{l}"] = {
+            "max_rel_err": err,
+            "max_abs_err": float((got_c - ref_c).abs().max()),
+            "source_cell": list(tr.src_idx), "shells": tr.n_steps}
+
+    # the contract's keys, from the fine level (the loop's last)
+    fine = f"level{hier.n_levels - 1}"
+    esz = P.element_size()
+    cells = omx.numel()
+    plane = cells * esz
+    fy = fm.flops_per_ydot(mp, 1)
+    tab_bytes = (mp.tab["t1_rows"].size + mp.tab["tau_rows"].size) * esz
+    newton = recs["mpv3_update"][fine]["corrector"]["newton_iterations"]
+    bounds = {
+        "mpv3_ydot": bound(8 * plane + tab_bytes, cells * fy, dtype),
+        "mpv3_update": bound(
+            8 * plane + tab_bytes + esz,
+            cells * (fy + 12) + newton * fm.TILE * (3 * fy + 40), dtype),
+        "octant_trace": bound(2 * plane, 40 * cells, dtype)}
+    calls = {
+        "mpv3_ydot": (lambda: fm.ydot(mp, omx, E, nH, rt),
+                      lambda: fm.ydot_plain(mp, omx, E, nH, rt)),
+        "mpv3_update": (lambda: fm.update(mp, omx, E, nH, dt, rt),
+                        lambda: fm.update_plain(mp, omx, E, nH, dt, rt)),
+        "octant_trace": (
+            lambda: ft.octant_trace(dtau, tr.src_idx, tr.tau_min),
+            lambda: ft.octant_trace_plain(dtau, tr.src_idx, tr.tau_min))}
+    for name, rec in recs.items():
+        levels = [rec[f"level{l}"] for l in range(hier.n_levels)]
+        if name == "mpv3_update":
+            levels = [v for lv in levels for v in lv.values()
+                      if isinstance(v, dict)]
+        rec.update(level=hier.n_levels - 1, shape=list(omx.shape),
+                   launches=None,
+                   max_abs_err=max(v["max_abs_err"] for v in levels),
+                   bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                   library_ms=None)
+        if timed:
+            kern, plain = calls[name]
+            rec.update(ms=time_ms(kern, 20),
+                       plain_ms=time_ms(plain, 2, warmup=1))
+    if timed:
+        recs["mpv3_update"]["ms_predictor_seeded"] = time_ms(
+            lambda: fm.update(mp, omx, E, nH, 0.5 * dt, rt, f0=f0), 20)
+    return recs
+
+
+def ng_glue_parts(hier):
+    """The plain passes that the nested grid and the wind add to a step,
+    each timed alone, with how often a 2-level hierarchy step runs it."""
+    from pion_tpu_torch.ops.sweep import interface_flux_pair
+
+    cfg, geom = hier.cfgs[1], hier.geoms[1]
+    n = cfg.shape[0]
+    P0, P1 = hier.P
+    Ppad = hier._pad_level(1, P1, P0)
+    dt = 0.5 * hier._level_dt(hier.P)
+    ch = cfg.cfl * geom.dx / dt
+    Fa, Fb = interface_flux_pair(Ppad, cfg, geom, 0, 0, n, dt, 2, ch=ch,
+                                 scma=True)
+    sums = [(hier._restrict_face_flux(Fa, ax, 1),
+             hier._restrict_face_flux(Fb, ax, 1)) for ax in range(cfg.ndim)]
+    dU = torch.zeros_like(P0)
+    plane = Fa.new_zeros((cfg.nvar, n, n))
+    wind = hier.phys[1].winds[0]
+    calls = {
+        # (the call, how often a 2-level hierarchy step makes it)
+        "pad_level_1": (lambda: hier._pad_level(1, P1, P0), 4),
+        "pad_level_0": (lambda: hier._pad_level(0, P0, None), 2),
+        "restrict": (lambda: hier._restrict(P0, P1, 1), 1),
+        "interface_flux_pair": (
+            lambda: interface_flux_pair(Ppad, cfg, geom, 0, 0, n, dt, 2,
+                                        ch=ch, scma=True), 9),
+        "restrict_face_flux": (
+            lambda: hier._restrict_face_flux(Fa, 0, 1), 12),
+        "bc89_correct": (
+            lambda: hier._bc89_correct(dU, lambda ax, i: plane, sums, 0, dt),
+            1),
+        "wind_apply": (lambda: wind.apply(P1, hier.t), 6),
+    }
+    # Two times a call.  ``ms``: CUDA events around ten calls queued behind a
+    # busy device, so the larger of what the host needs to queue a call and
+    # what the device needs to run it.  ``device_ms``: the profiler's sum
+    # over the kernels the call launched, and their number.
+    rec = {}
+    for name, (fn, k) in calls.items():
+        def ten():
+            for _ in range(10):
+                fn()
+
+        prof = device_time_by_kernel(ten, 10)
+        rec[name] = {"ms": time_ms(fn, 10), "calls_per_step": k,
+                     "device_ms": prof["device_ms_per_step"],
+                     "device_launches": prof["device_launches_per_step"]}
+    glue = [v for name, v in rec.items() if name != "wind_apply"]
+    out = {"per_call": rec,
+           "ng_glue_ms_per_step": sum(v["ms"] * v["calls_per_step"]
+                                      for v in glue),
+           "wind_ms_per_step": rec["wind_apply"]["ms"] * 6}
+    if all(v["device_ms"] is not None for v in glue):
+        out["ng_glue_device_ms_per_step"] = sum(
+            v["device_ms"] * v["calls_per_step"] for v in glue)
+        out["ng_glue_device_launches_per_step"] = sum(
+            v["device_launches"] * v["calls_per_step"] for v in glue)
+    return out
+
+
+def check_hierarchy(hier, what: str):
+    """Finite on every level; x in [0, 1]; T in [50, 1e9] away from the wind
+    (the free wind itself is colder by design: it cools adiabatically from
+    the stellar surface, and its inner cells are inert at rho = p = 1e-31);
+    the wind region of the finest level holds the free-wind state; the
+    covered level-0 cells are the restriction of level 1."""
+    xs = hier.cfg0.eqn.nbase
+    out = {}
+    for l in range(hier.n_levels):
+        P, cfg, phys = hier.P[l], hier.cfgs[l], hier.phys[l]
+        if tuple(P.shape) != (cfg.nvar,) + cfg.shape:
+            raise AssertionError(f"{what}: level {l} shape {tuple(P.shape)}")
+        if not bool(torch.isfinite(P).all()):
+            raise AssertionError(f"{what}: non-finite values on level {l}")
+        x = P[xs]
+        xr = (float(x.min()), float(x.max()))
+        if not (0.0 <= xr[0] and xr[1] <= 1.0):
+            raise AssertionError(f"{what}: level {l} ionization fraction "
+                                 f"outside [0, 1]: {xr}")
+        w = phys.winds[0]
+        far = w._fields(P)["dist"] > w.src.radius + 2.0 * cfg.dx
+        T = phys.mp.temperature(P, cfg)[far]
+        Tr = (float(T.min()), float(T.max()))
+        # float32 rounding of the clamp's own temperature
+        if not (50.0 * (1 - 1e-5) <= Tr[0] and Tr[1] <= 1.0e9 * (1 + 1e-5)):
+            raise AssertionError(f"{what}: level {l} temperature outside "
+                                 f"[50, 1e9]: {Tr}")
+        out[f"level{l}"] = {"x_range": xr, "T_range": Tr}
+    fine = hier.n_levels - 1
+    w = hier.phys[fine].winds[0]
+    m = w.mask_like(hier.P[fine])
+    W = w.wind_state(hier.P[fine], hier.t)
+    if not torch.equal(hier.P[fine][:, m], W[:, m]):
+        raise AssertionError(f"{what}: the wind region of level {fine} does "
+                             f"not hold the free-wind state")
+    out["wind_cells"] = int(m.sum())
+    # independent of what ``apply`` wrote from: rho r^2 = Mdot / (4 pi v_inf)
+    # all over the free-wind shell (inside it the cells are inert)
+    geo = w._fields(hier.P[fine])
+    shell = m & ~geo["inner"]
+    flow = (hier.P[fine][0].double() * geo["dist"].double() ** 2)[shell]
+    flow = flow / (w.src.mdot / (4.0 * np.pi * w.src.vinf))
+    dev = float((flow - 1.0).abs().max())
+    if not (int(shell.sum()) > 0 and dev <= 1.0e-5):
+        raise AssertionError(f"{what}: rho r^2 over the free-wind shell of "
+                             f"level {fine} is off Mdot/(4 pi v_inf) by "
+                             f"{dev:.3e}")
+    out["free_wind_cells"] = int(shell.sum())
+    out["free_wind_rho_r2_max_rel_dev"] = dev
+    for l in range(fine):
+        if not torch.equal(hier._restrict(hier.P[l], hier.P[l + 1], l + 1),
+                           hier.P[l]):
+            raise AssertionError(f"{what}: level {l} is not the restriction "
+                                 f"of level {l + 1} where that covers it")
+    return out
+
+
+def ng_path(device, n: int, steps: int, agree_tol: float, dtype="float32"):
+    """The coupled flagship as a user runs it: ``NGHierarchy(cfg, 2,
+    physics=Physics(mp, sources, wind_sources, dt_limit=True))``,
+    ``set_states``, ``step()``.  Returns the phase record, the launch counts
+    of the counted steps, and the hierarchy."""
+    from pion_tpu_torch import NGHierarchy
+    from pion_tpu_torch.microphysics import fused_mpv3 as fm
+
+    cfg, states, make_physics = coupled_problem(n, dtype)
+    hier = NGHierarchy(cfg, 2, physics=make_physics())
+    hier.set_states(states)
+    for _ in range(2):          # warm-up; the first step is under the wind cap
+        hier.step()
+    reset_counts()
+    fm.update.launches_seeded = 0
+    sec, peak = time_steps(hier, steps)
+    counts = read_counts()
+    seeded = fm.update.launches_seeded
+    if hier.step_count != steps + 2 or not hier.t > 0.0:
+        raise AssertionError(f"ended at step {hier.step_count}, t={hier.t}")
+    want = {k: v * steps for k, v in NG_LAUNCHES.items()}
+    if counts != want or seeded != NG_SEEDED * steps:
+        raise AssertionError(
+            f"launch counts {counts} ({seeded} updates seeded), expected "
+            f"{want} ({NG_SEEDED * steps} seeded)")
+    ranges = check_hierarchy(hier, "ng_path")
+
+    # Two more hierarchy steps from the evolved state through every kernel,
+    # and through the plain path (``kernels="off"``: plain sweep with its own
+    # faces, gather ydot, one Newton ladder for the whole grid, plane-sweep
+    # trace).  Mass, velocity, field and psi are held to ``agree_tol``; the
+    # two groups the chemistry writes to the kernel's own limit against its
+    # plain version (see CHEMISTRY_GROUPS).
+    a = clone_hierarchy(hier, cfg, make_physics())
+    a.step()
+    a.step()
+    cfg_off = dataclasses.replace(cfg, kernels="off")
+    b = clone_hierarchy(hier, cfg_off, make_physics())
+    sec_off, peak_off = time_steps(b, 2)
+    dxdt = [b.geoms[l].dx / (b.last_dt / 2 ** l) for l in range(2)]
+    errs = [level_errs(a.P[l], b.P[l], dxdt[l]) for l in range(2)]
+    clock_diff = abs(a.t - b.t) / abs(b.t)
+    chem_tol = UPDATE_TOL[a.P[0].dtype]
+    print(json.dumps({"phase": "ng_path.agreement", "dtype": dtype,
+                      "kernels_vs_plain_by_level": errs,
+                      "clock_rel_diff": clock_diff, "tol": agree_tol,
+                      "tol_chemistry_groups": chem_tol,
+                      "elapsed_s": elapsed_s()}), flush=True)
+    for l in range(2):
+        for group, err in errs[l].items():
+            tol = chem_tol if group in CHEMISTRY_GROUPS else agree_tol
+            if not err <= tol:
+                raise AssertionError(
+                    f"kernels against the plain path after 2 hierarchy "
+                    f"steps, level {l}, {group}: {err:.3e} > {tol:.1e}")
+    if clock_diff > 1.0e-4:
+        raise AssertionError(f"clocks disagree: {clock_diff:.3e}")
+
+    cells = 3 * n ** 3          # level 0 once, level 1 twice
+    rec = {
+        "shape": [n] * 3, "levels": 2, "dtype": dtype, "steps": steps,
+        "t": hier.t, "last_dt": hier.last_dt, "launches": counts,
+        "launches_per_step": {k: v / steps for k, v in counts.items()},
+        "updates_seeded_per_step": seeded / steps, "ranges": ranges,
+        "kernels_vs_plain_2_steps_by_level": errs,
+        "tol": agree_tol, "tol_chemistry_groups": chem_tol,
+        "clock_rel_diff": clock_diff,
+        "steps_per_s": steps / sec, "ms_per_step": sec / steps * 1.0e3,
+        "cell_updates_per_s": cells * steps / sec, "peak_mem_bytes": peak,
+        "plain_steps_per_s": 2 / sec_off,
+        "plain_cell_updates_per_s": cells * 2 / sec_off,
+        "plain_peak_mem_bytes": peak_off,
+    }
+    return rec, counts, hier
+
+
+def ng_step_parts(hier, ms_per_step: float):
+    """Where the hierarchy step's time goes: device time of three profiled
+    steps summed by kernel name, the idle share of the device in the
+    unprofiled run that took ``ms_per_step``, and the nested-grid and wind
+    passes timed alone."""
+    def three():
+        for _ in range(3):
+            hier.step()
+
+    parts = device_time_by_kernel(three, 3)
+    if parts["device_ms_per_step"] is not None:
+        parts["device_idle_share"] = max(
+            0.0, 1.0 - parts["device_ms_per_step"] / ms_per_step)
+    parts.update(ng_glue_parts(hier))
+    return parts
+
+
+def ng_dynamics(device, n: int, steps: int, hier):
+    """The same hierarchy without physics beside the coupled one
+    (``hier``), timed in turns (dynamics, coupled, dynamics, coupled) for the
+    coupled/dynamics ratio; and a blast wave across the coarse-fine interface
+    on a hierarchy without physics, through the kernels and through the plain
+    path, for what the flux correction keeps of the composite mass (the
+    level-0 total after restriction)."""
+    from pion_tpu_torch import NGHierarchy
+    from pion_tpu_torch.ics import blast_wave
+    from pion_tpu_torch.utils import conservation_totals
+
+    cfg, states, _ = coupled_problem(n, "float32")
+    dyn = NGHierarchy(cfg, 2)
+    dyn.set_states(states)
+    for _ in range(2):
+        dyn.step()
+    reset_counts()
+    sec, peak = time_steps(dyn, steps)
+    counts = read_counts()
+    want = dict(NG_LAUNCHES, mpv3_update=0, mpv3_ydot=0, octant_trace=0)
+    want = {k: v * steps for k, v in want.items()}
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    ms_dyn = [sec / steps * 1.0e3]
+    ms_coupled = [time_steps(hier, steps)[0] / steps * 1.0e3]
+    ms_dyn.append(time_steps(dyn, steps)[0] / steps * 1.0e3)
+    ms_coupled.append(time_steps(hier, steps)[0] / steps * 1.0e3)
+    for h in (dyn, hier):
+        for l in range(2):
+            if not bool(torch.isfinite(h.P[l]).all()):
+                raise AssertionError(f"non-finite values on level {l}")
+    sec = float(np.mean(ms_dyn)) * steps / 1.0e3
+
+    # the blast: the pressure jump sits a cell inside the fine level's edge
+    bsteps = 12
+    drift, mass = {}, {}
+    final = {}
+    for kernels in ("auto", "off"):
+        bcfg = dataclasses.replace(main_cfg((n,) * 3, "float32"), nlevels=2,
+                                   kernels=kernels)
+        h = NGHierarchy(bcfg, 2)
+        h.set_states([blast_wave(c, r_in=0.25 - 1.5 * h.cfgs[1].dx,
+                                 B0=(0.1, 0.05, 0.0)) for c in h.cfgs])
+        h.P[0] = h._restrict(h.P[0], h.P[1], 1)
+        m0 = conservation_totals(h.P[0], h.cfgs[0], h.geoms[0])["mass"]
+        for _ in range(bsteps):
+            h.step()
+        m1 = conservation_totals(h.P[0], h.cfgs[0], h.geoms[0])["mass"]
+        drift[kernels] = abs(m1 - m0) / abs(m0)
+        mass[kernels] = m1
+        final[kernels] = h
+    # the shock has crossed the interface: the coarse cells outside it moved
+    off = final["off"].offs[1][0]
+    outside = final["off"].P[0][1][off - 1, n // 2, n // 2]
+    if not float(outside) > 0.1 * 1.01:
+        raise AssertionError("the blast did not reach the coarse-fine "
+                             "interface")
+    rels = [scaled_err(final["auto"].P[l], final["off"].P[l])[0]
+            for l in range(2)]
+    rec = {"shape": [n] * 3, "levels": 2, "dtype": "float32", "steps": steps,
+           "launches_per_step": {k: v / steps for k, v in counts.items()},
+           "steps_per_s": steps / sec, "ms_per_step": sec / steps * 1.0e3,
+           "cell_updates_per_s": 3 * n ** 3 * steps / sec,
+           "peak_mem_bytes": peak,
+           "dynamics_ms_per_step_in_turns": ms_dyn,
+           "coupled_ms_per_step_in_turns": ms_coupled,
+           "coupled_over_dynamics": float(np.mean(ms_coupled)
+                                          / np.mean(ms_dyn)),
+           "blast": {"steps": bsteps, "composite_mass_rel_drift": drift,
+                     "mass_kernels_vs_plain": abs(mass["auto"] - mass["off"])
+                     / abs(mass["off"]),
+                     "kernels_vs_plain_by_level": rels}}
+    print(json.dumps({"phase": "ng_dynamics.blast", **rec["blast"],
+                      "elapsed_s": elapsed_s()}), flush=True)
+    if not max(drift.values()) <= 1.0e-5:
+        raise AssertionError(f"composite mass not conserved: {drift}")
+    if not max(rels) <= 1.0e-3:
+        raise AssertionError(f"blast hierarchy: kernel and plain paths "
+                             f"disagree after {bsteps} steps: {rels}")
+    return rec
+
+
 def main_path(shape, dtype, steps: int, agree_tol: float, plain_steps: int):
     """The library's main path as a user calls it: ``Simulation(cfg,
     P0).run(max_steps=N)`` on the blast wave.  Returns the phase record and
@@ -1100,6 +1694,7 @@ def main(argv=None):
     records = {}
 
     def emit(phase, **kw):
+        kw["elapsed_s"] = elapsed_s()
         records[phase] = kw
         print(json.dumps({"phase": phase, **kw}), flush=True)
         if args.out:
@@ -1177,21 +1772,50 @@ def main(argv=None):
     # the paths differ by rounding only (read: 8e-8)
     rec_hii, counts_hii = hii_path(device, 128, steps=10, agree_tol=1.0e-5)
     emit("hii_path", **rec_hii)
+    # the coupled flagship on two levels; then the same hierarchy without
+    # physics, and the double instantiations on the nested-grid traffic
+    rec_ng, counts_ng, hier = ng_path(device, 128, steps=6, agree_tol=1.0e-5)
+    # every kernel of the path against its plain version on the path's own
+    # state, before that state moves on
+    ng_rows = {"sweep_axis": measure_ng_sweep(device, hier),
+               **measure_ng_physics(device, hier)}
+    for row in rows:
+        if row["name"] in ng_rows:
+            row["ng"] = ng_rows[row["name"]]
+    rec_dyn = ng_dynamics(device, 128, 6, hier)
+    # profiled last: every timing above was taken before this phase's profiler
+    rec_ng["step_parts"] = ng_step_parts(hier, rec_ng["ms_per_step"])
+    emit("ng_path", **rec_ng)
+    emit("ng_dynamics", **rec_dyn)
+    del hier
+    rec_ng64, _, hier64 = ng_path(device, 32, steps=2, agree_tol=1.0e-9,
+                                  dtype="float64")
+    rec_ng64["kernels_on_this_state"] = measure_ng_physics(
+        device, hier64, timed=False)
+    emit("ng_path_f64", **rec_ng64)
 
     # launches on the main paths: each kernel's count from the run of the
     # path its numbers were measured for (B1 and B2: the blast wave, and B1
-    # again under "hii"; the rest: the H II run)
+    # again under "hii" and "ng"; the rest: the H II run); every path's
+    # count stands under "launches_by_path"
     for row in rows:
         name = row["name"]
         blast = name in ("sweep_axis", "final_axis")
         row["launches"] = counts[name] if blast else counts_hii[name]
         row["launches_by_path"] = {"blast": counts[name],
-                                   "hii": counts_hii[name]}
+                                   "hii": counts_hii[name],
+                                   "ng": counts_ng[name]}
         if row["launches"] < 1:
             raise AssertionError(f"{name} was not launched on its main path")
     hii_sweep["launches"] = counts_hii["sweep_axis"]
     if hii_sweep["launches"] < 1:
         raise AssertionError("sweep_axis was not launched on the H II path")
+    for name, per_step in NG_LAUNCHES.items():
+        if per_step and counts_ng[name] < 1:
+            raise AssertionError(f"{name} was not launched on the "
+                                 f"nested-grid path")
+        if per_step:
+            ng_rows[name]["launches"] = counts_ng[name]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

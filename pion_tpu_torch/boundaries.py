@@ -184,3 +184,73 @@ def make_fixed_strips(P0, cfg: SimConfig) -> BoundaryData:
                 fixed[(axis, side)] = (lo if side == 0 else hi).copy()
         out = np.concatenate([lo, out, hi], axis=ax)
     return BoundaryData(fixed=fixed)
+
+
+def fill_ghost_side(padded, cfg: SimConfig, axis: int, side: int,
+                    strip=None, t: float = 0.0):
+    """Overwrite the ``ng`` ghost layers on ONE face of an already fully
+    padded tensor with that face's domain BC, reading the adjacent interior
+    layers.  Used by the nested-grid hierarchy for fine-level faces that
+    coincide with the root domain boundary (reference: setup_NG_grid
+    assigns the simulation BC there, other faces get COARSE_TO_FINE —
+    grid/setup_NG_grid.cpp:205-260).  Returns a new tensor; ``padded`` is
+    not written.
+
+    ``strip`` supplies the frozen ghost state for INFLOW/FIXED faces
+    (full padded transverse shape).
+    """
+    ng = cfg.ng
+    ax = 1 + axis
+    kind = cfg.bcs[axis][side]
+    k = cfg.ndim - 1 - axis
+    n_tot = padded.shape[ax]
+
+    def slab(lo, hi):
+        return padded.narrow(ax, lo, hi - lo)
+
+    if kind in (BC.REFLECTING, BC.JETREFLECT, BC.AXISYMMETRIC):
+        sg = _mirror_signs(cfg, axis, kind)
+        src = torch.flip(slab(ng, 2 * ng) if side == 0
+                         else slab(n_tot - 2 * ng, n_tot - ng), dims=(ax,))
+        val = torch.stack([-src[v] if sg[v] < 0.0 else src[v]
+                           for v in range(cfg.nvar)])
+    elif kind in (BC.OUTFLOW, BC.ONEWAY_OUT):
+        edge = slab(ng, ng + 1) if side == 0 else slab(n_tot - ng - 1,
+                                                       n_tot - ng)
+        val = edge.expand(edge.shape[:ax] + (ng,) + edge.shape[ax + 1:])
+        if kind is BC.ONEWAY_OUT:
+            vslot = VX + k
+            vn = val[vslot]
+            vn = (torch.clamp(vn, max=0.0) if side == 0
+                  else torch.clamp(vn, min=0.0))
+            val = torch.stack([vn if v == vslot else val[v]
+                               for v in range(cfg.nvar)])
+    elif kind in (BC.INFLOW, BC.FIXED):
+        if strip is None:
+            raise ValueError(f"{kind} on a refined level needs a frozen "
+                             "ghost strip (captured at hierarchy setup)")
+        val = torch.as_tensor(strip).to(dtype=padded.dtype,
+                                        device=padded.device)
+    else:
+        raise NotImplementedError(
+            f"BC {kind} unsupported on a refined-level domain face")
+    tgt = [slice(None)] * padded.ndim
+    tgt[ax] = slice(0, ng) if side == 0 else slice(n_tot - ng, n_tot)
+    out = padded.clone()
+    out[tuple(tgt)] = val
+    return out
+
+
+def apply_bcs_outflow_only(P, cfg: SimConfig):
+    """Pad every face with outflow ghosts (helper for strip capture)."""
+    out = torch.as_tensor(P)
+    ng = cfg.ng
+    for axis in range(cfg.ndim):
+        ax = 1 + axis
+        n = out.shape[ax]
+        lo = out.narrow(ax, 0, 1)
+        hi = out.narrow(ax, n - 1, 1)
+        lo = lo.expand(lo.shape[:ax] + (ng,) + lo.shape[ax + 1:])
+        hi = hi.expand(hi.shape[:ax] + (ng,) + hi.shape[ax + 1:])
+        out = torch.cat([lo, out, hi], dim=ax)
+    return out

@@ -12,8 +12,10 @@ The chemistry and radiation set-up crosses the same way: the reference's
 source's evolution table as numpy arrays), from which
 :func:`physics_from_reference` builds the port's ``Physics``.  The port
 rebuilds its own rate tables; :func:`check_rate_tables` holds them against
-arrays taken from the reference module.  The nested-grid level stack is still
-to come.
+arrays taken from the reference module.  Stellar-wind sources cross as their
+``dataclasses.asdict`` dicts too (:func:`wind_source_from_reference`), and a
+nested-grid run as its level-0 config and one numpy state per level
+(:func:`hierarchy_from_reference` / :func:`hierarchy_to_reference`).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from .config import SimConfig
 from .microphysics.mpv3 import MPv3, MPv3Config
 from .physics import Physics
 from .raytracing.tracer import Source, StarEvolution
+from .winds import WindEvolution, WindSource
 
 _PORT_FIELDS = {f.name for f in dataclasses.fields(SimConfig)}
 
@@ -129,16 +132,75 @@ def source_from_reference(src_fields: dict) -> Source:
     return Source(evolution=evo, **fields)
 
 
+def wind_source_from_reference(fields: dict) -> WindSource:
+    """The port's ``WindSource`` from the reference's ``dataclasses.asdict``
+    dict.  ``evolution`` is None or a dict of the table's columns (``v_rot``
+    and ``vcrit`` may be None)."""
+    fields = dict(fields)
+    known = {f.name for f in dataclasses.fields(WindSource)}
+    unknown = sorted(set(fields) - known)
+    if unknown:
+        raise ValueError(f"unknown WindSource keys: {', '.join(unknown)}")
+    evo = fields.pop("evolution", None)
+    if evo is not None:
+        cols = {f.name for f in dataclasses.fields(WindEvolution)}
+        unknown = sorted(set(evo) - cols)
+        if unknown:
+            raise ValueError(
+                f"unknown WindEvolution keys: {', '.join(unknown)}")
+        evo = WindEvolution(**{
+            k: None if v is None else np.array(v, dtype=np.float64)
+            for k, v in evo.items()})
+    for k in ("position", "tracers", "periastron"):
+        if k in fields:
+            fields[k] = tuple(float(v) for v in fields[k])
+    return WindSource(evolution=evo, **fields)
+
+
 def physics_from_reference(mpc_fields: Optional[dict],
                            sources: Sequence[dict] = (),
-                           dt_limit=2) -> Physics:
-    """The port's ``Physics`` (MPv3 chemistry and radiation sources) from
-    the reference's set-up, so that both packages compute the same thing.
-    Stellar winds are not carried: the port has none yet."""
+                           dt_limit=2,
+                           wind_sources: Sequence[dict] = ()) -> Physics:
+    """The port's ``Physics`` (MPv3 chemistry, radiation sources and
+    stellar-wind sources) from the reference's set-up, so that both packages
+    compute the same thing."""
     mp = None if mpc_fields is None else MPv3(
         mpv3_config_from_reference(mpc_fields))
-    return Physics(mp=mp, sources=[source_from_reference(s) for s in sources],
-                   dt_limit=dt_limit)
+    return Physics(
+        mp=mp, sources=[source_from_reference(s) for s in sources],
+        dt_limit=dt_limit,
+        wind_sources=[wind_source_from_reference(w) for w in wind_sources])
+
+
+def hierarchy_from_reference(cfg_fields: dict, states: Sequence[np.ndarray],
+                             t: float = 0.0, step: int = 0,
+                             last_dt: float = 0.0, physics=None,
+                             device=None):
+    """A reference nested-grid run as the port's ``NGHierarchy``: the
+    level-0 config dict (``nlevels`` says how many levels unless the states
+    do), one primitive state per level as numpy, and the clock.  ``physics``
+    is the port's own (:func:`physics_from_reference`).  ``device`` goes to
+    ``NGHierarchy`` as it is: ``None`` is the card, or an error where there
+    is none; ``"cpu"`` on request."""
+    from .ng import NGHierarchy
+
+    cfg = config_from_reference(cfg_fields)
+    if not (np.isfinite(t) and step >= 0 and last_dt >= 0.0):
+        raise ValueError(f"bad clock: t={t}, step={step}, last_dt={last_dt}")
+    hier = NGHierarchy(cfg, len(states), physics=physics, device=device)
+    hier.t, hier.step_count, hier.last_dt = float(t), int(step), float(last_dt)
+    # copies in the config's dtype: the caller's arrays are never aliased
+    hier.set_states([np.array(s, dtype=cfg.np_dtype) for s in states])
+    return hier
+
+
+def hierarchy_to_reference(hier):
+    """The way back: ``(config dict, [numpy state per level], t, step,
+    last_dt)``; the config carries the level count and the snapped centre,
+    as a snapshot header does."""
+    return (config_to_reference(hier._header_cfg()),
+            [p.detach().cpu().numpy() for p in hier.P], hier.t,
+            hier.step_count, hier.last_dt)
 
 
 # tables of the reference that are layouts for the TPU's one-hot matrix

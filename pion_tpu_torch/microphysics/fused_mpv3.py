@@ -269,11 +269,15 @@ def update(mp, omx0: torch.Tensor, Eint0: torch.Tensor, nH: torch.Tensor, dt,
         raise RuntimeError(
             f"mpv3 update kernel launch failed: CUDA error {err}")
     update.launches += 1
+    if f0 is not None:
+        update.launches_seeded += 1
     del keep
     return o1, e1
 
 
 update.launches = 0
+# of those, the launches that were given the caller's first evaluation
+update.launches_seeded = 0
 
 
 def _pad(a: torch.Tensor, n_pad: int, fill: float) -> torch.Tensor:

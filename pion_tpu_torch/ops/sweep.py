@@ -19,12 +19,16 @@ for interior cells, plus the per-axis face fluxes (for Berger-Colella 1989
 flux correction between refinement levels), with each flux tensor keeping the
 sweep axis in its natural position (length n+1 there).
 
+``interface_flux`` and ``interface_flux_pair`` give single interface planes
+of those face fluxes from 4-cell slabs, for the nested-grid hierarchy.
+
 Ported: Cartesian grids, MHD and GLM-MHD with the HLL and HLLD solvers, Falle
 artificial viscosity.  Other solvers, the Euler system, curvilinear metrics
 and the H-correction raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Tuple
 
 import torch
@@ -394,3 +398,80 @@ def dynamics_dU(
         dU = contrib if dU is None else dU + contrib
 
     return dU, face_fluxes
+
+
+@functools.lru_cache(maxsize=64)
+def _slab_setup(cfg: SimConfig, axis: int, ncell: int):
+    """Config and geometry of a slab ``ncell`` cells deep along ``axis`` with
+    the grid's own ``dx``; kept, because the nested-grid hierarchy asks for the
+    same few slabs at every step."""
+    from ..grid import make_geometry
+
+    shape = list(cfg.shape)
+    shape[axis] = ncell
+    xmax = list(cfg.xmax)
+    # preserve dx: slab extents = xmin + ncell*dx on the slab axis
+    xmax[axis] = cfg.xmin[axis] + float(ncell) * cfg.dx
+    cfg_slab = cfg.with_(shape=tuple(shape), xmax=tuple(xmax))
+    return cfg_slab, make_geometry(cfg_slab)
+
+
+def _slab_faces(Ph_pad, cfg: SimConfig, axis: int, starts, dt, order: int,
+                ch, scma):
+    """Face fluxes along ``axis`` of the slab made of the 4-cell windows of
+    ``Ph_pad`` that begin at the padded indices ``starts``."""
+    if cfg.coords is not Coord.CARTESIAN or cfg.av not in (AV.NONE, AV.FALLE):
+        raise ValueError("interface fluxes from slabs need a Cartesian grid "
+                         "and no H-correction")
+    ng = cfg.ng
+    ax = 1 + axis
+    parts = [Ph_pad.narrow(ax, lo, 4) for lo in starts]
+
+    def edge(A, i):
+        e = A.narrow(ax, i, 1)
+        return e.expand(e.shape[:ax] + (ng,) + e.shape[ax + 1:])
+
+    # the slab's own ghosts: edge replication
+    slab_pad = torch.cat([edge(parts[0], 0)] + parts + [edge(parts[-1], 3)],
+                         dim=ax)
+    cfg_slab, geom_slab = _slab_setup(cfg, axis, 4 * len(starts))
+    _, faces = dynamics_dU(slab_pad, cfg_slab, geom_slab, dt, order, ch=ch,
+                           scma=scma, axes=[axis])
+    return faces[axis]
+
+
+def interface_flux(Ph_pad, cfg: SimConfig, geom: Geometry, axis: int,
+                   j: int, dt, order: int, ch=None, scma=False):
+    """Face flux at ONE interface plane ``j`` (0..n) of ``axis``, equal to
+    ``dynamics_dU(...)[1][axis]`` indexed at j, from a 4-cell slab.
+
+    Lets the nested-grid hierarchy use the fused kernels for the dU (which do
+    not expose face fluxes) and still obtain the handful of interface planes
+    that BC89 flux correction and the parent-boundary restriction need
+    (reference: NG_BC89flux save_fine/coarse_fluxes) — O(N^2) work per plane
+    instead of a second full plain sweep.
+
+    The interface flux depends only on cells j-2..j+1 of the sweep axis
+    (2nd-order MUSCL stencil), all present in ``Ph_pad``; the slab's own
+    ghost values are edge-replicated and provably do not reach the middle
+    interface.  Scope: Cartesian, AV none/falle (H-correction needs global
+    transverse etas).
+    """
+    # padded index of interior cell j-2; the slab has 5 interfaces and the
+    # middle one (index 2) is interface j
+    F = _slab_faces(Ph_pad, cfg, axis, [cfg.ng + j - 2], dt, order, ch, scma)
+    return F.select(1 + axis, 2)
+
+
+def interface_flux_pair(Ph_pad, cfg: SimConfig, geom: Geometry, axis: int,
+                        j_lo: int, j_hi: int, dt, order: int, ch=None,
+                        scma=False):
+    """Face fluxes at TWO interface planes of ``axis`` from ONE 8-cell
+    slab sweep (the two 4-cell stencils are disjoint, so concatenating
+    the slabs changes nothing for the two middle interfaces).  Halves the
+    slab-sweep count of the nested-grid BC89/leaf-face machinery, whose
+    per-call cost is bound by the number of small launches."""
+    F = _slab_faces(Ph_pad, cfg, axis,
+                    [cfg.ng + j_lo - 2, cfg.ng + j_hi - 2], dt, order, ch,
+                    scma)
+    return F.select(1 + axis, 2), F.select(1 + axis, 6)

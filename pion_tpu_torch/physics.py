@@ -6,9 +6,9 @@ plus setup_raytracing / RT_all_sources orchestration —
 reference: source/sim_control/sim_init.cpp:254-256,806;
 time_integrator.cpp:253-470 calc_microphysics_dU).
 
-Stellar-wind boundaries are not ported yet: a non-empty ``wind_sources``
-raises (ROADMAP.md, queue A item 10), and the wind hooks the stepper calls
-behave as with no winds.
+Stellar winds are internal boundaries (:mod:`.winds`): ``setup`` carves one
+region per wind source, and the stepper overwrites them after every partial
+update.
 
 Constants that leave float32: the no-source defaults ``vshell = 1e200`` is
 ``inf`` there, as in the JAX package without x64; nothing reads it but
@@ -32,13 +32,10 @@ from .microphysics.mpv3 import MIN_NEUTRAL, SIGMA0
 from .ops.eqns import prim_to_cons
 from .raytracing import Raytracer, Source
 
-_NO_WINDS = ("stellar-wind boundaries are not ported yet "
-             "(ROADMAP.md, queue A item 10: winds.py)")
-
 
 @dataclasses.dataclass
 class Physics:
-    """Chemistry + radiation (+ internal wind boundaries, once ported)."""
+    """Chemistry + radiation + internal wind boundaries."""
 
     mp: object = None                 # microphysics module (MPv3)
     sources: List[Source] = dataclasses.field(default_factory=list)
@@ -53,8 +50,6 @@ class Physics:
     winds: List = dataclasses.field(default_factory=list)
 
     def setup(self, cfg: SimConfig, geom: Geometry):
-        if self.wind_sources or self.winds:
-            raise NotImplementedError(_NO_WINDS)
         # N ionizing sources are supported with per-source column sets
         # (reference: rad_src_data.h:27-76 per-source Tau slots), as long
         # as they share one rate model (all mono or all mfion)
@@ -80,12 +75,20 @@ class Physics:
                         self._src_static[i] = {"stack": stack, "ls": ls}
         if self.sources and self.raytracer is None:
             self.raytracer = Raytracer(cfg, geom, self.sources)
+        if self.wind_sources and not self.winds:
+            from .winds import make_wind_bcs
+
+            self.winds = make_wind_bcs(cfg, geom, self.wind_sources)
         self._rate_cache: Dict = {}
+        self._excl_cache: Dict = {}
         return self
 
     def apply_internal_bcs(self, P, t):
         """Overwrite wind regions (reference: TimeUpdateInternalBCs ->
-        BC_update_STWIND).  No winds are ported: the state passes through."""
+        BC_update_STWIND, boundaries/stellar_wind_boundaries.cpp).  Returns
+        a new tensor when there is a wind, ``P`` itself otherwise."""
+        for w in self.winds:
+            P = w.apply(P, t)
         return P
 
     # -- opacity (reference: MPv3::get_dtau, MPv3.cpp:1082-1112) -----------
@@ -103,8 +106,8 @@ class Physics:
 
     def for_level(self, cfg: SimConfig, geom: Geometry) -> "Physics":
         """Clone bound to one nested-grid level: same chemistry module and
-        source list, per-level tracer geometry (reference: setup_raytracing
-        is called per level, sim_control_NG.cpp:138)."""
+        source list, per-level tracer geometry and wind masks (reference:
+        setup_raytracing is called per level, sim_control_NG.cpp:138)."""
         return Physics(mp=self.mp, sources=self.sources,
                        dt_limit=self.dt_limit,
                        wind_sources=self.wind_sources).setup(cfg, geom)
@@ -321,13 +324,31 @@ class Physics:
         ts = self.mp._timescales_impl(P, cfg, rt)
         return (ts, None) if with_ydot else ts
 
-    def wind_exclude_mask(self):
-        """Union of the static wind-region masks — cells the CFL dt
-        reduction skips.  None: no winds are ported."""
-        return None
+    def wind_exclude_mask(self, like: Optional[torch.Tensor] = None):
+        """Union of the (static) wind-region masks — cells the CFL dt
+        reduction skips, like the reference's internal-boundary isbd flag
+        (calc_timestep.cpp calc_dynamics_dt).  Orbiting sources move, so
+        their cells stay in the reduction (conservative).  A bool tensor on
+        ``like``'s device (the CPU without ``like``), or None without a
+        static wind."""
+        static = [w for w in self.winds if not w.src.orbits]
+        if not static:
+            return None
+        device = torch.device("cpu") if like is None else like.device
+        if device not in self._excl_cache:
+            mask = None
+            for w in static:
+                m = w.mask.to(device)
+                mask = m if mask is None else (mask | m)
+            self._excl_cache[device] = mask
+        return self._excl_cache[device]
 
     def wind_dt_cap(self, cfg, geom) -> float:
         """First-step dt ceiling from the wind speeds (reference:
-        calc_dynamics_dt "if on first step and stellar winds present").
-        No winds: no cap."""
-        return float("inf")
+        calc_dynamics_dt "if on first step and stellar winds present",
+        dt <= 0.1 CFL dx / Vinf)."""
+        cap = float("inf")
+        for s in self.wind_sources:
+            if s.vinf > 0.0:
+                cap = min(cap, 0.1 * cfg.cfl * geom.dx / s.vinf)
+        return cap

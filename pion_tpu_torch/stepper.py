@@ -147,7 +147,8 @@ def make_step_fns(cfg: SimConfig, geom: Geometry,
         return torch.as_tensor(P, dtype=dtype, device=dev)
 
     def _dt_expr(P, rt0=None):
-        excl = physics.wind_exclude_mask() if physics is not None else None
+        excl = (physics.wind_exclude_mask(P)
+                if physics is not None and physics.winds else None)
         dt = dynamics_dt(P, cfg, geom, exclude=excl)
         if physics is not None and physics.dt_limit and physics.mp is not None:
             # chemistry/cooling dt limit (reference: calc_timestep.cpp:342

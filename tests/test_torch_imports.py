@@ -32,7 +32,9 @@ def test_every_submodule_imports_without_jax_or_reference_package():
                    "pion_tpu_torch.microphysics.mpv3",
                    "pion_tpu_torch.microphysics.fused_mpv3",
                    "pion_tpu_torch.raytracing.tracer",
-                   "pion_tpu_torch.raytracing.fused_trace"):
+                   "pion_tpu_torch.raytracing.fused_trace",
+                   "pion_tpu_torch.winds", "pion_tpu_torch.ng",
+                   "pion_tpu_torch.io", "pion_tpu_torch.io.snapshot"):
         assert needed in names
     code = (
         "import importlib, sys\n"

@@ -206,8 +206,6 @@ def test_timescale_matches_reference(dt_limit):
 def test_what_is_not_ported_raises():
     rcfg, cfg = configs()
     geom = make_geometry(cfg)
-    with pytest.raises(NotImplementedError, match="winds"):
-        Physics(wind_sources=[object()]).setup(cfg, geom)
     mixed = [Source(position=CENTRE, effect="mono"),
              Source(position=CENTRE, effect="mfion")]
     with pytest.raises(NotImplementedError, match="mixed"):
@@ -215,16 +213,17 @@ def test_what_is_not_ported_raises():
     phys = physics_pair([star(CENTRE)])[1]
     with pytest.raises(ValueError, match="effect"):
         phys.dtau_for(Source(effect="xray"), torch.zeros((10,) + SHAPE), 1.0)
-    # the wind hooks behave as with no winds
+    # without a wind source the wind hooks do nothing
     assert phys.wind_exclude_mask() is None
     assert phys.wind_dt_cap(cfg, geom) == float("inf")
     P = torch.zeros((10,) + SHAPE)
     assert phys.apply_internal_bcs(P, 0.0) is P
     lvl = phys.for_level(cfg, geom)
     assert lvl.mp is phys.mp and lvl.raytracer is not phys.raytracer
-    with pytest.raises(NotImplementedError, match="winds"):
-        Simulation(cfg, np.ones((10,) + SHAPE), device="cpu",
-                   physics=Physics(wind_sources=[object()]))
+    # several steps in one dispatch are not ported: no silent stepping
+    from pion_tpu_torch.ng import NGHierarchy
+    with pytest.raises(NotImplementedError, match="item 21"):
+        NGHierarchy(cfg, 1, device="cpu").run(chunk=4)
     import pion_tpu_torch.microphysics as mph
     with pytest.raises(ImportError, match="ROADMAP"):
         mph.MPv5

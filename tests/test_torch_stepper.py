@@ -141,21 +141,23 @@ def test_unported_options_raise(field, value):
         Simulation(cfg, torch.from_numpy(P), device="cpu")
 
 
-def test_unported_io_and_physics_raise():
+def test_unported_io_and_physics_raise(tmp_path):
+    """What was unported in the first slices now runs (snapshots, winds);
+    what is left raises: a restart that would have to rebuild its physics
+    from the header's parameter section, and conduction."""
     rcfg = ref_config("glm3d")
     cfg, Pt, _ = to_port(rcfg, noisy_state(rcfg, 17))
-    with pytest.raises(NotImplementedError):
-        Simulation(cfg, Pt, device="cpu", outfile="run")
-    # physics is ported but for the stellar winds
-    from pion_tpu_torch.physics import Physics
-
-    with pytest.raises(NotImplementedError):
-        Simulation(cfg, Pt, device="cpu",
-                   physics=Physics(wind_sources=[object()]))
-    with pytest.raises(NotImplementedError):
-        Simulation.restart("run.00000001")
-    with pytest.raises(NotImplementedError):
-        Simulation(cfg, Pt, device="cpu").save("run")
+    sim = Simulation(cfg, Pt, device="cpu", outfile=str(tmp_path / "run"),
+                     params={"EP_chemistry": "1"})
+    path = sim.save()
+    assert path.endswith("run.00000000.snap")
+    # the header carries a parameter section and the caller gives no physics
+    with pytest.raises(NotImplementedError, match="item 17"):
+        Simulation.restart(path, device="cpu")
+    with pytest.raises(ValueError, match="outfile"):
+        Simulation(cfg, Pt, device="cpu").save()
+    with pytest.raises(NotImplementedError, match="NGHierarchy"):
+        Simulation(dataclasses.replace(cfg, nlevels=2), Pt, device="cpu")
     with pytest.raises(NotImplementedError):
         advance(Pt, DT, dataclasses.replace(cfg, conduction=True),
                 pion_tpu_torch.make_geometry(cfg))
