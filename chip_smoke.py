@@ -160,16 +160,18 @@ def check_case(cfg, seed, device, scma=False):
 
 
 def check_kernels(device):
-    """The case matrix at small shapes that are no multiple of the block
-    size: 3D and 2D, both dtypes, GLM and MHD, HLLD with and without the
-    mask, HLL, viscosity on and off, tracers and the sCMA variants."""
+    """The case matrix at shapes that are no multiple of the block size nor
+    of B1's tile (15 cells along the sweep axis, 32 pencils across): small
+    ones, and ones whose every axis spans several tiles; 3D and 2D, both
+    dtypes, GLM and MHD, HLLD with and without the mask, HLL, viscosity on
+    and off, tracers and the sCMA variants."""
     from pion_tpu_torch import SimConfig
 
     worst = {}
     ncase = 0
     for dtype in ("float64", "float32"):
         cases = []
-        for shape in ((12, 20, 36), (20, 36)):
+        for shape in ((12, 20, 36), (20, 36), (40, 70, 150), (70, 150)):
             for fallback in (True, False):
                 cases.append((main_cfg(shape, dtype, hlld_fallback=fallback),
                               False))
@@ -216,9 +218,58 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def bound(nbytes: int, flops: int, dtype):
     """Least time the card could take, in ms, and which side sets it."""
-    tb = nbytes / PEAK_BYTES_PER_S * 1.0e3
-    to = flops / PEAK_FLOPS[dtype] * 1.0e3
+    tb, to = bound_sides(nbytes, flops, dtype)
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def bound_sides(nbytes: int, flops: int, dtype):
+    """(bytes over the memory rate, operations over the peak rate), in ms."""
+    return (nbytes / PEAK_BYTES_PER_S * 1.0e3,
+            flops / PEAK_FLOPS[dtype] * 1.0e3)
+
+
+def update_flops(mp, cells: int, newton: int) -> int:
+    """Operations of one B3 call on a state whose ladder tiles took
+    ``newton`` Newton iterations in all (``stats``): one ``ydot`` and the
+    Euler step a cell, and for each Newton iteration of a tile, all 1024
+    of its cells evaluate ``ydot`` with two tangents (about three times its
+    operations) and solve the 2x2 system (40)."""
+    from pion_tpu_torch.microphysics import fused_mpv3 as fm
+
+    fy = fm.flops_per_ydot(mp, 1)
+    return cells * (fy + 12) + newton * fm.TILE * (3 * fy + 40)
+
+
+# The kernel times of the phases below are taken by these two helpers, which
+# kernel_times.py also drives on the same states to compare two checkouts.
+def sweep_mix_ms(Ppad, cfg, geom, axes, dt, ch, strong, scma=False) -> dict:
+    """B1's time a launch on a path's mix: each of ``axes`` at orders 1 and
+    2, keyed ``axis{a}_order{o}``."""
+    from pion_tpu_torch.ops import fused_sweep as fs
+
+    return {f"axis{a}_order{o}": time_ms(
+        lambda: fs.sweep_axis(Ppad, cfg, geom, a, o, dt, ch=ch, scma=scma,
+                              strong=strong), 20)
+        for a in axes for o in (1, 2)}
+
+
+def update_ms(mp, omx, E, nH, dt: float, rt, f0=None) -> float:
+    """B3's time a call, the step handed over on the card (``device_scalar``)."""
+    from pion_tpu_torch.microphysics import fused_mpv3 as fm
+
+    dt_dev = device_scalar(dt, omx)
+    return time_ms(lambda: fm.update(mp, omx, E, nH, dt_dev, rt, f0=f0), 20)
+
+
+def update_stats(mp, omx, E, nH, dt, rt, f0=None):
+    """One B3 call with its diagnostics: (result, ladder tiles, Newton
+    iterations in all)."""
+    from pion_tpu_torch.microphysics import fused_mpv3 as fm
+
+    stats = torch.zeros(2, dtype=torch.int32, device=omx.device)
+    got = fm.update(mp, omx, E, nH, dt, rt, f0=f0, stats=stats)
+    tiles, newton = stats.tolist()
+    return got, tiles, newton
 
 
 def measure_kernels(device, worst, shape=(128, 128, 128)):
@@ -240,27 +291,22 @@ def measure_kernels(device, worst, shape=(128, 128, 128)):
     rows = []
     # --- sweep_axis (B1)
     abs1 = rel1 = 0.0
-    ms1, plain1, cases1 = [], [], {}
+    plain1 = []
     for axis in (1, 2):
         for order in (1, 2):
-            def kern():
-                return fs.sweep_axis(Ppad, cfg, geom, axis, order, dt, ch=ch,
-                                     strong=strong)
-
             def plain():
                 return fs.sweep_axis_plain(Ppad, cfg, geom, axis, order, dt,
                                            ch=ch)
 
-            rel, ab = scaled_err(kern(), plain())
+            rel, ab = scaled_err(
+                fs.sweep_axis(Ppad, cfg, geom, axis, order, dt, ch=ch,
+                              strong=strong), plain())
             if not rel <= tol:
                 raise AssertionError(f"sweep_axis at 128^3 axis={axis} "
                                      f"order={order}: {rel:.3e} > {tol:.1e}")
             rel1, abs1 = max(rel1, rel), max(abs1, ab)
-            k_ms = time_ms(kern, 20)
-            p_ms = time_ms(plain, 3, warmup=1)
-            ms1.append(k_ms)
-            plain1.append(p_ms)
-            cases1[f"axis{axis}_order{order}"] = k_ms
+            plain1.append(time_ms(plain, 3, warmup=1))
+    cases1 = sweep_mix_ms(Ppad, cfg, geom, (1, 2), dt, ch, strong)
     n_if = cells // cfg.shape[1] * (cfg.shape[1] + 1)
     b_ms, b_by = bound(
         Ppad.numel() * esz + strong.numel() + 2 * esz + cfg.nvar * cells * esz,
@@ -272,7 +318,8 @@ def measure_kernels(device, worst, shape=(128, 128, 128)):
         "max_abs_err": abs1, "max_rel_err_f32_128": rel1,
         "max_rel_err_f64": worst["float64"][0],
         "max_rel_err_f32": worst["float32"][0],
-        "ms": float(np.mean(ms1)), "plain_ms": float(np.mean(plain1)),
+        "ms": float(np.mean(list(cases1.values()))),
+        "plain_ms": float(np.mean(plain1)),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "ms_by_case": cases1})
 
@@ -392,6 +439,18 @@ def ladder_agrees(kernel_tiles: int, plain_tiles: int) -> bool:
     the ladder: equal, but for a tile whose only stiff cell sits on the Euler
     cutoff in one version's rounding (one tile, or 1 % of them)."""
     return abs(kernel_tiles - plain_tiles) <= max(1, plain_tiles // 100)
+
+
+def newton_agrees(kernel_its: int, plain_its: int, dtype) -> bool:
+    """Whether the kernel and its plain version took the same Newton
+    iterations in all: equal in float64; in float32 at most two apart, for
+    tiles whose largest correction lands within rounding of the stopping
+    tolerance in one version and so stop an iteration apart.  Read on an
+    H100 over every state that holds it: equal in float64, and in float32
+    equal but for 7085 against 7084 on the 1270 ladder tiles of
+    ``MP_EDGE_CASES`` "walk"."""
+    return abs(kernel_its - plain_its) <= (0 if dtype == torch.float64
+                                           else 2)
 
 
 def soft_err(out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -533,6 +592,75 @@ def check_mpv3(device, shape=(7, 33, 41)):
                                sum(r[3] for r in ladder)]}
 
 
+# B3's two-launch design at its edges, each in float64 and float32: (label,
+# grid, rate model, sources, step, seeded with f0).  "walk": a grid whose tile
+# count (1586, the last one partial) is no multiple of the cluster size nor of
+# pass 2's grid (1056 clusters on an H100), 1270 of them on the ladder, so
+# that clusters walk more than one listed tile; "euler": a step so short that
+# no tile takes the ladder; "ladder": every tile takes it, with five sources
+# (one past those kept in registers); "seeded5": five sources and the
+# caller's first evaluation.  The steps of "walk" and "seeded5" (10 s) keep
+# their ladders at two substeps, so that the plain ladder, which steps on the
+# host, stays short.
+MP_EDGE_CASES = [
+    ("walk", (50, 160, 203), "mfion", 1, 10.0, False),
+    ("euler", (7, 33, 41), "mfion", 1, 1.0e-6, False),
+    ("ladder", (7, 33, 41), "mono", 5, 1.0e3, False),
+    ("seeded5", (7, 33, 41), "mfion", 5, 10.0, True),
+]
+
+
+def check_mpv3_edges(device):
+    """B3 against ``update_plain`` on MP_EDGE_CASES: the same limit as
+    ``check_mpv3`` at this step (UPDATE_TOL), the same ladder tiles
+    (``ladder_agrees``) and Newton iterations in all (``newton_agrees``),
+    and each case's own point (clusters that walk, no ladder, every tile on
+    it)."""
+    from pion_tpu_torch.microphysics import fused_mpv3 as fm
+
+    recs = {}
+    for dtype in (torch.float64, torch.float32):
+        for i, (label, shape, ion, k, dt, seeded) in enumerate(MP_EDGE_CASES):
+            mp = make_mp(ion)
+            omx, E, nH, rt = mp_inputs(mp, shape, k, dtype, device, 80 + i)
+            f0 = fm.ydot_plain(mp, omx, E, nH, rt) if seeded else None
+            got, tiles, newton = update_stats(mp, omx, E, nH, dt, rt, f0=f0)
+            *ref, ref_stats = fm.update_plain(mp, omx, E, nH, dt, rt, f0=f0,
+                                              return_stats=True)
+            plan = fm.update_plan(omx.numel(), fm._sm_count(device.index or 0))
+            what = f"mpv3 update, edge case {label} ({dtype})"
+            if not all(bool(torch.isfinite(g).all()) for g in got):
+                raise AssertionError(f"{what}: not finite")
+            err = max(soft_err(g, r) for g, r in zip(got, ref))
+            if not err <= UPDATE_TOL[dtype]:
+                raise AssertionError(f"{what}: {err:.3e} > "
+                                     f"{UPDATE_TOL[dtype]:.1e}")
+            if not (ladder_agrees(tiles, ref_stats[0])
+                    and newton_agrees(newton, ref_stats[1], dtype)):
+                raise AssertionError(
+                    f"{what}: ladder tiles / Newton iterations {tiles} / "
+                    f"{newton} in the kernel, {ref_stats[0]} / "
+                    f"{ref_stats[1]} in the plain version")
+            point = {"walk": tiles > plan["ladder_clusters"]
+                     and plan["tiles"] % plan["ladder_clusters"]
+                     and plan["tiles"] % plan["cluster"]
+                     and omx.numel() % fm.TILE,
+                     "euler": tiles == 0,
+                     "ladder": tiles == plan["tiles"],
+                     "seeded5": tiles > 0}[label]
+            if not point:
+                raise AssertionError(f"{what}: {tiles} of {plan['tiles']} "
+                                     f"tiles took the ladder on "
+                                     f"{plan['ladder_clusters']} clusters")
+            recs[f"{label}_{str(dtype).split('.')[-1]}"] = {
+                "shape": list(shape), "ion": ion, "sources": k, "dt": dt,
+                "f0": seeded, "max_soft_rel_err": err,
+                "ladder_tiles": tiles, "tiles": plan["tiles"],
+                "ladder_clusters": plan["ladder_clusters"],
+                "newton_iterations_kernel_vs_plain": [newton, ref_stats[1]]}
+    return recs
+
+
 TRACE_CASES = [
     ((16, 16, 16), (8, 8, 8)),
     ((16, 12, 20), (4, 7, 9)),
@@ -606,51 +734,68 @@ def hii_problem(n: int, dtype: str, kernels: str = "auto"):
     return cfg, P0, make_physics
 
 
-def mp_front_state(device, sim, P0, radius_cells: float):
-    """B3 on a state with an ionization front: kernel against plain, tiles
-    that take the ladder, time and bound."""
+def front_state(sim, P0, radius_cells: float) -> torch.Tensor:
+    """A developed H II region, which ten steps from a neutral medium do not
+    reach: the H II run's initial state ``P0`` with a sphere of
+    ``radius_cells`` around the centre ionised and at 8000 K, the front
+    around it stiff."""
     from pion_tpu_torch.constants import K_B, PG
-    from pion_tpu_torch.microphysics import fused_mpv3 as fm
 
-    cfg, phys, mp = sim.cfg, sim.physics, sim.physics.mp
-    c = mp.mpc
+    cfg, c = sim.cfg, sim.physics.mp.mpc
     n = cfg.shape[0]
     ax = np.arange(n) - (n - 1) / 2.0
     r = np.sqrt(ax[:, None, None] ** 2 + ax[None, :, None] ** 2
                 + ax[None, None, :] ** 2)
     P = np.array(P0)
     inside = r < radius_cells
-    xs = cfg.eqn.nbase
-    P[xs][inside] = 0.999
+    P[cfg.eqn.nbase][inside] = 0.999
     nH = P0[0] / c.mean_mass_per_h
     P[PG][inside] = ((c.n_ion + c.n_elec * 0.999) * nH * K_B * 8000.0)[inside]
-    P = torch.as_tensor(P, dtype=sim.P.dtype, device=device)
-    rt = phys.raytrace(P)
+    return torch.as_tensor(P, dtype=sim.P.dtype, device=sim.P.device)
+
+
+def mp_front_state(sim, P0, radius_cells: float):
+    """B3 on ``front_state``, at the step that state would take: kernel
+    against plain, tiles that take the ladder, Newton iterations, time and
+    bound."""
+    from pion_tpu_torch.microphysics import fused_mpv3 as fm
+
+    mp = sim.physics.mp
+    P = front_state(sim, P0, radius_cells)
+    rt = sim.physics.raytrace(P)
     omx, E, nH_t = mp.local_state(P)
     dt = float(sim.fns.calc_dt(P))
-    stats = torch.zeros(2, dtype=torch.int32, device=device)
-    got = fm.update(mp, omx, E, nH_t, dt, rt, stats=stats)
+    got, tiles, newton = update_stats(mp, omx, E, nH_t, dt, rt)
     *ref, ref_stats = fm.update_plain(mp, omx, E, nH_t, dt, rt,
                                       return_stats=True)
-    torch.cuda.synchronize()
-    tiles, newton = stats.tolist()
     err = max(soft_err(g, r_) for g, r_ in zip(got, ref))
     if not err <= UPDATE_TOL[P.dtype]:
         raise AssertionError(f"mpv3 update on the front state: {err:.3e} > "
                              f"{UPDATE_TOL[P.dtype]:.1e}")
-    if tiles < 2 or not ladder_agrees(tiles, ref_stats[0]):
-        raise AssertionError(f"front state ladder tiles: kernel {tiles}, "
-                             f"plain {ref_stats[0]}")
+    if (tiles < 2 or not ladder_agrees(tiles, ref_stats[0])
+            or not newton_agrees(newton, ref_stats[1], P.dtype)):
+        raise AssertionError(f"front state ladder tiles / Newton iterations: "
+                             f"kernel {tiles} / {newton}, plain "
+                             f"{ref_stats[0]} / {ref_stats[1]}")
     cells = omx.numel()
     esz = P.element_size()
-    fy = fm.flops_per_ydot(mp, 1)
     tab_bytes = (mp.tab["t1_rows"].size + mp.tab["tau_rows"].size) * esz
-    flops = cells * (fy + 12) + newton * fm.TILE * (3 * fy + 40)
-    b_ms, b_by = bound(8 * cells * esz + tab_bytes + esz, flops, P.dtype)
+    nbytes = 8 * cells * esz + tab_bytes + esz
+    flops = update_flops(mp, cells, newton)
+    b_ms, b_by = bound(nbytes, flops, P.dtype)
     return {"dt": dt, "ladder_tiles": tiles, "newton_iterations": newton,
             "newton_iterations_plain": ref_stats[1], "max_soft_rel_err": err,
-            "ms": time_ms(lambda: fm.update(mp, omx, E, nH_t, dt, rt), 20),
-            "bound_ms": b_ms, "bound_by": b_by}
+            "ms": update_ms(mp, omx, E, nH_t, dt, rt),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_bytes_operations": bound_sides(nbytes, flops, P.dtype)}
+
+
+def device_scalar(x: float, like: torch.Tensor) -> torch.Tensor:
+    """A step as a 0-d tensor on the card, as the paths hand it to the
+    kernels.  Timed calls take it: a Python number is copied to the card from
+    pageable memory at every call, and that copy waits for the stream, so
+    the events would time the host."""
+    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
 
 
 def grouped_err(out: torch.Tensor, ref: torch.Tensor, groups) -> float:
@@ -663,6 +808,20 @@ def grouped_err(out: torch.Tensor, ref: torch.Tensor, groups) -> float:
         diff = float((out[g] - ref[g]).abs().max())
         worst = max(worst, diff / max(float(ref[g].abs().max()), tiny))
     return worst
+
+
+def hii_sweep_inputs(sim, state):
+    """What the H II path hands B1 for ``state``: (padded state, fallback
+    mask, dt, cleaning speed, tracer clamp)."""
+    from pion_tpu_torch.boundaries import apply_bcs
+    from pion_tpu_torch.ops.sweep import hlld_fallback_cells
+    from pion_tpu_torch.stepper import _scma_flag
+
+    cfg, geom = sim.cfg, sim.geom
+    dt = sim.fns.calc_dt(sim.P)
+    Ppad = apply_bcs(state, cfg).contiguous()
+    return (Ppad, hlld_fallback_cells(Ppad, cfg, geom.dx), dt,
+            cfg.cfl * geom.dx / dt, _scma_flag(sim.physics))
 
 
 def measure_hii_sweep(device, sim):
@@ -678,20 +837,12 @@ def measure_hii_sweep(device, sim):
     gives out at order 2 — the cleaning speed of this run is 2e15 cm/s, and
     both float32 versions then stand 0.1 to 0.5 from the float64 result —
     and the two differ by more than TOL without either being wrong."""
-    from pion_tpu_torch.boundaries import apply_bcs
     from pion_tpu_torch.grid import make_geometry
     from pion_tpu_torch.constants import BX, PG, RO, SI, VX
     from pion_tpu_torch.ops import fused_sweep as fs
-    from pion_tpu_torch.ops.sweep import hlld_fallback_cells
-    from pion_tpu_torch.stepper import _scma_flag
 
     cfg, geom = sim.cfg, sim.geom
-    scma = _scma_flag(sim.physics)
-    if scma is not True:
-        raise AssertionError(f"the H II run's sweep flag is {scma!r}")
     P = sim.P
-    dt = sim.fns.calc_dt(P)
-    ch = cfg.cfl * geom.dx / dt
     tol = TOL[P.dtype]
     nb = cfg.eqn.nbase
     groups = [[RO], [VX, VX + 1, VX + 2], [PG], [BX, BX + 1, BX + 2], [SI],
@@ -710,11 +861,12 @@ def measure_hii_sweep(device, sim):
     geom64 = make_geometry(cfg64)
 
     rec = {"scma": True, "axes": [0, 1, 2], "orders": [1, 2]}
-    ms, plain_ms, by_case = [], [], {}
+    plain_ms, by_case = [], {}
     abs_err = 0.0
     for label, state in (("run_state", P), ("noisy_state", noisy)):
-        Ppad = apply_bcs(state, cfg).contiguous()
-        strong = hlld_fallback_cells(Ppad, cfg, geom.dx)
+        Ppad, strong, dt, ch, scma = hii_sweep_inputs(sim, state)
+        if scma is not True:
+            raise AssertionError(f"the H II run's sweep flag is {scma!r}")
         worst = worst64 = 0.0
         for axis in range(cfg.ndim):
             for order in (1, 2):
@@ -733,15 +885,13 @@ def measure_hii_sweep(device, sim):
                             f"{TOL[torch.float64]:.1e}")
                     worst64 = max(worst64, rel)
 
-                def kern():
-                    return fs.sweep_axis(Ppad, cfg, geom, axis, order, dt,
-                                         ch=ch, scma=scma, strong=strong)
-
                 def plain():
                     return fs.sweep_axis_plain(Ppad, cfg, geom, axis, order,
                                                dt, ch=ch, scma=scma)
 
-                out, ref = kern(), plain()
+                out = fs.sweep_axis(Ppad, cfg, geom, axis, order, dt, ch=ch,
+                                    scma=scma, strong=strong)
+                ref = plain()
                 if label == "run_state":
                     rel = grouped_err(out, ref, groups)
                 else:
@@ -753,10 +903,10 @@ def measure_hii_sweep(device, sim):
                 worst = max(worst, rel)
                 if label == "run_state":
                     abs_err = max(abs_err, float((out - ref).abs().max()))
-                    k_ms = time_ms(kern, 20)
-                    ms.append(k_ms)
                     plain_ms.append(time_ms(plain, 2, warmup=1))
-                    by_case[f"axis{axis}_order{order}"] = k_ms
+        if label == "run_state":
+            by_case = sweep_mix_ms(Ppad, cfg, geom, range(cfg.ndim), dt, ch,
+                                   strong, scma=scma)
         rec[f"max_rel_err_{label}"] = worst
     rec["max_rel_err_noisy_state_f64"] = worst64
     cells = int(np.prod(cfg.shape))
@@ -766,10 +916,31 @@ def measure_hii_sweep(device, sim):
         Ppad.numel() * esz + strong.numel() + 2 * esz + cfg.nvar * cells * esz,
         n_if * (fs.flops_per_interface(cfg, 1)
                 + fs.flops_per_interface(cfg, 2)) // 2, P.dtype)
-    rec.update(launches=None, max_abs_err=abs_err, ms=float(np.mean(ms)),
+    rec.update(launches=None, max_abs_err=abs_err,
+               ms=float(np.mean(list(by_case.values()))),
                plain_ms=float(np.mean(plain_ms)), bound_ms=b_ms,
                bound_by=b_by, library_ms=None, ms_by_case=by_case)
     return rec
+
+
+def hii_run(n: int, steps: int):
+    """The H II region at ``n``^3 float32 after ``steps`` steps: (the
+    simulation, its initial state)."""
+    from pion_tpu_torch import Simulation
+
+    cfg, P0, make_physics = hii_problem(n, "float32")
+    sim = Simulation(cfg, P0, physics=make_physics())
+    sim.run(max_steps=steps)
+    return sim, P0
+
+
+def quiescent_inputs(mp, P0, like):
+    """B3's inputs on the H II run's initial state with the source's column
+    shut off: no cell heats, so a long step stays on the Euler pass."""
+    P00 = torch.as_tensor(P0, dtype=like.dtype, device=like.device)
+    rt = mp.default_rt(P00)
+    return mp.local_state(P00), {"tau0": rt["tau0"], "ds": rt["ds"],
+                                 "sv": rt["sv"]}
 
 
 def measure_physics_kernels(device, n: int = 128, steps: int = 6):
@@ -779,13 +950,10 @@ def measure_physics_kernels(device, n: int = 128, steps: int = 6):
     with the source's column shut off and a short step (Euler only), and on
     the run's state with the step the run would take (with the ladder).
     Returns the three rows and the record of B1 on this path."""
-    from pion_tpu_torch import Simulation
     from pion_tpu_torch.microphysics import fused_mpv3 as fm
     from pion_tpu_torch.raytracing import fused_trace as ft
 
-    cfg, P0, make_physics = hii_problem(n, "float32")
-    sim = Simulation(cfg, P0, physics=make_physics())
-    sim.run(max_steps=steps)
+    sim, P0 = hii_run(n, steps)
     phys, mp = sim.physics, sim.physics.mp
     P = sim.P
     dtype = P.dtype
@@ -819,36 +987,28 @@ def measure_physics_kernels(device, n: int = 128, steps: int = 6):
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
 
     # --- B3 update, on the run's state (with the ladder) and quiescent
-    stats = torch.zeros(2, dtype=torch.int32, device=device)
-    got = fm.update(mp, omx, E, nH, dt, rt, stats=stats)
+    got, tiles, newton = update_stats(mp, omx, E, nH, dt, rt)
     *ref, ref_stats = fm.update_plain(mp, omx, E, nH, dt, rt,
                                       return_stats=True)
-    torch.cuda.synchronize()
-    tiles, newton = stats.tolist()
     errs = [soft_err(g, r) for g, r in zip(got, ref)]
     if not max(errs) <= UPDATE_TOL[dtype]:
         raise AssertionError(f"mpv3 update at {n}^3: {max(errs):.3e} > "
                              f"{UPDATE_TOL[dtype]:.1e}")
-    if not ladder_agrees(tiles, ref_stats[0]):
-        raise AssertionError(f"ladder tiles: kernel {tiles}, plain "
-                             f"{ref_stats[0]}")
+    if not (ladder_agrees(tiles, ref_stats[0])
+            and newton_agrees(newton, ref_stats[1], dtype)):
+        raise AssertionError(f"ladder tiles / Newton iterations: kernel "
+                             f"{tiles} / {newton}, plain {ref_stats[0]} / "
+                             f"{ref_stats[1]}")
     # what this state needs: one evaluation a cell, and value plus two
     # tangents and the 2x2 solve for every cell of a tile in a Newton
     # iteration
-    flops = cells * (fy + 12) + newton * fm.TILE * (3 * fy + 40)
+    flops = update_flops(mp, cells, newton)
     b_ms, b_by = bound(8 * plane + tab_bytes + esz, flops, dtype)
-    P00 = torch.as_tensor(P0, dtype=dtype, device=device)
-    q_state = mp.local_state(P00)
-    q_rt = mp.default_rt(P00)
-    q_rt = {"tau0": q_rt["tau0"], "ds": q_rt["ds"], "sv": q_rt["sv"]}
-    q_stats = torch.zeros(2, dtype=torch.int32, device=device)
-    fm.update(mp, *q_state, 1.0e7, q_rt, stats=q_stats)
-    if q_stats.tolist()[0] != 0:
+    q_state, q_rt = quiescent_inputs(mp, P0, P)
+    if update_stats(mp, *q_state, 1.0e7, q_rt)[1] != 0:
         raise AssertionError("the quiescent state ran the ladder")
-    # a developed H II region, which ten steps from a neutral medium do not
-    # reach: a sphere of 24 cells' radius ionised and at 8000 K, the front
-    # around it stiff, at the step this state would take
-    front = mp_front_state(device, sim, P0, n * 3.0 / 16.0)
+    # a developed H II region, a sphere of 24 cells' radius
+    front = mp_front_state(sim, P0, n * 3.0 / 16.0)
     rows.append({
         "name": "mpv3_update", "route": "cuda", "source": MP_SOURCE,
         "replaces": "pion_tpu/microphysics/pallas_mpv3.py:489",
@@ -856,14 +1016,16 @@ def measure_physics_kernels(device, n: int = 128, steps: int = 6):
         "max_abs_err": max(float((g - r).abs().max())
                            for g, r in zip(got, ref)),
         "max_soft_rel_err": max(errs),
-        "ms": time_ms(lambda: fm.update(mp, omx, E, nH, dt, rt), 20),
+        "ms": update_ms(mp, omx, E, nH, dt, rt),
         "plain_ms": time_ms(lambda: fm.update_plain(mp, omx, E, nH, dt, rt),
                             2, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "bound_ms_bytes_operations": bound_sides(8 * plane + tab_bytes + esz,
+                                                 flops, dtype),
+        "kernels": ["update_euler_kernel", "update_ladder_kernel"],
         "dt": dt, "tiles": -(-cells // fm.TILE), "ladder_tiles": tiles,
         "newton_iterations": newton,
-        "ms_quiescent": time_ms(
-            lambda: fm.update(mp, *q_state, 1.0e7, q_rt), 20),
+        "ms_quiescent": update_ms(mp, *q_state, 1.0e7, q_rt),
         "bound_ms_quiescent": bound(8 * plane + tab_bytes + esz,
                                     cells * (fy + 12), dtype)[0],
         "front": front})
@@ -896,7 +1058,8 @@ def measure_physics_kernels(device, n: int = 128, steps: int = 6):
 
 
 # the port's kernels by name, then PyTorch's by kind
-KERNEL_GROUPS = ("sweep_axis_kernel", "final_axis_kernel", "update_kernel",
+KERNEL_GROUPS = ("sweep_axis_kernel", "final_axis_kernel",
+                 "update_euler_kernel", "update_ladder_kernel",
                  "ydot_kernel", "octant_trace_kernel", "CatArrayBatchedCopy",
                  "elementwise_kernel", "reduce_kernel", "index")
 
@@ -1137,6 +1300,29 @@ def clone_hierarchy(hier, cfg, physics):
     return h
 
 
+def ng_sweep_inputs(hier):
+    """What the nested-grid path hands B1 on the fine level of ``hier``:
+    (config, geometry, padded state, fallback mask, dt, cleaning speed,
+    tracer clamp)."""
+    from pion_tpu_torch.ops.sweep import hlld_fallback_cells
+    from pion_tpu_torch.stepper import _scma_flag
+
+    cfg, geom = hier.cfgs[1], hier.geoms[1]
+    Ppad = hier._pad_level(1, hier.P[1], hier.P[0])
+    dt = 0.5 * hier._level_dt(hier.P)
+    return (cfg, geom, Ppad, hlld_fallback_cells(Ppad, cfg, geom.dx), dt,
+            cfg.cfl * geom.dx / dt, _scma_flag(hier.phys[1]))
+
+
+def ng_update_inputs(hier, level: int):
+    """What the nested-grid path hands B3 on ``level`` of ``hier`` after its
+    last step: (rate model, 1-x, E, nH, columns, the level's step)."""
+    P, phys = hier.P[level], hier.phys[level]
+    mp = phys.mp
+    return (mp, *mp.local_state(P), phys.raytrace(P),
+            hier.last_dt / 2 ** level)
+
+
 def measure_ng_sweep(device, hier):
     """B1 as the nested-grid path launches it on the fine level: the padded
     state has prolonged ghosts instead of a domain boundary, the cell size is
@@ -1145,32 +1331,23 @@ def measure_ng_sweep(device, hier):
     against the plain version (errors by groups of variables), and timed."""
     from pion_tpu_torch.constants import BX, PG, RO, SI, VX
     from pion_tpu_torch.ops import fused_sweep as fs
-    from pion_tpu_torch.ops.sweep import hlld_fallback_cells
-    from pion_tpu_torch.stepper import _scma_flag
 
-    cfg, geom = hier.cfgs[1], hier.geoms[1]
-    scma = _scma_flag(hier.phys[1])
-    Ppad = hier._pad_level(1, hier.P[1], hier.P[0])
-    dt = 0.5 * hier._level_dt(hier.P)
-    ch = cfg.cfl * geom.dx / dt
-    strong = hlld_fallback_cells(Ppad, cfg, geom.dx)
+    cfg, geom, Ppad, strong, dt, ch, scma = ng_sweep_inputs(hier)
     nb = cfg.eqn.nbase
     groups = [[RO], [VX, VX + 1, VX + 2], [PG], [BX, BX + 1, BX + 2], [SI],
               list(range(nb, cfg.nvar))]
     tol = TOL[Ppad.dtype]
     worst = abs_err = 0.0
-    ms, plain_ms, by_case = [], [], {}
+    plain_ms = []
     for axis in range(cfg.ndim):
         for order in (1, 2):
-            def kern():
-                return fs.sweep_axis(Ppad, cfg, geom, axis, order, dt, ch=ch,
-                                     scma=scma, strong=strong)
-
             def plain():
                 return fs.sweep_axis_plain(Ppad, cfg, geom, axis, order, dt,
                                            ch=ch, scma=scma)
 
-            out, ref = kern(), plain()
+            out = fs.sweep_axis(Ppad, cfg, geom, axis, order, dt, ch=ch,
+                                scma=scma, strong=strong)
+            ref = plain()
             rel = grouped_err(out, ref, groups)
             if not rel <= tol:
                 raise AssertionError(
@@ -1178,10 +1355,9 @@ def measure_ng_sweep(device, hier):
                     f"order={order}: {rel:.3e} > {tol:.1e}")
             worst = max(worst, rel)
             abs_err = max(abs_err, float((out - ref).abs().max()))
-            k_ms = time_ms(kern, 20)
-            ms.append(k_ms)
             plain_ms.append(time_ms(plain, 2, warmup=1))
-            by_case[f"axis{axis}_order{order}"] = k_ms
+    by_case = sweep_mix_ms(Ppad, cfg, geom, range(cfg.ndim), dt, ch, strong,
+                           scma=scma)
     cells = int(np.prod(cfg.shape))
     esz = Ppad.element_size()
     n_if = cells // cfg.shape[0] * (cfg.shape[0] + 1)
@@ -1191,7 +1367,8 @@ def measure_ng_sweep(device, hier):
                 + fs.flops_per_interface(cfg, 2)) // 2, Ppad.dtype)
     return {"level": 1, "scma": True, "axes": [0, 1, 2], "orders": [1, 2],
             "dx_over_root_dx": 0.5, "max_rel_err": worst, "launches": None,
-            "max_abs_err": abs_err, "ms": float(np.mean(ms)),
+            "max_abs_err": abs_err,
+            "ms": float(np.mean(list(by_case.values()))),
             "plain_ms": float(np.mean(plain_ms)), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None, "ms_by_case": by_case}
 
@@ -1212,14 +1389,11 @@ def measure_ng_physics(device, hier, timed: bool = True):
     recs = {"mpv3_ydot": {}, "mpv3_update": {}, "octant_trace": {}}
     cfg_off = dataclasses.replace(hier.cfgs[0], kernels="off")
     for l in range(hier.n_levels):
-        P, cfg, phys = hier.P[l], hier.cfgs[l], hier.phys[l]
-        mp = phys.mp
+        P, phys = hier.P[l], hier.phys[l]
         dtype = P.dtype
         what = f"on the nested-grid state, level {l} ({dtype})"
-        dt = hier.last_dt / 2 ** l
         # as the step's dt computation builds them
-        rt = phys.raytrace(P)
-        omx, E, nH = mp.local_state(P)
+        mp, omx, E, nH, rt, dt = ng_update_inputs(hier, l)
 
         # --- B4
         f0 = fm.ydot(mp, omx, E, nH, rt)
@@ -1238,21 +1412,20 @@ def measure_ng_physics(device, hier, timed: bool = True):
         up = {}
         for label, h, seed in (("predictor_seeded", 0.5 * dt, f0),
                                ("corrector", dt, None)):
-            stats = torch.zeros(2, dtype=torch.int32, device=device)
-            got = fm.update(mp, omx, E, nH, h, rt, f0=seed, stats=stats)
+            got, tiles, newton = update_stats(mp, omx, E, nH, h, rt, f0=seed)
             *ref, ref_stats = fm.update_plain(mp, omx, E, nH, h, rt, f0=seed,
                                               return_stats=True)
-            torch.cuda.synchronize()
-            tiles, newton = stats.tolist()
             err = max(soft_err(g, r) for g, r in zip(got, ref))
             if not (err <= UPDATE_TOL[dtype]
                     and all(bool(torch.isfinite(g).all()) for g in got)):
                 raise AssertionError(f"mpv3 update {what}, {label}: "
                                      f"{err:.3e} > {UPDATE_TOL[dtype]:.1e}")
-            if not ladder_agrees(tiles, ref_stats[0]):
+            if not (ladder_agrees(tiles, ref_stats[0])
+                    and newton_agrees(newton, ref_stats[1], dtype)):
                 raise AssertionError(
-                    f"mpv3 update {what}, {label}: ladder on {tiles} tiles "
-                    f"in the kernel, {ref_stats[0]} in the plain version")
+                    f"mpv3 update {what}, {label}: ladder tiles / Newton "
+                    f"iterations {tiles} / {newton} in the kernel, "
+                    f"{ref_stats[0]} / {ref_stats[1]} in the plain version")
             up[label] = {"dt": h, "max_soft_rel_err": err,
                          "max_abs_err": max(float((g - r).abs().max())
                                             for g, r in zip(got, ref)),
@@ -1293,17 +1466,17 @@ def measure_ng_physics(device, hier, timed: bool = True):
     newton = recs["mpv3_update"][fine]["corrector"]["newton_iterations"]
     bounds = {
         "mpv3_ydot": bound(8 * plane + tab_bytes, cells * fy, dtype),
-        "mpv3_update": bound(
-            8 * plane + tab_bytes + esz,
-            cells * (fy + 12) + newton * fm.TILE * (3 * fy + 40), dtype),
+        "mpv3_update": bound(8 * plane + tab_bytes + esz,
+                             update_flops(mp, cells, newton), dtype),
         "octant_trace": bound(2 * plane, 40 * cells, dtype)}
     calls = {
-        "mpv3_ydot": (lambda: fm.ydot(mp, omx, E, nH, rt),
+        "mpv3_ydot": (lambda: time_ms(lambda: fm.ydot(mp, omx, E, nH, rt), 20),
                       lambda: fm.ydot_plain(mp, omx, E, nH, rt)),
-        "mpv3_update": (lambda: fm.update(mp, omx, E, nH, dt, rt),
+        "mpv3_update": (lambda: update_ms(mp, omx, E, nH, dt, rt),
                         lambda: fm.update_plain(mp, omx, E, nH, dt, rt)),
         "octant_trace": (
-            lambda: ft.octant_trace(dtau, tr.src_idx, tr.tau_min),
+            lambda: time_ms(
+                lambda: ft.octant_trace(dtau, tr.src_idx, tr.tau_min), 20),
             lambda: ft.octant_trace_plain(dtau, tr.src_idx, tr.tau_min))}
     for name, rec in recs.items():
         levels = [rec[f"level{l}"] for l in range(hier.n_levels)]
@@ -1316,12 +1489,11 @@ def measure_ng_physics(device, hier, timed: bool = True):
                    bound_ms=bounds[name][0], bound_by=bounds[name][1],
                    library_ms=None)
         if timed:
-            kern, plain = calls[name]
-            rec.update(ms=time_ms(kern, 20),
-                       plain_ms=time_ms(plain, 2, warmup=1))
+            kern_ms, plain = calls[name]
+            rec.update(ms=kern_ms(), plain_ms=time_ms(plain, 2, warmup=1))
     if timed:
-        recs["mpv3_update"]["ms_predictor_seeded"] = time_ms(
-            lambda: fm.update(mp, omx, E, nH, 0.5 * dt, rt, f0=f0), 20)
+        recs["mpv3_update"]["ms_predictor_seeded"] = update_ms(
+            mp, omx, E, nH, 0.5 * dt, rt, f0=f0)
     return recs
 
 
@@ -1740,6 +1912,8 @@ def main(argv=None):
                          for k, v in UPDATE_TOL.items()},
               "update_stiff_share": STIFF_SHARE,
               "update_stiff_median": STIFF_MEDIAN})
+    emit("mpv3_edge_checks", cases=check_mpv3_edges(device),
+         tol={str(k).split(".")[-1]: v for k, v in UPDATE_TOL.items()})
     w_tr, n_tr = check_trace(device, big=not args.quick)
     emit("trace_checks", cases=n_tr, max_rel_err=w_tr,
          tol={str(k).split(".")[-1]: v for k, v in TRACE_TOL.items()})

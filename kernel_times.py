@@ -1,0 +1,214 @@
+#!/usr/bin/env python3
+"""Device times of the sweep kernel (B1) and the chemistry update (B3) on the
+traffic of the port's three main paths, and the host's cost of a call of each
+wrapper, for comparing two versions of the port on one card.
+
+    python3 kernel_times.py                      # the port beside this script
+    cd OTHER_CHECKOUT && python3 /path/to/kernel_times.py --here
+
+``--here`` imports ``pion_tpu_torch`` from the working directory instead of
+the script's own, so that one call can time two checkouts in turns (A, B, B,
+A) on the same card.  The states and the timing are ``chip_smoke.py``'s, from
+beside this script whichever package is timed: the builders its ``kernels``
+phase uses and its ``sweep_mix_ms`` and ``update_ms`` (CUDA events over 20
+launches queued behind a busy device).  Needs one CUDA device.  At 128^3
+float32 it times:
+
+- B1 on the blast wave (axes 0-2, orders 1 and 2), on the H II region's
+  state after six steps (three axes, ``scma``) and on level 1 of the coupled
+  hierarchy after eight steps (prolonged ghosts, half ``dx``, wind cells);
+- B2 on the blast wave, orders 1 and 2;
+- B3 on the H II state (the step that state takes), on a quiescent state
+  (Euler only), on a developed ionisation front, and on both levels of the
+  coupled state (seeded with ``f0`` at half the step, unseeded at the step),
+  with the ladder tiles and Newton iterations of each call;
+- the host's microseconds a call of ``update``, ``ydot`` and ``sweep_axis``
+  (order 2) on level 1 of the coupled state, queued behind a busy device.
+
+With ``--paths`` it also times whole steps of the three paths on the host
+clock (``Simulation.run`` of the blast and the H II region, ``NGHierarchy.step``
+of the coupled flagship, each after two warm-up steps, ending in
+``torch.cuda.synchronize()``).
+
+Prints one JSON line a group and, last, the card's name and power limit.
+No plain version runs: ``chip_smoke.py`` holds the kernels against them.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--here", action="store_true",
+                    help="import the port from the working directory")
+    ap.add_argument("--label", default="", help="a tag for every line")
+    ap.add_argument("--paths", action="store_true",
+                    help="also time whole steps of the three paths on the "
+                         "host clock (blast 10, H II 10, coupled 6 steps)")
+    args = ap.parse_args(argv)
+    if args.here:
+        sys.path.insert(0, os.getcwd())
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 1
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from pion_tpu_torch import NGHierarchy, _build
+    from pion_tpu_torch.microphysics import fused_mpv3 as fm
+    from pion_tpu_torch.ops import fused_sweep as fs
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+
+    def emit(group, **kw):
+        print(json.dumps({"label": args.label, "group": group, **kw,
+                          "elapsed_s": time.perf_counter() - t0}), flush=True)
+
+    def mix(by_case):
+        return float(np.mean(list(by_case.values())))
+
+    def b3(mp, omx, E, nH, rt, dt, f0=None):
+        _, tiles, newton = cs.update_stats(mp, omx, E, nH, dt, rt, f0=f0)
+        return {"ms": cs.update_ms(mp, omx, E, nH, dt, rt, f0=f0),
+                "ladder_tiles": tiles, "newton_iterations": newton,
+                "cells": omx.numel(), "dt": float(dt)}
+
+    emit("build", seconds=_build.load_all()["seconds"],
+         source=os.path.dirname(os.path.abspath(fs.__file__)))
+
+    # --- blast: B1 and B2
+    cfg = cs.main_cfg((128,) * 3, "float32")
+    geom, P, Ppad, strong, dt, ch = cs.kernel_inputs(cfg, 7, dev)
+    b1 = cs.sweep_mix_ms(Ppad, cfg, geom, (0, 1, 2), dt, ch, strong)
+    contribs = [fs.sweep_axis(Ppad, cfg, geom, a, 2, dt, ch=ch, strong=strong)
+                for a in (1, 2)]
+    b2 = {f"order{o}": cs.time_ms(
+        lambda: fs.final_axis(P, Ppad, contribs, cfg, geom, o, dt, ch=ch,
+                              strong=strong), 20) for o in (1, 2)}
+    emit("blast", sweep_axis=b1, sweep_axis_mix_ms=mix(
+        {k: v for k, v in b1.items() if not k.startswith("axis0")}),
+        final_axis=b2, final_axis_mix_ms=mix(b2))
+
+    # --- the H II region after six steps: B1 (scma) and B3
+    sim, P0 = cs.hii_run(128, 6)
+    hpad, hstrong, hdt, hch, scma = cs.hii_sweep_inputs(sim, sim.P)
+    hb1 = cs.sweep_mix_ms(hpad, sim.cfg, sim.geom, range(3), hdt, hch,
+                          hstrong, scma=scma)
+    emit("hii_sweep", sweep_axis=hb1, sweep_axis_mix_ms=mix(hb1))
+    mp = sim.physics.mp
+    run_state = b3(mp, *mp.local_state(sim.P), sim.physics.raytrace(sim.P),
+                   float(hdt))
+    q_state, q_rt = cs.quiescent_inputs(mp, P0, sim.P)
+    quiescent = b3(mp, *q_state, q_rt, 1.0e7)
+    Pf = cs.front_state(sim, P0, 128 * 3.0 / 16.0)
+    front = b3(mp, *mp.local_state(Pf), sim.physics.raytrace(Pf),
+               float(sim.fns.calc_dt(Pf)))
+    emit("hii_update", run_state=run_state, quiescent=quiescent, front=front)
+    del sim
+
+    # --- the coupled hierarchy after eight steps: B1 on level 1, B3 on both
+    ccfg, states, make_cphys = cs.coupled_problem(128, "float32")
+    hier = NGHierarchy(ccfg, 2, physics=make_cphys())
+    hier.set_states(states)
+    for _ in range(8):
+        hier.step()
+    cfg1, geom1, npad, nstrong, ndt, nch, nscma = cs.ng_sweep_inputs(hier)
+    nb1 = cs.sweep_mix_ms(npad, cfg1, geom1, range(3), ndt, nch, nstrong,
+                          scma=nscma)
+    emit("ng_sweep", level=1, sweep_axis=nb1, sweep_axis_mix_ms=mix(nb1))
+    levels = {}
+    for lv in range(2):
+        mpl, o_, e_, n_, rtl, dtl = cs.ng_update_inputs(hier, lv)
+        f0 = fm.ydot(mpl, o_, e_, n_, rtl)
+        levels[f"level{lv}"] = {
+            "predictor_seeded": b3(mpl, o_, e_, n_, rtl, 0.5 * dtl, f0=f0),
+            "corrector": b3(mpl, o_, e_, n_, rtl, dtl)}
+    emit("ng_update", **levels)
+
+    # --- the host's cost of a wrapper call, level 1 of the coupled state
+    # (mpl ... dtl are level 1's, the loop's last), the step on the card
+    dt_dev = cs.device_scalar(dtl, o_)
+    emit("host_us_per_call", level=1,
+         update=host_us(lambda: fm.update(mpl, o_, e_, n_, dt_dev, rtl)),
+         ydot=host_us(lambda: fm.ydot(mpl, o_, e_, n_, rtl)),
+         sweep_axis_order2=host_us(lambda: fs.sweep_axis(
+             npad, cfg1, geom1, 1, 2, ndt, ch=nch, scma=nscma,
+             strong=nstrong)))
+    del hier
+
+    if args.paths:
+        emit("paths", **path_times(cs, torch))
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    return 0
+
+
+def host_us(fn, n: int = 30) -> float:
+    """Host microseconds a call of ``fn``, the calls queued behind a device
+    kept busy for about a second, so that none waits for the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n * 1.0e6
+    torch.cuda.synchronize()
+    return t
+
+
+def path_times(cs, torch) -> dict:
+    """ms a step on the host clock of the three paths at 128^3 float32."""
+    from pion_tpu_torch import NGHierarchy, Simulation
+    from pion_tpu_torch.ics import blast_wave
+
+    def timed(run, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(n)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1.0e3
+
+    def sim_run(sim):
+        return lambda n: sim.run(max_steps=sim.step_count + n)
+
+    out = {}
+    cfg = cs.main_cfg((128,) * 3, "float32")
+    sim = Simulation(cfg, blast_wave(cfg, B0=(0.1, 0.05, 0.0)))
+    sim.run(max_steps=2)
+    out["blast_ms_per_step"] = timed(sim_run(sim), 10)
+    hcfg, P0, make_physics = cs.hii_problem(128, "float32")
+    sim = Simulation(hcfg, P0, physics=make_physics())
+    sim.run(max_steps=2)
+    out["hii_ms_per_step"] = timed(sim_run(sim), 10)
+    ccfg, states, make_cphys = cs.coupled_problem(128, "float32")
+    hier = NGHierarchy(ccfg, 2, physics=make_cphys())
+    hier.set_states(states)
+    for _ in range(2):
+        hier.step()
+    out["coupled_ms_per_step"] = timed(
+        lambda n: [hier.step() for _ in range(n)], 6)
+    return out
+
+
+if __name__ == "__main__":
+    sys.exit(main())

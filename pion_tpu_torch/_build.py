@@ -53,7 +53,7 @@ _I = ctypes.c_int
 _L = ctypes.c_long
 _D = ctypes.c_double
 _SWEEP_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-               ctypes.c_ulonglong, _D, _D, _D, _D, _D, _D, _P]
+               ctypes.c_ulonglong, _I, _I, _D, _D, _D, _D, _D, _D, _P]
 _FINAL_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                _D, _D, _D, _D, _D, _D, _P]
 _DP = ctypes.POINTER(ctypes.c_double)
@@ -61,7 +61,7 @@ _MP_HEAD = [_P, _P, _P, _P, _I, _P, _P, _P]           # cells, sources, tables
 _MP_TAIL = [_L, _I, _I, _DP, _I, _I]                  # n, modes, constants
 _YDOT_ARGS = _MP_HEAD + [_P, _P] + _MP_TAIL + [_P]
 _UPDATE_ARGS = (_MP_HEAD + [_P, _P, _P, _P, _P, _P] + _MP_TAIL
-                + [_I, _I, _D, _P])
+                + [_I, _I, _D, _P, _P, _I, _P])
 _TRACE_ARGS = [_P, _P, _I, _I, _I, _I, _I, _I, _D, _P]
 
 # C functions of each translation unit: name -> argument types

@@ -1,15 +1,16 @@
 // MPv3 chemistry kernels for Hopper (sm_90a): the ODE right-hand side of every
-// cell (ydot_kernel) and the whole cell update — forward Euler or a
-// backward-Euler Newton ladder — of every cell (update_kernel).
+// cell (ydot_kernel) and the whole cell update -- forward Euler or a
+// backward-Euler Newton ladder -- of every cell (update_euler_kernel, then
+// update_ladder_kernel).
 //
 // Replaces the TPU kernels of pion_tpu/microphysics/pallas_mpv3.py:
-//   ydot_kernel    <- ydot_pallas    (the pallas_call at :314)
-//   update_kernel  <- update_pallas  (the pallas_call at :489)
+//   ydot_kernel                               <- ydot_pallas   (pallas_call at :314)
+//   update_euler_kernel + update_ladder_kernel <- update_pallas (pallas_call at :489)
 //
 // What they compute is MPv3.ydot term by term (reference: MPv3.cpp:1619-1936)
 // and the integrator of update_pallas.  What is not carried over is the TPU's
 // tiling: the hat-basis matrix products that stood in for table lookups are
-// plain reads here — the rate curves (11 x NT) and, where they fit beside them
+// plain reads here -- the rate curves (11 x NT) and, where they fit beside them
 // in the 48 KB a block gets without opting in, the per-source tau tables
 // (K x 4 x NTAU) are staged in shared memory once a block; tau tables that do
 // not fit are read in place (L1/L2).  The bin index is arithmetic (the grids
@@ -17,40 +18,57 @@
 // K is a run-time loop over a table of plane pointers in device memory, so a
 // launch takes any K.
 //
-// One thread block owns one TILE of 1024 consecutive cells of the flattened
-// grid, 256 threads with 4 cells each.  The tile is the integrator's unit of
-// adaptivity and must stay so: a tile takes its substep count from its own
-// largest relative change among the cells past the Euler cutoff, skips the
-// ladder when it has none, and stops each Newton iteration on its own largest
-// correction — block-wide reductions.  Cells beyond the end of the grid in
-// the last tile take part with benign values (1-x 0.5, E 1, nH 1, tau 1e6,
-// ds 0), as the padded lanes of the TPU kernel do.
+// The integrator's unit of adaptivity is a TILE of 1024 consecutive cells of
+// the flattened grid, and must stay so: a tile takes its substep count from
+// its own largest relative change among the cells past the Euler cutoff,
+// skips the ladder when it has none, and stops each Newton iteration on its
+// own largest correction, taken over every cell of the tile (Euler and pad
+// cells included).  Cells beyond the end of the grid in the last tile take
+// part with benign values (1-x 0.5, E 1, nH 1, tau 1e6, ds 0), as the padded
+// lanes of the TPU kernel do.
 //
 // The Newton step needs the exact 2x2 Jacobian of ydot.  ydot_cell is one
-// template on its scalar type; the update instantiates it with a forward-mode
-// dual number carrying two tangents (d/d(1-x), d/dE), the ydot kernel with
-// the plain scalar: the two kernels share the formulas letter for letter.
-// Derivative conventions follow the JAX package: max/min give half the
-// tangent at a tie (a cell sitting exactly on MIN_NEUTRAL is common), integer
-// bin indices carry none.
+// template on its scalar type; the ladder instantiates it with a forward-mode
+// dual number carrying two tangents (d/d(1-x), d/dE), the other kernels with
+// the plain scalar: they share the formulas letter for letter.  Derivative
+// conventions follow the JAX package: max/min give half the tangent at a tie
+// (a cell sitting exactly on MIN_NEUTRAL is common), integer bin indices carry
+// none.
 //
-// Bound: bytes for ydot_kernel and for an Euler-only update (8 planes read, 2
-// written for one source; ~250 flops and ~12 transcendentals a cell are well
-// under the card's rate for that many bytes).  A tile that runs the ladder
-// does up to 32 x 8 dual-number evaluations a cell and is bound by
-// operations; how many tiles do depends on the state.  The column to a cell's
-// entry does not change through the ladder, so its four-curve lookup is made
-// once per cell before the ladder for the first HOIST sources and handed to
-// every evaluation (further sources repeat it at each evaluation: the same
-// values, more work).
-// This first version still re-reads a cell's other inputs from global memory
-// (L1/L2) at every evaluation: the registers of a dual-number evaluation are
-// the scarcer resource.
+// What bounds them.  ydot_kernel and a tile without the ladder: bytes (8
+// planes read, 2 written for one source; ~250 flops and ~12 transcendentals a
+// cell are well under the card's rate for that many bytes).  A tile that runs
+// the ladder: operations -- up to 32 substeps x 8 Newton iterations of a
+// dual-number evaluation (about three times the flops of ydot) for each of its
+// 1024 cells -- but in fact latency: each Newton iteration of a tile is one
+// dependent chain of evaluation, clamp and tile-wide reduction, and a state
+// typically sends a few dozen of its 2048 tiles (128^3) through the ladder.
+//
+// What the design does about it.  The update is two launches.  Pass 1, one
+// block of 256 threads a tile (4 cells a thread), evaluates ydot (or reads
+// the caller's f0), forms the Euler result and the tile's stiffness (a block
+// reduction), writes every cell it owns the result of, and appends each tile
+// that needs the ladder -- its index, its stiffness and one bit a cell for
+// the Euler flags -- to a list in device memory through an atomic counter;
+// the host never reads the count.  Pass 2 serves each listed tile with a
+// thread-block cluster of CLUSTER = 4 blocks of 256 threads, one cell a
+// thread, so that a tile's ladder runs on four SMs and each thread's serial
+// chain is one cell long.  The tile-wide max of each Newton iteration's
+// correction is reduced through distributed shared memory: each warp's
+// maximum is stored into every block of the cluster (map_shared_rank), and
+// after one cluster barrier each thread reduces the 32 words of its own
+// block.  A cell's inputs (nH, the
+// column, path length and rate of the first HOIST sources, the UV fields) and
+// the four tau-table curves at each of those columns stay in registers
+// through the ladder; further sources are read again at each evaluation.
+// Pass 2's clusters walk the list (fused_mpv3.update_plan sizes its grid);
+// clusters past the count exit at once.
 //
 // Compiled once per scalar type (-DPION_REAL=float|double), without
 // --use_fast_math: exp, log and division keep their IEEE rounding and
 // subnormals are kept, so the kernels stay within rounding of their plain
 // PyTorch versions (pion_tpu_torch/microphysics/fused_mpv3.py).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -60,10 +78,14 @@
 
 namespace pion {
 
+namespace cg = cooperative_groups;
+
 constexpr int TILE = 1024;     // cells a block owns: the unit of adaptivity
 constexpr int THREADS = 256;
 constexpr int CPT = TILE / THREADS;
-constexpr int HOIST = 4;       // sources whose tau0 lookup is kept through the ladder
+constexpr int CLUSTER = 4;     // blocks of the cluster that runs one tile's ladder
+constexpr int LTHREADS = TILE / CLUSTER;   // one cell a thread there
+constexpr int HOIST = 4;       // sources whose inputs are kept through the ladder
 constexpr int NCURVE = 10;     // temperature curves after the grid row
 
 constexpr double MIN_NEUTRAL = 1.0e-20;
@@ -253,14 +275,62 @@ __device__ __forceinline__ void tau0_curves(const Params<R>& p, const R* tab, R 
   for (int c = 0; c < 4; ++c) out[c] = tau_curve<R, R>(tab, p.ntau, c, i0, w0);
 }
 
+// What a cell of a ladder tile keeps in registers through the ladder: its
+// inputs from the first HOIST sources, the four tau-table curves at each one's
+// column to the cell's entry (mfion; constant through the ladder), and its UV
+// fields.
+template <class R>
+struct CellIn {
+  R tau0[HOIST], ds[HOIST], nv[HOIST], r0[4 * HOIST];
+  R g0uv, g0ir;
+};
+
+// Photoionization rate and heating of source k at one cell.  c0: the source's
+// tau0_curves at this cell made beforehand, or null to make them here.
+template <class R, class S, int ION>
+__device__ __forceinline__ void photo_term(const Params<R>& p, const R* s_tau, int k, R tau0, R ds,
+                                           R nv, const R* c0, const S& omx, R nH, S& omx_dot,
+                                           S& Edot) {
+  if (ION == ION_MONO) {
+    const S dtau = nH * ds * omx * R(SIGMA0) * p.mono_frac;
+    R rate0 = nv * m_exp(-tau0 * p.mono_frac);
+    const S att = val(dtau) < R(1.0e-4) ? dtau : R(1) - m_exp(-dtau);
+    const S rate = rate0 * att / nH;
+    omx_dot = omx_dot - rate;
+    Edot = Edot + rate * R(E_EXCESS);
+  } else {
+    const S dtau_cur = nH * ds * omx * R(SIGMA0);
+    const R* tab = tau_table(p, s_tau, k);
+    R here[4];   // rate, heat and their low-tau slopes at tau0
+    if (c0 == nullptr) {
+      tau0_curves<R>(p, tab, tau0, here);
+      c0 = here;
+    }
+    S pir, pih;
+    if (val(dtau_cur) < R(0.01)) {
+      pir = c0[2] * dtau_cur / (R(SIGMA0) * nH);
+      pih = c0[3] * dtau_cur / (R(SIGMA0) * nH);
+    } else {
+      int i1;
+      S w1;
+      tau_coord<R, S>(p, tau0 + dtau_cur, i1, w1);
+      pir = c0[0] - tau_curve<R, S>(tab, p.ntau, 0, i1, w1);
+      pih = c0[1] - tau_curve<R, S>(tab, p.ntau, 1, i1, w1);
+    }
+    omx_dot = omx_dot - pir * nv / nH;
+    Edot = Edot + pih * nv / nH;
+  }
+}
+
 // The right-hand side of one cell: MPv3.ydot term by term.  S is R or
 // Dual<R>.  idx/valid address the per-source planes; a cell past the end of
-// the grid takes the pad values.  r0: the cell's tau0_curves of the first
-// HOIST sources (4 a source) made beforehand, or null to make them here.
-template <class R, class S, int ION, int UV>
-__device__ void ydot_cell(const Params<R>& p, const R* s_t1, const R* s_tau, long idx,
-                          bool valid, const S& omx_in, const S& Eint, R nH, const R* r0,
-                          S& omx_dot, S& Edot) {
+// the grid takes the pad values.  HOISTED: the inputs of the first HOIST
+// sources and the UV fields come from `in` (registers) instead of device
+// memory; further sources are read at each evaluation as without it.
+template <class R, class S, int ION, int UV, bool HOISTED>
+__device__ __forceinline__ void ydot_cell(const Params<R>& p, const R* s_t1, const R* s_tau,
+                                          long idx, bool valid, const S& omx_in, const S& Eint,
+                                          R nH, const CellIn<R>& in, S& omx_dot, S& Edot) {
   const S omx = m_max(omx_in, R(MIN_NEUTRAL));
   const S x = R(1) - omx;
   const S ntot = (p.n_ion + p.n_elec * x) * nH;
@@ -296,43 +366,24 @@ __device__ void ydot_cell(const Params<R>& p, const R* s_t1, const R* s_tau, lon
   omx_dot = -(cirh * ne * omx);
   Edot = -(C_cih0 * ne * omx);
 
-  // photoionization, summed over the ionizing sources
+  // photoionization, summed over the ionizing sources in order
   if (ION != ION_NONE) {
-    for (int k = 0; k < p.K; ++k) {
+    int k0 = 0;
+    if (HOISTED) {
+#pragma unroll
+      for (int k = 0; k < HOIST; ++k) {
+        if (k < p.K)
+          photo_term<R, S, ION>(p, s_tau, k, in.tau0[k], in.ds[k], in.nv[k],
+                                ION == ION_MFION ? in.r0 + 4 * k : nullptr, omx, nH, omx_dot,
+                                Edot);
+      }
+      k0 = HOIST;
+    }
+    for (int k = k0; k < p.K; ++k) {
       const R tau0 = valid ? p.src[4 * k + SRC_TAU0][idx] : R(1.0e6);
       const R ds = valid ? p.src[4 * k + SRC_DS][idx] : R(0);
       const R nv = valid ? p.src[4 * k + SRC_NVSV][idx] : R(0);
-      if (ION == ION_MONO) {
-        const S dtau = nH * ds * omx * R(SIGMA0) * p.mono_frac;
-        R rate0 = nv * m_exp(-tau0 * p.mono_frac);
-        const S att = val(dtau) < R(1.0e-4) ? dtau : R(1) - m_exp(-dtau);
-        const S rate = rate0 * att / nH;
-        omx_dot = omx_dot - rate;
-        Edot = Edot + rate * R(E_EXCESS);
-      } else {
-        const S dtau_cur = nH * ds * omx * R(SIGMA0);
-        const R* tab = tau_table(p, s_tau, k);
-        R here[4];
-        const R* c0 = here;      // rate, heat and their low-tau slopes at tau0
-        if (r0 != nullptr && k < HOIST) {
-          c0 = r0 + 4 * k;
-        } else {
-          tau0_curves<R>(p, tab, tau0, here);
-        }
-        S pir, pih;
-        if (val(dtau_cur) < R(0.01)) {
-          pir = c0[2] * dtau_cur / (R(SIGMA0) * nH);
-          pih = c0[3] * dtau_cur / (R(SIGMA0) * nH);
-        } else {
-          int i1;
-          S w1;
-          tau_coord<R, S>(p, tau0 + dtau_cur, i1, w1);
-          pir = c0[0] - tau_curve<R, S>(tab, p.ntau, 0, i1, w1);
-          pih = c0[1] - tau_curve<R, S>(tab, p.ntau, 1, i1, w1);
-        }
-        omx_dot = omx_dot - pir * nv / nH;
-        Edot = Edot + pih * nv / nH;
-      }
+      photo_term<R, S, ION>(p, s_tau, k, tau0, ds, nv, nullptr, omx, nH, omx_dot, Edot);
     }
   }
 
@@ -344,8 +395,8 @@ __device__ void ydot_cell(const Params<R>& p, const R* s_t1, const R* s_tau, lon
 
   // UV/IR heating (Henney+09)
   if (UV) {
-    const R g0uv = valid ? p.g0uv[idx] : R(0);
-    const R g0ir = valid ? p.g0ir[idx] : R(0);
+    const R g0uv = HOISTED ? in.g0uv : (valid ? p.g0uv[idx] : R(0));
+    const R g0ir = HOISTED ? in.g0ir : (valid ? p.g0ir[idx] : R(0));
     const R q = R(1) + R(3.0e4) / nH;
     Edot = Edot + R(1.9e-26) * p.Z * g0uv / (R(1) + R(6.4) * (g0uv / nH));
     Edot = Edot + R(7.7e-32) * p.Z * g0ir / (q * q);
@@ -402,21 +453,59 @@ __global__ void __launch_bounds__(THREADS)
     const long idx = base + j * THREADS + threadIdx.x;
     if (idx >= p.n) continue;
     R od, ed;
-    ydot_cell<R, R, ION, UV>(p, s_t1, s_tau, idx, true, p.omx[idx], p.E[idx], p.nH[idx], nullptr,
-                             od, ed);
+    const CellIn<R> none{};
+    ydot_cell<R, R, ION, UV, false>(p, s_t1, s_tau, idx, true, p.omx[idx], p.E[idx], p.nH[idx],
+                                    none, od, ed);
     out_o[idx] = od;
     out_e[idx] = ed;
   }
 }
 
+// Largest value over a cluster of CLUSTER blocks, NaN handed on; every thread
+// of the cluster gets it, from the same values in the same order, so every
+// thread takes the same branch after it.  Each warp reduces its own values by
+// shuffles and stores the result into slot [rank][warp] of `wall[par]` in
+// every block of the cluster (distributed shared memory); after one cluster
+// barrier each thread reads the CLUSTER x LTHREADS/32 words of its own block.
+// The two halves of `wall` are used in turns (`par`): a block's words of one
+// half are written again only two calls later, after every thread of the
+// cluster has passed the barrier of the call in between and so finished
+// reading them.
+template <class R>
+__device__ __forceinline__ R cluster_max(R v, R (*wall)[TILE / 32], int& par,
+                                         cg::cluster_group& cluster) {
+  for (int off = 16; off > 0; off >>= 1) v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, off));
+  if ((threadIdx.x & 31) == 0) {
+    const int slot = (int)cluster.block_rank() * (LTHREADS / 32) + (threadIdx.x >> 5);
+    for (int r = 0; r < CLUSTER; ++r) *cluster.map_shared_rank(&wall[par][slot], r) = v;
+  }
+  cluster.sync();
+  R out = wall[par][0];
+#pragma unroll
+  for (int w = 1; w < TILE / 32; ++w) out = nan_max(out, wall[par][w]);
+  par ^= 1;
+  return out;
+}
+
+// The device-side list of the tiles that take the ladder, written by pass 1
+// and read by pass 2; the host never reads it.
+template <class R>
+struct Ladder {
+  int* count;             // tiles listed (zeroed before pass 1)
+  int* tiles;             // their indices, in the order they were listed
+  R* stiff;               // the stiffness of each
+  unsigned* euler_bits;   // 32 words a tile of the grid: bit set = Euler cell
+};
+
 // ---------------------------------------------------------------------------
-// B3: the cell update, one tile a block
+// B3 pass 1: one block a tile -- ydot (or f0), Euler results, the tile's
+// stiffness; lists the tiles that need the ladder
 // ---------------------------------------------------------------------------
 template <class R, int ION, int UV>
 __global__ void __launch_bounds__(THREADS)
-    update_kernel(Params<R> p, const R* __restrict__ dt_ptr, const R* __restrict__ f0o,
-                  const R* __restrict__ f0e, int n_sub, int n_newton, R tol,
-                  R* __restrict__ out_o, R* __restrict__ out_e, int* __restrict__ stats) {
+    update_euler_kernel(Params<R> p, const R* __restrict__ dt_ptr, const R* __restrict__ f0o,
+                        const R* __restrict__ f0e, R* __restrict__ out_o, R* __restrict__ out_e,
+                        Ladder<R> lad, int* __restrict__ stats) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ R scratch[(THREADS + 31) / 32];
   R* s_t1 = reinterpret_cast<R*>(smem_raw);
@@ -425,7 +514,7 @@ __global__ void __launch_bounds__(THREADS)
   const R dt = *dt_ptr;
   const long base = (long)blockIdx.x * TILE;
 
-  R o[CPT], e[CPT], o_eul[CPT], e_eul[CPT], nHc[CPT];
+  R o[CPT], e[CPT], o_eul[CPT], e_eul[CPT];
   bool euler[CPT];
   R stiff = R(0);
 #pragma unroll 1
@@ -434,15 +523,16 @@ __global__ void __launch_bounds__(THREADS)
     const bool valid = idx < p.n;
     o[j] = valid ? p.omx[idx] : R(0.5);
     e[j] = valid ? p.E[idx] : R(1);
-    nHc[j] = valid ? p.nH[idx] : R(1);
+    const R nHc = valid ? p.nH[idx] : R(1);
     R f0v, f1v;
     if (f0o != nullptr) {
       // first evaluation handed over by the caller (pad cells: 0)
       f0v = valid ? f0o[idx] : R(0);
       f1v = valid ? f0e[idx] : R(0);
     } else {
-      ydot_cell<R, R, ION, UV>(p, s_t1, s_tau, idx, valid, o[j], e[j], nHc[j], nullptr, f0v,
-                               f1v);
+      const CellIn<R> none{};
+      ydot_cell<R, R, ION, UV, false>(p, s_t1, s_tau, idx, valid, o[j], e[j], nHc, none, f0v,
+                                      f1v);
     }
     const R maxdelta = nan_max(m_abs(f0v * dt / o[j]), m_abs(f1v * dt / e[j]));
     o_eul[j] = o[j] + dt * f0v;
@@ -451,78 +541,129 @@ __global__ void __launch_bounds__(THREADS)
     if (!euler[j]) stiff = nan_max(stiff, maxdelta);
   }
   const R stiffness = block_max(stiff, scratch);
+  const bool ladder = stiffness > R(0);   // the same for every thread of the block
 
-  if (stiffness > R(0)) {   // the same for every thread of the block
-    if (threadIdx.x == 0 && stats != nullptr) atomicAdd(stats, 1);
-    // the tile's substep count from its own stiffness, clipped as a real so
-    // that an infinite stiffness takes the most substeps
-    R nf = m_ceil(R(4) * stiffness);
-    nf = nf < R(2) ? R(2) : (nf > R(n_sub) ? R(n_sub) : nf);
-    const int n_eff = (int)nf;
-    const R h = dt / R(n_eff);
-    R op[CPT], ep[CPT];
-    // tau0 is constant through the ladder: its lookup is made once per cell
-    R r0[CPT][4 * HOIST];
-    if (ION == ION_MFION) {
-#pragma unroll 1
-      for (int j = 0; j < CPT; ++j) {
-        const long idx = base + j * THREADS + threadIdx.x;
-        for (int k = 0; k < p.K && k < HOIST; ++k)
-          tau0_curves<R>(p, tau_table(p, s_tau, k),
-                         idx < p.n ? p.src[4 * k + SRC_TAU0][idx] : R(1.0e6), r0[j] + 4 * k);
-      }
-    }
-    for (int s = 0; s < n_eff; ++s) {
+  if (ladder) {
+    // the tile's Euler flags, cell j * THREADS + threadIdx.x at bit lane of
+    // word j * THREADS / 32 + warp
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        op[j] = o[j];
-        ep[j] = e[j];
-      }
-      R err = R(INFINITY);
-      for (int it = 0; it < n_newton && err > tol; ++it) {
-        R lerr = R(0);
-#pragma unroll 1
-        for (int j = 0; j < CPT; ++j) {
-          const long idx = base + j * THREADS + threadIdx.x;
-          const Dual<R> od{o[j], R(1), R(0)};
-          const Dual<R> ed{e[j], R(0), R(1)};
-          Dual<R> fo, fe;
-          ydot_cell<R, Dual<R>, ION, UV>(p, s_t1, s_tau, idx, idx < p.n, od, ed, nHc[j],
-                                         ION == ION_MFION ? r0[j] : nullptr, fo, fe);
-          // g(y) = y - y_prev - h f(y);  J_g = I - h J_f
-          const R g0 = o[j] - op[j] - h * fo.v;
-          const R g1 = e[j] - ep[j] - h * fe.v;
-          const R a = R(1) - h * fo.a;
-          const R b = -h * fo.b;
-          const R cc = -h * fe.a;
-          const R d = R(1) - h * fe.b;
-          R det = a * d - b * cc;
-          // 1e-300 is 0 in float: the guard then only catches an exact zero
-          det = m_abs(det) > R(1e-300) ? det : R(1);
-          R d_o = (d * g0 - b * g1) / det;
-          R d_e = (a * g1 - cc * g0) / det;
-          d_o = m_min(m_max(d_o, R(-0.3)), R(0.3));
-          d_e = m_min(m_max(d_e, R(-0.6) * e[j]), R(0.6) * e[j]);
-          const R o_n = m_min(m_max(o[j] - d_o, R(MIN_NEUTRAL)), R(1.0 - MIN_NEUTRAL));
-          const R e_n = m_max(e[j] - d_e, R(1.0e-10) * ep[j]);
-          lerr = nan_max(lerr, m_abs(o_n - o[j]));
-          lerr = nan_max(lerr, m_abs((e_n - e[j]) / m_max(e[j], R(1e-300))));
-          o[j] = o_n;
-          e[j] = e_n;
-        }
-        err = block_max(lerr, scratch);
-        if (threadIdx.x == 0 && stats != nullptr) atomicAdd(stats + 1, 1);
-      }
+    for (int j = 0; j < CPT; ++j) {
+      const unsigned bits = __ballot_sync(0xffffffffu, euler[j]);
+      if ((threadIdx.x & 31) == 0)
+        lad.euler_bits[blockIdx.x * (TILE / 32) + j * (THREADS / 32) + (threadIdx.x >> 5)] = bits;
+    }
+    if (threadIdx.x == 0) {
+      const int slot = atomicAdd(lad.count, 1);
+      lad.tiles[slot] = blockIdx.x;
+      lad.stiff[slot] = stiffness;
+      if (stats != nullptr) atomicAdd(stats, 1);
     }
   }
-
+  // every cell but a ladder tile's non-Euler ones, which pass 2 writes (a
+  // non-Euler cell of a tile without the ladder -- a NaN stiffness -- keeps
+  // its state)
 #pragma unroll 1
   for (int j = 0; j < CPT; ++j) {
     const long idx = base + j * THREADS + threadIdx.x;
-    if (idx >= p.n) continue;
+    if (idx >= p.n || (ladder && !euler[j])) continue;
     out_o[idx] = euler[j] ? o_eul[j] : o[j];
     out_e[idx] = euler[j] ? e_eul[j] : e[j];
   }
+}
+
+// ---------------------------------------------------------------------------
+// B3 pass 2: the ladder of each listed tile, one thread-block cluster a tile,
+// one cell a thread; clusters walk the list from their index by the number of
+// clusters
+// ---------------------------------------------------------------------------
+template <class R, int ION, int UV>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(LTHREADS)
+    update_ladder_kernel(Params<R> p, const R* __restrict__ dt_ptr, int n_sub, int n_newton,
+                         R tol, R* __restrict__ out_o, R* __restrict__ out_e, Ladder<R> lad,
+                         int* __restrict__ stats) {
+  const int listed = *lad.count;
+  const int first = blockIdx.x / CLUSTER;
+  const int stride = gridDim.x / CLUSTER;
+  if (first >= listed) return;   // the whole cluster, before any barrier
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ R wall[2][TILE / 32];   // the cluster's warp maxima, two halves
+  R* s_t1 = reinterpret_cast<R*>(smem_raw);
+  R* s_tau = s_t1 + (NCURVE + 1) * p.nt;
+  stage_tables(p, s_t1, s_tau, ION);
+  const R dt = *dt_ptr;
+  const int c = (int)cluster.block_rank() * LTHREADS + threadIdx.x;   // cell of the tile
+  int par = 0;
+
+  for (int slot = first; slot < listed; slot += stride) {
+    const int tile = lad.tiles[slot];
+    const long idx = (long)tile * TILE + c;
+    const bool valid = idx < p.n;
+    const bool euler = (lad.euler_bits[tile * (TILE / 32) + (c >> 5)] >> (c & 31)) & 1u;
+    R o = valid ? p.omx[idx] : R(0.5);
+    R e = valid ? p.E[idx] : R(1);
+    const R nHc = valid ? p.nH[idx] : R(1);
+    // the cell's inputs, kept in registers through the ladder
+    CellIn<R> in;
+#pragma unroll
+    for (int k = 0; k < HOIST; ++k) {
+      if (ION != ION_NONE && k < p.K) {
+        in.tau0[k] = valid ? p.src[4 * k + SRC_TAU0][idx] : R(1.0e6);
+        in.ds[k] = valid ? p.src[4 * k + SRC_DS][idx] : R(0);
+        in.nv[k] = valid ? p.src[4 * k + SRC_NVSV][idx] : R(0);
+        // tau0 is constant through the ladder: its lookup is made once
+        if (ION == ION_MFION) tau0_curves<R>(p, tau_table(p, s_tau, k), in.tau0[k], in.r0 + 4 * k);
+      }
+    }
+    if (UV) {
+      in.g0uv = valid ? p.g0uv[idx] : R(0);
+      in.g0ir = valid ? p.g0ir[idx] : R(0);
+    }
+    // the tile's substep count from its own stiffness, clipped as a real so
+    // that an infinite stiffness takes the most substeps
+    R nf = m_ceil(R(4) * lad.stiff[slot]);
+    nf = nf < R(2) ? R(2) : (nf > R(n_sub) ? R(n_sub) : nf);
+    const int n_eff = (int)nf;
+    const R h = dt / R(n_eff);
+    for (int s = 0; s < n_eff; ++s) {
+      const R op = o, ep = e;
+      R err = R(INFINITY);
+      for (int it = 0; it < n_newton && err > tol; ++it) {
+        const Dual<R> od{o, R(1), R(0)};
+        const Dual<R> ed{e, R(0), R(1)};
+        Dual<R> fo, fe;
+        ydot_cell<R, Dual<R>, ION, UV, true>(p, s_t1, s_tau, idx, valid, od, ed, nHc, in, fo, fe);
+        // g(y) = y - y_prev - h f(y);  J_g = I - h J_f
+        const R g0 = o - op - h * fo.v;
+        const R g1 = e - ep - h * fe.v;
+        const R a = R(1) - h * fo.a;
+        const R b = -h * fo.b;
+        const R cc = -h * fe.a;
+        const R d = R(1) - h * fe.b;
+        R det = a * d - b * cc;
+        // 1e-300 is 0 in float: the guard then only catches an exact zero
+        det = m_abs(det) > R(1e-300) ? det : R(1);
+        R d_o = (d * g0 - b * g1) / det;
+        R d_e = (a * g1 - cc * g0) / det;
+        d_o = m_min(m_max(d_o, R(-0.3)), R(0.3));
+        d_e = m_min(m_max(d_e, R(-0.6) * e), R(0.6) * e);
+        const R o_n = m_min(m_max(o - d_o, R(MIN_NEUTRAL)), R(1.0 - MIN_NEUTRAL));
+        const R e_n = m_max(e - d_e, R(1.0e-10) * ep);
+        // every cell of the tile counts, Euler and pad cells included
+        R lerr = nan_max(R(0), m_abs(o_n - o));
+        lerr = nan_max(lerr, m_abs((e_n - e) / m_max(e, R(1e-300))));
+        o = o_n;
+        e = e_n;
+        err = cluster_max(lerr, wall, par, cluster);
+        if (c == 0 && stats != nullptr) atomicAdd(stats + 1, 1);
+      }
+    }
+    if (valid && !euler) {
+      out_o[idx] = o;
+      out_e[idx] = e;
+    }
+  }
+  cluster.sync();   // no block leaves while another may still write to its wall
 }
 
 }  // namespace pion
@@ -611,29 +752,49 @@ extern "C" int pion_mpv3_ydot(const void* omx, const void* E, const void* nH,
   return (int)cudaGetLastError();
 }
 
-// The update of every cell by *dt (a device scalar).  f0o/f0e: the caller's
-// first ydot evaluation, or null.  stats: two device ints to which the kernel
-// adds the number of tiles that ran the ladder and the Newton iterations they
-// took in all (diagnostics), or null.
+// The update of every cell by *dt (a device scalar), in two launches: pass 1
+// (one block a tile) and pass 2 (the ladder, `clusters` clusters of CLUSTER
+// blocks walking the list pass 1 made).  f0o/f0e: the caller's first ydot
+// evaluation, or null.  stats: two device ints to which the kernels add the
+// number of tiles that ran the ladder and the Newton iterations they took in
+// all (diagnostics), or null.  ws_int: 1 + 33 * tiles ints, ws_real: tiles
+// reals of scratch (fused_mpv3.update_plan).  Returns cudaGetLastError() after
+// each launch, or cudaErrorInvalidValue for arguments the kernels do not take.
 extern "C" int pion_mpv3_update(const void* omx, const void* E, const void* nH,
                                 const void* srcs, int K, const void* g0uv,
                                 const void* g0ir, const void* t1, const void* dt, const void* f0o,
                                 const void* f0e, void* out_o, void* out_e, void* stats,
                                 long n, int ion, int has_uv, const double* consts, int nt,
-                                int ntau, int n_sub, int n_newton, double tol, void* stream) {
+                                int ntau, int n_sub, int n_newton, double tol, void* ws_int,
+                                void* ws_real, int clusters, void* stream) {
   Params<real> p;
   if (make_params(p, omx, E, nH, srcs, K, g0uv, g0ir, t1, n, ion, has_uv, consts, nt, ntau))
     return (int)cudaErrorInvalidValue;
-  if ((f0o == nullptr) != (f0e == nullptr) || dt == nullptr || n_sub < 2 || n_newton < 1)
+  if ((f0o == nullptr) != (f0e == nullptr) || dt == nullptr || n_sub < 2 || n_newton < 1 ||
+      ws_int == nullptr || ws_real == nullptr || clusters < 1)
     return (int)cudaErrorInvalidValue;
   const size_t smem = table_bytes(p, ion);
   if (smem == 0) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((n + TILE - 1) / TILE);
+  const long tiles = (n + TILE - 1) / TILE;
+  if (tiles > 0x3fffffffL / (TILE / 32) || (long)clusters * CLUSTER > 0x7fffffffL)
+    return (int)cudaErrorInvalidValue;
+  Ladder<real> lad;
+  lad.count = (int*)ws_int;
+  lad.tiles = lad.count + 1;
+  lad.euler_bits = (unsigned*)(lad.tiles + tiles);
+  lad.stiff = (real*)ws_real;
   cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(lad.count, 0, sizeof(int), s);
+  if (e != cudaSuccess) return (int)e;
 #define PION_UPDATE_CALL(I, U)                                                              \
-  update_kernel<real, I, U><<<blocks, THREADS, smem, s>>>(                                   \
-      p, (const real*)dt, (const real*)f0o, (const real*)f0e, n_sub, n_newton, (real)tol,    \
-      (real*)out_o, (real*)out_e, (int*)stats)
+  update_euler_kernel<real, I, U><<<(unsigned)tiles, THREADS, smem, s>>>(                   \
+      p, (const real*)dt, (const real*)f0o, (const real*)f0e, (real*)out_o, (real*)out_e,   \
+      lad, (int*)stats);                                                                    \
+  e = cudaGetLastError();                                                                   \
+  if (e != cudaSuccess) return (int)e;                                                      \
+  update_ladder_kernel<real, I, U><<<(unsigned)(clusters * CLUSTER), LTHREADS, smem, s>>>(  \
+      p, (const real*)dt, n_sub, n_newton, (real)tol, (real*)out_o, (real*)out_e, lad,      \
+      (int*)stats)
   PION_MP_DISPATCH(PION_UPDATE_CALL)
 #undef PION_UPDATE_CALL
   return (int)cudaGetLastError();

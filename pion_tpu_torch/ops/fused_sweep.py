@@ -4,8 +4,9 @@ Two CUDA kernels (sources in ``csrc/sweep.cu``) take the place of the two
 TPU kernels of ``pion_tpu/ops/pallas_sweep.py``:
 
 - :func:`sweep_axis` replaces ``_sweep_axis_pallas``: one axis's ``dt*dU``,
-  the whole pipeline of :func:`..ops.sweep.dynamics_dU` per cell in
-  registers.
+  the whole pipeline of :func:`..ops.sweep.dynamics_dU`, each interface
+  solved once from a tile staged in shared memory (:func:`sweep_plan` cuts
+  the grid into those tiles).
 - :func:`final_axis` replaces ``_final_axis_pallas``: the axis-0 sweep plus
   ``U(P) + dU + sum(contribs)`` -> ``cons_to_prim`` -> GLM psi damping; it
   returns the new primitive state.
@@ -32,7 +33,9 @@ slots, orders 1 and 2, float32 and float64.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import functools
+from types import MappingProxyType
+from typing import Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -43,6 +46,13 @@ from .eqns import BASE_RHO, cons_to_prim, prim_to_cons
 from .sweep import dynamics_dU, hlld_fallback_cells
 
 MAX_NVAR = 64  # element slots travel as a 64-bit mask
+
+SWEEP_THREADS = 128            # threads a block of sweep_axis_kernel
+SMEM_MAX = 232448              # shared memory a block can opt in to (H100)
+# shared memory a tile may take, by bytes of the scalar type: four (at the
+# main path's 10 variables, five) float32 blocks or two float64 blocks fit an
+# SM's 228 KB
+TILE_SMEM_BUDGET = {4: 48 * 1024, 8: 100 * 1024}
 
 
 def supports(cfg: SimConfig) -> bool:
@@ -88,6 +98,59 @@ def flops_per_interface(cfg: SimConfig, order: int) -> int:
     n += cfg.ntracer * 6
     n += nb * 3 + 24                # divergence, Powell and GLM sources, dt
     return n
+
+
+def tile_bytes(nvar: int, nbase: int, order: int, T: int, W: int,
+               mask: bool, itemsize: int) -> int:
+    """Shared memory of one ``sweep_axis_kernel`` block (``tile_bytes`` of
+    ``csrc/sweep.cu``): the staged stencil, ``nvar`` variables of ``T +
+    2*order`` rows of ``W + 1`` (a padded row), the ``T + 1`` face fluxes of
+    the base variables, and the mask's bytes."""
+    rows, rs = T + 2 * order, W + 1
+    return ((nvar * rows * rs + nbase * (T + 1) * rs) * itemsize
+            + (rows * rs if mask else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def sweep_plan(shape: Tuple[int, ...], axis: int, nvar: int, nbase: int,
+               itemsize: int, order: int, mask: bool) -> Mapping[str, int]:
+    """How ``sweep_axis_kernel`` cuts the interior of ``shape`` for a sweep
+    along ``axis``: tiles of ``T`` cells along the axis by ``W`` pencils
+    across it (across x for the y and z sweeps, across y for the x sweep),
+    one plane of the third axis each; one block a tile.  ``T`` starts at
+    15 and ``W`` at 32, so that the tile's 16 x 32 faces are exactly four
+    rounds of the block's 128 threads; while the tile's shared memory
+    exceeds ``TILE_SMEM_BUDGET``, ``T + 1`` is halved (down to ``T = 3``),
+    then ``W``.  The keys ``n_along``/``n_across``/``n_third`` and
+    ``n_ta``/``n_tw`` mirror the kernel's ``Tiling``; blocks are numbered
+    across fastest, then along, then third.  Cached: it runs on every
+    launch."""
+    ndim = len(shape)
+    if ndim not in (2, 3) or not 0 <= axis < ndim or order not in (1, 2):
+        raise ValueError(f"bad shape {tuple(shape)}, axis {axis} or "
+                         f"order {order}")
+    nz, ny, nx = ((1,) + tuple(shape))[-3:]
+    k = ndim - 1 - axis
+    along, across, third = ((nx, ny, nz), (ny, nx, nz), (nz, nx, ny))[k]
+    T, W = 15, 32
+    budget = TILE_SMEM_BUDGET[itemsize]
+    while tile_bytes(nvar, nbase, order, T, W, mask, itemsize) > budget:
+        if T > 3:
+            T = (T + 1) // 2 - 1
+        elif W > 8:
+            W //= 2
+        else:
+            break
+    smem = tile_bytes(nvar, nbase, order, T, W, mask, itemsize)
+    if smem > SMEM_MAX:
+        raise ValueError(f"a sweep tile of {nvar} variables needs {smem} "
+                         f"bytes of shared memory")
+    n_ta, n_tw = -(-along // T), -(-across // W)
+    return MappingProxyType({
+        "T": T, "W": W, "n_along": along, "n_across": across,
+        "n_third": third, "n_ta": n_ta, "n_tw": n_tw,
+        "blocks": n_ta * n_tw * third, "threads": SWEEP_THREADS,
+        "smem": smem})
 
 
 def _el_mask(cfg: SimConfig, scma) -> tuple:
@@ -179,13 +242,15 @@ def sweep_axis(Ph_pad: torch.Tensor, cfg: SimConfig, geom: Geometry,
         ch = cfg.cfl * geom.dx / dt_t
     ch_t = _scalar(ch, Ph_pad)
     clamp, bits = _el_mask(cfg, scma)
+    plan = sweep_plan(tuple(cfg.shape), axis, cfg.nvar, cfg.eqn.nbase,
+                      Ph_pad.element_size(), order, mask_ptr is not None)
     out = torch.empty((cfg.nvar,) + tuple(cfg.shape), dtype=Ph_pad.dtype,
                       device=Ph_pad.device)
     err = lib.pion_sweep_axis(
         Ph_pad.data_ptr(), mask_ptr, out.data_ptr(), dt_t.data_ptr(),
         ch_t.data_ptr(), cfg.ndim, nz, ny, nx, axis, cfg.nvar,
         1 if cfg.eqn is Eqn.GLM else 0, 1 if cfg.av is AV.FALLE else 0,
-        order, clamp, bits, *consts,
+        order, clamp, bits, plan["T"], plan["W"], *consts,
         torch.cuda.current_stream(Ph_pad.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"sweep_axis kernel launch failed: CUDA error {err}")
