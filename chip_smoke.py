@@ -161,8 +161,9 @@ def check_case(cfg, seed, device, scma=False):
 
 def check_kernels(device):
     """The case matrix at shapes that are no multiple of the block size nor
-    of B1's tile (15 cells along the sweep axis, 32 pencils across): small
-    ones, and ones whose every axis spans several tiles; 3D and 2D, both
+    of B1's and B2's tile (15 cells along the sweep axis, 32 pencils
+    across): small ones, ones whose every axis spans several tiles, and
+    ones whose axis 0 (B2's) ends in a partial tile; 3D and 2D, both
     dtypes, GLM and MHD, HLLD with and without the mask, HLL, viscosity on
     and off, tracers and the sCMA variants."""
     from pion_tpu_torch import SimConfig
@@ -171,7 +172,8 @@ def check_kernels(device):
     ncase = 0
     for dtype in ("float64", "float32"):
         cases = []
-        for shape in ((12, 20, 36), (20, 36), (40, 70, 150), (70, 150)):
+        for shape in ((12, 20, 36), (20, 36), (40, 70, 150), (70, 150),
+                      (37, 40, 48), (37, 50)):
             for fallback in (True, False):
                 cases.append((main_cfg(shape, dtype, hlld_fallback=fallback),
                               False))
@@ -321,7 +323,9 @@ def measure_kernels(device, worst, shape=(128, 128, 128)):
         "ms": float(np.mean(list(cases1.values()))),
         "plain_ms": float(np.mean(plain1)),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "ms_by_case": cases1})
+        "ms_by_case": cases1,
+        "plan": dict(fs.sweep_plan(cfg.shape, 1, cfg.nvar, cfg.eqn.nbase, esz,
+                                   2, True))})
 
     # --- final_axis (B2)
     abs2 = rel2 = 0.0
@@ -360,7 +364,9 @@ def measure_kernels(device, worst, shape=(128, 128, 128)):
         "max_rel_err_f32": worst["float32"][1],
         "ms": float(np.mean(ms2)), "plain_ms": float(np.mean(plain2)),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "ms_by_case": cases2})
+        "ms_by_case": cases2,
+        "plan": dict(fs.sweep_plan(cfg.shape, 0, cfg.nvar, cfg.eqn.nbase, esz,
+                                   2, True))})
     return rows
 
 
@@ -667,39 +673,66 @@ TRACE_CASES = [
     ((8, 8, 8), (0, 0, 0)),        # corner source
     ((8, 8, 8), (7, 1, 4)),        # boundary, strongly off-centre
     ((1, 12, 20), (0, 3, 14)),     # a 2D grid as a slab
+    ((37, 40, 48), (5, 39, 20)),   # faces no multiple of a block's rows
+    ((5, 9, 11), (0, 4, 5)),       # an octant one cell thick along z,
+    ((5, 9, 11), (2, 8, 5)),       # ... along y,
+    ((5, 9, 11), (2, 4, 0)),       # ... along x
+    ((4, 4, 600), (2, 1, 0)),      # long thin grids
+    ((600, 3, 5), (300, 1, 2)),
+    ((1, 1, 1), (0, 0, 0)),
+]
+
+# (shape, source, dtype, the plan and cluster size trace_plan must choose,
+# seed): the main paths' 128^3 with the source at the centre and in a
+# corner, a float64 trace on the largest cluster, and an octant too large
+# for any cluster's shared memory, which keeps the device-memory plan
+BIG_TRACE_CASES = [
+    ((128, 128, 128), (64, 64, 64), torch.float64, ("cluster", 8), 65),
+    ((128, 128, 128), (0, 0, 0), torch.float64, ("cluster", 16), 66),
+    ((128, 128, 128), (64, 64, 64), torch.float32, ("cluster", 8), 65),
+    ((128, 128, 128), (0, 0, 0), torch.float32, ("cluster", 16), 66),
+    ((170, 170, 170), (0, 0, 0), torch.float64, ("cluster", 16), 67),
+    ((228, 228, 228), (0, 0, 0), torch.float64, ("global", 1), 68),
 ]
 
 
 def check_trace(device, big: bool):
-    """B5 against its plain version: float32 and float64, centred, off-centre,
-    corner and boundary sources, a slab, and (``big``) 128^3 with the source
-    at the centre and in a corner."""
+    """B5 against its plain version: float32 and float64, centred,
+    off-centre, corner and boundary sources, octants one cell thick, long
+    thin grids, a slab, and (``big``) ``BIG_TRACE_CASES``, each on the plan
+    it names.  Returns the worst error by dtype, the case count and each
+    big case's plan."""
     from pion_tpu_torch.raytracing import fused_trace as ft
 
-    cases = list(TRACE_CASES)
+    cases = [(shape, src, dtype, None, 60 + i)
+             for dtype in (torch.float64, torch.float32)
+             for i, (shape, src) in enumerate(TRACE_CASES)]
     if big:
-        cases += [((128, 128, 128), (64, 64, 64)), ((128, 128, 128), (0, 0, 0))]
-    worst = {}
-    for dtype in (torch.float64, torch.float32):
-        w = 0.0
-        for i, (shape, src) in enumerate(cases):
-            rng = np.random.default_rng(60 + i)
-            dtau = torch.as_tensor(rng.uniform(0.01, 0.5, shape), dtype=dtype,
-                                   device=device)
-            tmin = 0.7 * 6.0 / 7.0
-            got = ft.octant_trace(dtau, src, tmin)
-            ref = ft.octant_trace_plain(dtau, src, tmin)
-            torch.cuda.synchronize()
-            err = float((got - ref).abs().max() / ref.abs().max())
-            if not (err <= TRACE_TOL[dtype]
-                    and bool(torch.isfinite(got).all())):
-                raise AssertionError(
-                    f"octant_trace disagrees with its plain version: "
-                    f"{err:.3e} > {TRACE_TOL[dtype]:.1e} ({dtype} "
-                    f"shape={shape} source={src})")
-            w = max(w, err)
-        worst[str(dtype).split(".")[-1]] = w
-    return worst, len(cases) * 2
+        cases += BIG_TRACE_CASES
+    worst, plans = {}, {}
+    for shape, src, dtype, want, seed in cases:
+        rng = np.random.default_rng(seed)
+        dtau = torch.as_tensor(rng.uniform(0.01, 0.5, shape), dtype=dtype,
+                               device=device)
+        tmin = 0.7 * 6.0 / 7.0
+        plan = ft.trace_plan(shape, src, dtau.element_size())
+        if want is not None:
+            if (plan["plan"], plan["cluster"]) != want:
+                raise AssertionError(f"trace_plan{shape, src} {dtype}: "
+                                     f"{dict(plan)}, expected {want}")
+            plans[f"{shape}_{src}_{str(dtype)[6:]}"] = dict(plan)
+        got = ft.octant_trace(dtau, src, tmin)
+        ref = ft.octant_trace_plain(dtau, src, tmin)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max() / ref.abs().max())
+        if not (err <= TRACE_TOL[dtype] and bool(torch.isfinite(got).all())):
+            raise AssertionError(
+                f"octant_trace disagrees with its plain version: "
+                f"{err:.3e} > {TRACE_TOL[dtype]:.1e} ({dtype} "
+                f"shape={shape} source={src} plan={dict(plan)})")
+        key = str(dtype).split(".")[-1]
+        worst[key] = max(worst.get(key, 0.0), err)
+    return worst, len(cases), plans
 
 
 def hii_problem(n: int, dtype: str, kernels: str = "auto"):
@@ -984,7 +1017,9 @@ def measure_physics_kernels(device, n: int = 128, steps: int = 6):
         "ms": time_ms(lambda: fm.ydot(mp, omx, E, nH, rt), 20),
         "plain_ms": time_ms(lambda: fm.ydot_plain(mp, omx, E, nH, rt), 3,
                             warmup=1),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        # one block of 256 threads a tile of 1024 cells
+        "plan": {"blocks": -(-cells // fm.TILE), "threads": 256}})
 
     # --- B3 update, on the run's state (with the ladder) and quiescent
     got, tiles, newton = update_stats(mp, omx, E, nH, dt, rt)
@@ -1025,6 +1060,7 @@ def measure_physics_kernels(device, n: int = 128, steps: int = 6):
         "kernels": ["update_euler_kernel", "update_ladder_kernel"],
         "dt": dt, "tiles": -(-cells // fm.TILE), "ladder_tiles": tiles,
         "newton_iterations": newton,
+        "plan": dict(fm.update_plan(cells, fm._sm_count(device.index or 0))),
         "ms_quiescent": update_ms(mp, *q_state, 1.0e7, q_rt),
         "bound_ms_quiescent": bound(8 * plane + tab_bytes + esz,
                                     cells * (fy + 12), dtype)[0],
@@ -1053,14 +1089,22 @@ def measure_physics_kernels(device, n: int = 128, steps: int = 6):
             lambda: ft.octant_trace_plain(dtau, tr.src_idx, tr.tau_min), 2,
             warmup=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shells": tr.n_steps})
+        "shells": tr.n_steps, "source_cell": [int(v) for v in tr.src_idx],
+        "plan": dict(ft.trace_plan(tuple(dtau.shape),
+                                   tuple(int(v) for v in tr.src_idx), esz)),
+        # the same column density from a source in a corner: one octant of
+        # twice the shells
+        "ms_corner": time_ms(lambda: ft.octant_trace(dtau, (0, 0, 0),
+                                                     tr.tau_min), 20),
+        "plan_corner": dict(ft.trace_plan(tuple(dtau.shape), (0, 0, 0), esz))})
     return rows, measure_hii_sweep(device, sim)
 
 
 # the port's kernels by name, then PyTorch's by kind
 KERNEL_GROUPS = ("sweep_axis_kernel", "final_axis_kernel",
                  "update_euler_kernel", "update_ladder_kernel",
-                 "ydot_kernel", "octant_trace_kernel", "CatArrayBatchedCopy",
+                 "ydot_kernel", "octant_trace_cluster_kernel",
+                 "octant_trace_global_kernel", "CatArrayBatchedCopy",
                  "elementwise_kernel", "reduce_kernel", "index")
 
 
@@ -1914,8 +1958,8 @@ def main(argv=None):
               "update_stiff_median": STIFF_MEDIAN})
     emit("mpv3_edge_checks", cases=check_mpv3_edges(device),
          tol={str(k).split(".")[-1]: v for k, v in UPDATE_TOL.items()})
-    w_tr, n_tr = check_trace(device, big=not args.quick)
-    emit("trace_checks", cases=n_tr, max_rel_err=w_tr,
+    w_tr, n_tr, trace_plans = check_trace(device, big=not args.quick)
+    emit("trace_checks", cases=n_tr, max_rel_err=w_tr, plans=trace_plans,
          tol={str(k).split(".")[-1]: v for k, v in TRACE_TOL.items()})
     if args.quick:
         return 0

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Device times of the sweep kernel (B1) and the chemistry update (B3) on the
-traffic of the port's three main paths, and the host's cost of a call of each
-wrapper, for comparing two versions of the port on one card.
+"""Device times of the sweep kernels (B1, B2), the chemistry update (B3) and
+the point-source trace (B5) on the traffic of the port's three main paths,
+and the host's cost of a call of each wrapper, for comparing two versions of
+the port on one card.
 
     python3 kernel_times.py                      # the port beside this script
     cd OTHER_CHECKOUT && python3 /path/to/kernel_times.py --here
@@ -18,6 +19,13 @@ float32 it times:
   state after six steps (three axes, ``scma``) and on level 1 of the coupled
   hierarchy after eight steps (prolonged ghosts, half ``dx``, wind cells);
 - B2 on the blast wave, orders 1 and 2;
+- B5 on the H II state's optical depths (128^3 float32), the source at the
+  centre (the H II and coupled traffic: 65 shells) and in a corner (128
+  shells); where the port has ``fused_trace.trace_plan``, also the plan and
+  its dependency floor: the probe ``csrc/trace_floor.cu`` on the same
+  clusters running the same 192 (centre) or 381 (corner) rounds of the
+  cluster barrier and nothing else, and the same rounds with a relaxed
+  arrive;
 - B3 on the H II state (the step that state takes), on a quiescent state
   (Euler only), on a developed ionisation front, and on both levels of the
   coupled state (seeded with ``f0`` at half the step, unseeded at the step),
@@ -118,6 +126,7 @@ def main(argv=None):
     front = b3(mp, *mp.local_state(Pf), sim.physics.raytrace(Pf),
                float(sim.fns.calc_dt(Pf)))
     emit("hii_update", run_state=run_state, quiescent=quiescent, front=front)
+    emit("trace", **trace_times(cs, sim, torch))
     del sim
 
     # --- the coupled hierarchy after eight steps: B1 on level 1, B3 on both
@@ -158,6 +167,43 @@ def main(argv=None):
         capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     return 0
+
+
+def trace_times(cs, sim, torch) -> dict:
+    """B5 on the H II state's optical depths: ms a launch with the source at
+    the centre and in a corner; with ``trace_plan``, the plan and its
+    barrier-only floor."""
+    from pion_tpu_torch import _build
+    from pion_tpu_torch.raytracing import fused_trace as ft
+
+    phys, P = sim.physics, sim.P
+    tr = phys.raytracer.point_tracers[0]
+    dtau = phys.dtau_for(phys.sources[0], P,
+                         phys.raytracer.static_fields(0, P)[0])
+    out = {}
+    for name, src in (("centre", tuple(int(v) for v in tr.src_idx)),
+                      ("corner", (0, 0, 0))):
+        rec = {"source_cell": list(src), "ms": cs.time_ms(
+            lambda: ft.octant_trace(dtau, src, tr.tau_min), 20)}
+        if hasattr(ft, "trace_plan"):
+            plan = ft.trace_plan(tuple(dtau.shape), src, dtau.element_size())
+            rec["plan"] = dict(plan)
+            lib = _build.get_probe_lib("trace_floor")
+            phases = 3 * (plan["shells"] - 1)
+
+            def floor(relaxed):
+                err = lib.pion_trace_barrier_floor(
+                    plan["cluster"], plan["threads"], phases, relaxed,
+                    torch.cuda.current_stream().cuda_stream)
+                if err != 0:
+                    raise RuntimeError(f"barrier floor launch: CUDA error {err}")
+
+            rec["barrier_phases"] = phases
+            rec["barrier_floor_ms"] = cs.time_ms(lambda: floor(0), 20)
+            # the same rounds with a relaxed arrive: what the release costs
+            rec["barrier_relaxed_ms"] = cs.time_ms(lambda: floor(1), 20)
+        out[name] = rec
+    return out
 
 
 def host_us(fn, n: int = 30) -> float:

@@ -11,7 +11,8 @@ package imports on a machine without a CUDA toolkit.
 One library per translation unit and scalar type: ``sweep.cu`` once per
 (scalar type, Riemann solver), ``mpv3.cu`` and ``trace.cu`` once per scalar
 type.  :func:`load_all` starts every missing build at once, one ``nvcc``
-process each.
+process each.  The timing probes of ``PROBES`` are built only when a timing
+script asks for one (:func:`get_probe_lib`): no path launches them.
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 # every file a translation unit is made of: a change to any rebuilds all
-SOURCES = ("sweep.cu", "riemann_mhd.cuh", "eqns.cuh", "mpv3.cu", "trace.cu")
+SOURCES = ("sweep.cu", "riemann_mhd.cuh", "eqns.cuh", "async_copy.cuh", "mpv3.cu",
+           "trace.cu", "trace_floor.cu")
 
 _REAL = {"float32": "-DPION_REAL=float", "float64": "-DPION_REAL=double"}
 
@@ -44,6 +46,11 @@ VARIANTS: Dict[Tuple[str, ...], Tuple[str, Tuple[str, ...]]] = {
     ("trace", "float32"): ("trace.cu", (_REAL["float32"],)),
     ("trace", "float64"): ("trace.cu", (_REAL["float64"],)),
 }
+# timing probes: key -> (translation unit, definitions), as VARIANTS
+PROBES: Dict[Tuple[str, ...], Tuple[str, Tuple[str, ...]]] = {
+    ("trace_floor",): ("trace_floor.cu", ()),
+}
+_UNITS = {**VARIANTS, **PROBES}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -55,14 +62,14 @@ _D = ctypes.c_double
 _SWEEP_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                ctypes.c_ulonglong, _I, _I, _D, _D, _D, _D, _D, _D, _P]
 _FINAL_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-               _D, _D, _D, _D, _D, _D, _P]
+               _I, _I, _D, _D, _D, _D, _D, _D, _P]
 _DP = ctypes.POINTER(ctypes.c_double)
 _MP_HEAD = [_P, _P, _P, _P, _I, _P, _P, _P]           # cells, sources, tables
 _MP_TAIL = [_L, _I, _I, _DP, _I, _I]                  # n, modes, constants
 _YDOT_ARGS = _MP_HEAD + [_P, _P] + _MP_TAIL + [_P]
 _UPDATE_ARGS = (_MP_HEAD + [_P, _P, _P, _P, _P, _P] + _MP_TAIL
                 + [_I, _I, _D, _P, _P, _I, _P])
-_TRACE_ARGS = [_P, _P, _I, _I, _I, _I, _I, _I, _D, _P]
+_TRACE_ARGS = [_P, _P, _I, _I, _I, _I, _I, _I, _D, _I, _I, _I, _I, _P]
 
 # C functions of each translation unit: name -> argument types
 _FUNCTIONS = {
@@ -71,6 +78,10 @@ _FUNCTIONS = {
     "mpv3.cu": {"pion_mpv3_ydot": _YDOT_ARGS,
                 "pion_mpv3_update": _UPDATE_ARGS},
     "trace.cu": {"pion_octant_trace": _TRACE_ARGS},
+}
+# and of each timing probe
+_PROBE_FUNCTIONS = {
+    "trace_floor.cu": {"pion_trace_barrier_floor": [_I, _I, _I, _I, _P]},
 }
 
 _libs: Dict[Tuple[str, ...], ctypes.CDLL] = {}
@@ -102,9 +113,8 @@ def _source_hash() -> str:
 
 
 def _paths(key: Tuple[str, ...], digest: str) -> Tuple[str, str]:
-    unit = VARIANTS[key][0][:-3]
-    tag = "_".join(k for k in key if k != unit)
-    stem = f"libpion_{unit}_{tag}_{digest}"
+    unit = _UNITS[key][0][:-3]
+    stem = "_".join(["libpion", unit, *(k for k in key if k != unit), digest])
     return (os.path.join(BUILD_DIR, stem + ".so"),
             os.path.join(BUILD_DIR, stem + ".log"))
 
@@ -147,50 +157,57 @@ def parse_ptxas(log: str) -> list:
 
 def _bind(path: str, unit: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
-    for name, argtypes in _FUNCTIONS[unit].items():
+    for name, argtypes in {**_FUNCTIONS, **_PROBE_FUNCTIONS}[unit].items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = _I
     return lib
 
 
-def load_all() -> dict:
-    """Build (in parallel, one ``nvcc`` each) and load every library.
-    Returns the build record:
-    ``{"seconds", "built", "variants": {name: [ptxas rows]}}``."""
-    keys = list(VARIANTS)
-    digest = _source_hash()
+def _compile(keys, digest: str) -> int:
+    """Build the libraries of ``keys`` not yet on disk, one ``nvcc`` each,
+    all started at once; raises if any build fails.  Returns how many were
+    built."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    t0 = time.time()
     procs = []
     for key in keys:
-        if key in _libs:
-            continue
         so, log = _paths(key, digest)
-        if os.path.exists(so):
+        if key in _libs or os.path.exists(so):
             continue
         # build under a private name and rename when complete, so that a
         # build that was cut off never leaves a library that loads
         tmp = f"{so}.{os.getpid()}.tmp"
-        unit, defs = VARIANTS[key]
+        unit, defs = _UNITS[key]
         cmd = [_nvcc(), *NVCC_FLAGS, *defs, "-I", CSRC,
                "-o", tmp, os.path.join(CSRC, unit)]
         logf = open(log, "w")
-        procs.append((key, tmp, so, log, logf,
+        procs.append((tmp, so, log, logf,
                       subprocess.Popen(cmd, stdout=logf,
                                        stderr=subprocess.STDOUT)))
     failed = []
-    for key, tmp, so, log, logf, proc in procs:
+    for tmp, so, log, logf, proc in procs:
         rc = proc.wait()
         logf.close()
         if rc != 0:
             with open(log) as f:
                 # the first errors say the most
-                failed.append(f"{key}: nvcc exit {rc}\n{f.read()[:5000]}")
+                failed.append(f"{os.path.basename(so)}: nvcc exit {rc}\n"
+                              f"{f.read()[:5000]}")
             continue
         os.replace(tmp, so)
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+    return len(procs)
+
+
+def load_all() -> dict:
+    """Build (in parallel, one ``nvcc`` each) and load every library of
+    ``VARIANTS``.  Returns the build record:
+    ``{"seconds", "built", "variants": {name: [ptxas rows]}}``."""
+    keys = list(VARIANTS)
+    digest = _source_hash()
+    t0 = time.time()
+    built = _compile(keys, digest)
     for key in keys:
         so, log = _paths(key, digest)
         if key not in _libs:
@@ -198,7 +215,7 @@ def load_all() -> dict:
         if os.path.exists(log):
             with open(log) as f:
                 _info["_".join(key)] = parse_ptxas(f.read())
-    return {"seconds": time.time() - t0, "built": len(procs),
+    return {"seconds": time.time() - t0, "built": built,
             "variants": {"_".join(k): _info.get("_".join(k), [])
                          for k in keys}}
 
@@ -225,3 +242,16 @@ def get_mpv3_lib(dtype_name: str) -> ctypes.CDLL:
 def get_trace_lib(dtype_name: str) -> ctypes.CDLL:
     """The loaded octant-trace library for one dtype."""
     return _get(("trace", dtype_name))
+
+
+def get_probe_lib(name: str) -> ctypes.CDLL:
+    """The loaded library of the timing probe ``name`` (``PROBES``), built on
+    its own at first use."""
+    key = (name,)
+    if key not in PROBES:
+        raise ValueError(f"no timing probe {name!r}")
+    if key not in _libs:
+        digest = _source_hash()
+        _compile([key], digest)
+        _libs[key] = _bind(_paths(key, digest)[0], PROBES[key][0])
+    return _libs[key]

@@ -8,9 +8,9 @@
 // tracer flux with the sCMA clamp and element renormalisation -> flux
 // divergence -> Powell and GLM source terms; it writes dt*dU for the interior.
 // `final_axis_kernel` replaces `_final_axis_pallas` (same file): the axis-0
-// sweep followed in the same thread by U(P) + dU + sum(contribs) ->
-// cons_to_prim with floors -> GLM psi damping; it writes the new primitive
-// state.
+// sweep followed in the same thread as each cell's flux divergence by U(P) +
+// dU + sum(contribs) -> cons_to_prim with floors -> GLM psi damping; it
+// writes the new primitive state.
 //
 // What bounds them here.  Bytes: per cell a sweep reads the padded state and
 // the mask once and writes nvar values (at 128^3, 10 variables, float32:
@@ -41,16 +41,17 @@
 // faces are four rounds of the block's 128 threads, and five blocks fit an
 // SM; above 48 KB of shared memory the launcher opts the kernel in.
 //
-// final_axis_kernel keeps the first design: one thread owns one interior
-// cell, evaluates `interface_flux` at its low and high face (a loop of two
-// trips, deliberately not unrolled, so the kernel holds one copy of the
-// pipeline) and reads the stencil from device memory through the caches.
+// final_axis_kernel runs on the same tiles along axis 0 (z in 3D, y in 2D;
+// pencils across x) through the same phases 1 and 2 (`stage_and_solve`).
+// Its phase 3 also reads the cell's base state and the other axes'
+// contributions, coalesced along x, applies the conserved update and writes
+// the new primitive state once.  Its shared memory and tile size are B1's
+// for the same variables (fused_sweep.sweep_plan along axis 0).
 //
-// Both kernels share every device function below through a cell accessor
-// (`GlobalCells` reads the padded state in device memory, `TileCells` the
-// staged tile).  Tracers are handled one at a time after the base variables,
-// so any number of tracers runs without per-thread arrays indexed at run
-// time.
+// Both kernels share every device function below; the stencil is read
+// through a cell accessor (`TileCells`, the staged tile).  Tracers are
+// handled one at a time after the base variables, so any number of tracers
+// runs without per-thread arrays indexed at run time.
 //
 // Built once per (scalar type, solver) with -DPION_REAL and -DPION_SOLVER;
 // equation system, viscosity and order are template parameters selected in the
@@ -59,6 +60,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
 #include "riemann_mhd.cuh"
 
 #ifndef PION_REAL
@@ -81,7 +83,6 @@ struct Layout {
   int gz;              // ghost depth in z (2 in 3D, 0 in 2D); y and x have 2
   long sz, sy;         // strides of the padded spatial axes (x has stride 1)
   long vs;             // stride between variables of the padded state
-  long ss;             // stride of the sweep axis in the padded state
   long cells;          // nz * ny * nx, also the variable stride of the output
   int k;               // physical index of the sweep axis (0 = x, 1 = y, 2 = z)
   int nvar;            // base variables + tracers
@@ -108,24 +109,8 @@ __device__ __forceinline__ int rot(int k, int j) {
   return r >= 3 ? r - 3 : r;
 }
 
-// Cells of the padded state in device memory, addressed relative to the cell
-// at padded offset `off` along the sweep axis.
-template <typename T>
-struct GlobalCells {
-  const T* __restrict__ P;
-  const uint8_t* __restrict__ mask;
-  long off, vs, ss;
-  __device__ __forceinline__ T operator()(int v, int rel) const { return P[off + v * vs + rel * ss]; }
-  __device__ __forceinline__ bool has_mask() const { return mask != nullptr; }
-  __device__ __forceinline__ uint8_t flag(int rel) const { return mask[off + rel * ss]; }
-  __device__ __forceinline__ GlobalCells shifted(int rel) const {
-    GlobalCells g = *this;
-    g.off += rel * ss;
-    return g;
-  }
-};
-
-// The same cells staged in shared memory: variable v of staged row r and
+// The cells of a tile staged in shared memory, addressed relative to the
+// cell `pos` along the sweep axis: variable v of staged row r and
 // pencil w at s[v * vstride + r * rstride + w]; `pos` = r * rstride + w.
 template <typename T>
 struct TileCells {
@@ -135,11 +120,6 @@ struct TileCells {
   __device__ __forceinline__ T operator()(int v, int rel) const { return s[v * vstride + pos + rel * rstride]; }
   __device__ __forceinline__ bool has_mask() const { return m != nullptr; }
   __device__ __forceinline__ uint8_t flag(int rel) const { return m[pos + rel * rstride]; }
-  __device__ __forceinline__ TileCells shifted(int rel) const {
-    TileCells t = *this;
-    t.pos += rel * rstride;
-    return t;
-  }
 };
 
 // Base variables of the cell `rel` steps along the axis, rotated into the
@@ -365,60 +345,6 @@ __device__ __forceinline__ void cell_sources(const Cells& P, int k, const Consts
   for (int v = 0; v < NB; ++v) dU[v] = dt * acc[v];
 }
 
-// dt * dU of the base variables of the cell `P` is centred on, in the sweep
-// frame, plus the mass flux through its two faces (each face solved here).
-template <typename T, int EQN, int SOLVER, int AV, int ORDER, class Cells>
-__device__ __forceinline__ void cell_dU(const Cells& P, int k, const Consts<T>& c, T dt, T ch,
-                                        T (&dU)[NBase<EQN>::value], T& fm_lo, T& fm_hi) {
-  constexpr int NB = NBase<EQN>::value;
-  T acc[NB];
-  fm_lo = T(0.0);
-  fm_hi = T(0.0);
-  // low face, then high face: one copy of the pipeline, two trips
-#pragma unroll 1
-  for (int f = 0; f < 2; ++f) {
-    T flux[NB];
-    interface_flux<T, EQN, SOLVER, AV, ORDER>(P.shifted(f - 1), k, c, ch, flux);
-    if (f == 0) {
-      fm_lo = flux[RO];
-#pragma unroll
-      for (int v = 0; v < NB; ++v) acc[v] = flux[v];
-    } else {
-      fm_hi = flux[RO];
-#pragma unroll
-      for (int v = 0; v < NB; ++v) acc[v] = (acc[v] - flux[v]) / c.dx;
-    }
-  }
-  cell_sources<T, EQN>(P, k, c, dt, acc, dU);
-}
-
-// Cell index -> padded offset and output offset; false past the end.
-__device__ __forceinline__ bool locate(const Layout& L, long& offc, long& o) {
-  o = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= L.cells) return false;
-  const int x = (int)(o % L.nx);
-  const long r = o / L.nx;
-  const int y = (int)(r % L.ny);
-  const int z = (int)(r / L.ny);
-  offc = (long)(z + L.gz) * L.sz + (long)(y + 2) * L.sy + (x + 2);
-  return true;
-}
-
-// One element from device to shared memory without passing through registers.
-template <typename T>
-__device__ __forceinline__ void cp_async(T* dst, const T* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if (sizeof(T) == 8) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-  }
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // Position (along, across) of item j of a tile's n_a x n_w items, the
 // contiguous axis of device memory fastest.
 __device__ __forceinline__ void tile_pos(int j, int n_a, int n_w, int along_fast, int& a, int& w) {
@@ -431,73 +357,116 @@ __device__ __forceinline__ void tile_pos(int j, int n_a, int n_w, int along_fast
   }
 }
 
+// One tile of a sweep, staged and solved: the shared-memory layout of a
+// block of sweep_axis_kernel and final_axis_kernel, and which tile it owns.
+template <typename T>
+struct Tile {
+  T* s_state;        // nvar x R x rs: the staged stencil
+  T* s_flux;         // NB x (T+1) x rs: the base fluxes of the tile's faces
+  uint8_t* s_mask;   // R x rs, or null
+  int R, rs, fs;     // staged rows, row stride, flux rows
+  int a0, w0, t3;    // first cell along, first pencil across, plane
+  int nA, nW;        // cells along, pencils across
+};
+
+// Phases 1 and 2 of a tile: stage the stencil -- every variable of the
+// T + 2*ORDER cells of each pencil, and the fallback mask -- in shared
+// memory once, then solve each of the tile's T + 1 interfaces once and keep
+// their base fluxes in shared memory.  Ends with a block barrier.  dt and
+// ch are read from the card while the stencil's copies are in flight.
 template <typename T, int EQN, int SOLVER, int AV, int ORDER>
-__global__ void __launch_bounds__(THREADS)
-sweep_axis_kernel(const T* __restrict__ P, const uint8_t* __restrict__ mask, T* __restrict__ out,
-                  const T* __restrict__ dt_p, const T* __restrict__ ch_p, Layout L, Tiling tl,
-                  Consts<T> c) {
+__device__ __forceinline__ Tile<T> stage_and_solve(const T* __restrict__ P,
+                                                   const uint8_t* __restrict__ mask,
+                                                   const T* __restrict__ dt_p,
+                                                   const T* __restrict__ ch_p, const Layout& L,
+                                                   const Tiling& tl, const Consts<T>& c, T& dt,
+                                                   T& ch) {
   constexpr int NB = NBase<EQN>::value;
   constexpr int H = ORDER;  // halo cells a side along the axis
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int R = tl.T + 2 * H;  // staged rows
-  const int rs = tl.W + 1;     // row stride: odd, so that column walks miss no bank
-  T* s_state = reinterpret_cast<T*>(smem_raw);       // nvar x R x rs
-  T* s_flux = s_state + (long)L.nvar * R * rs;       // NB x (T+1) x rs
-  uint8_t* s_mask = mask != nullptr ? reinterpret_cast<uint8_t*>(s_flux + NB * (tl.T + 1) * rs)
-                                    : nullptr;       // R x rs
+  Tile<T> t;
+  t.R = tl.T + 2 * H;  // staged rows
+  t.rs = tl.W + 1;     // row stride: odd, so that column walks miss no bank
+  t.fs = tl.T + 1;
+  t.s_state = reinterpret_cast<T*>(smem_raw);
+  t.s_flux = t.s_state + (long)L.nvar * t.R * t.rs;
+  t.s_mask = mask != nullptr ? reinterpret_cast<uint8_t*>(t.s_flux + NB * t.fs * t.rs) : nullptr;
 
   // which tile
   int b = blockIdx.x;
   const int tw = b % tl.n_tw;
   b /= tl.n_tw;
   const int ta = b % tl.n_ta;
-  const int t3 = b / tl.n_ta;
-  const int a0 = ta * tl.T, w0 = tw * tl.W;
-  const int nA = min(tl.T, tl.n_along - a0);
-  const int nW = min(tl.W, tl.n_across - w0);
-  const int nR = nA + 2 * H;
+  t.t3 = b / tl.n_ta;
+  t.a0 = ta * tl.T;
+  t.w0 = tw * tl.W;
+  t.nA = min(tl.T, tl.n_along - t.a0);
+  t.nW = min(tl.W, tl.n_across - t.w0);
+  const int nR = t.nA + 2 * H;
 
   // 1. stage the stencil (staged row r holds interior cell a0 - H + r)
-  const long g0 = tl.p_origin + (long)(a0 - H) * tl.ps_along + (long)w0 * tl.ps_across +
-                  (long)t3 * tl.ps_third;
-  for (int j = threadIdx.x; j < nR * nW; j += THREADS) {
+  const long g0 = tl.p_origin + (long)(t.a0 - H) * tl.ps_along + (long)t.w0 * tl.ps_across +
+                  (long)t.t3 * tl.ps_third;
+  for (int j = threadIdx.x; j < nR * t.nW; j += THREADS) {
     int r, w;
-    tile_pos(j, nR, nW, tl.along_fast, r, w);
+    tile_pos(j, nR, t.nW, tl.along_fast, r, w);
     const long g = g0 + (long)r * tl.ps_along + (long)w * tl.ps_across;
-    const int s = r * rs + w;
-    for (int v = 0; v < L.nvar; ++v) cp_async(s_state + v * R * rs + s, P + g + v * L.vs);
-    if (mask != nullptr) s_mask[s] = mask[g];
+    const int s = r * t.rs + w;
+    for (int v = 0; v < L.nvar; ++v) cp_async(t.s_state + v * t.R * t.rs + s, P + g + v * L.vs);
+    if (mask != nullptr) t.s_mask[s] = mask[g];
   }
-  const T dt = *dt_p;
-  const T ch = *ch_p;
+  dt = *dt_p;
+  ch = *ch_p;
   cp_async_wait_all();
   __syncthreads();
 
   // 2. each interface of the tile once: face f lies between interior cells
   // a0 + f - 1 and a0 + f, i.e. staged rows H - 1 + f and H + f
-  const int fs = tl.T + 1;  // flux rows
-  for (int j = threadIdx.x; j < (nA + 1) * nW; j += THREADS) {
+  for (int j = threadIdx.x; j < (t.nA + 1) * t.nW; j += THREADS) {
     int f, w;
-    tile_pos(j, nA + 1, nW, tl.along_fast, f, w);
-    const TileCells<T> cells{s_state, s_mask, R * rs, rs, (H - 1 + f) * rs + w};
+    tile_pos(j, t.nA + 1, t.nW, tl.along_fast, f, w);
+    const TileCells<T> cells{t.s_state, t.s_mask, t.R * t.rs, t.rs, (H - 1 + f) * t.rs + w};
     T flux[NB];
     interface_flux<T, EQN, SOLVER, AV, ORDER>(cells, L.k, c, ch, flux);
 #pragma unroll
-    for (int v = 0; v < NB; ++v) s_flux[(v * fs + f) * rs + w] = flux[v];
+    for (int v = 0; v < NB; ++v) t.s_flux[(v * t.fs + f) * t.rs + w] = flux[v];
   }
   __syncthreads();
+  return t;
+}
+
+// Phase 3's start for cell (a, w) of a tile: the flux divergence from the
+// staged face fluxes, the mass flux through its two faces, and the
+// accessor of its staged stencil.
+template <typename T, int NB, int ORDER>
+__device__ __forceinline__ TileCells<T> cell_divergence(const Tile<T>& t, int a, int w,
+                                                        const Consts<T>& c, T (&acc)[NB], T& fm_lo,
+                                                        T& fm_hi) {
+#pragma unroll
+  for (int v = 0; v < NB; ++v)
+    acc[v] = (t.s_flux[(v * t.fs + a) * t.rs + w] - t.s_flux[(v * t.fs + a + 1) * t.rs + w]) / c.dx;
+  fm_lo = t.s_flux[a * t.rs + w];
+  fm_hi = t.s_flux[(a + 1) * t.rs + w];
+  return TileCells<T>{t.s_state, t.s_mask, t.R * t.rs, t.rs, (ORDER + a) * t.rs + w};
+}
+
+template <typename T, int EQN, int SOLVER, int AV, int ORDER>
+__global__ void __launch_bounds__(THREADS)
+sweep_axis_kernel(const T* __restrict__ P, const uint8_t* __restrict__ mask, T* __restrict__ out,
+                  const T* __restrict__ dt_p, const T* __restrict__ ch_p, Layout L, Tiling tl,
+                  Consts<T> c) {
+  constexpr int NB = NBase<EQN>::value;
+  T dt, ch;
+  const Tile<T> t =
+      stage_and_solve<T, EQN, SOLVER, AV, ORDER>(P, mask, dt_p, ch_p, L, tl, c, dt, ch);
 
   // 3. each cell: divergence, sources, tracers; dt*dU written once
-  const long o0 = (long)a0 * tl.os_along + (long)w0 * tl.os_across + (long)t3 * tl.os_third;
-  for (int j = threadIdx.x; j < nA * nW; j += THREADS) {
+  const long o0 = (long)t.a0 * tl.os_along + (long)t.w0 * tl.os_across + (long)t.t3 * tl.os_third;
+  for (int j = threadIdx.x; j < t.nA * t.nW; j += THREADS) {
     int a, w;
-    tile_pos(j, nA, nW, tl.along_fast, a, w);
-    T acc[NB];
-#pragma unroll
-    for (int v = 0; v < NB; ++v)
-      acc[v] = (s_flux[(v * fs + a) * rs + w] - s_flux[(v * fs + a + 1) * rs + w]) / c.dx;
-    const T fm_lo = s_flux[a * rs + w], fm_hi = s_flux[(a + 1) * rs + w];
-    const TileCells<T> cells{s_state, s_mask, R * rs, rs, (H + a) * rs + w};
+    tile_pos(j, t.nA, t.nW, tl.along_fast, a, w);
+    T acc[NB], fm_lo, fm_hi;
+    const TileCells<T> cells = cell_divergence<T, NB, ORDER>(t, a, w, c, acc, fm_lo, fm_hi);
     T dU[NB];
     cell_sources<T, EQN>(cells, L.k, c, dt, acc, dU);
     const long o = o0 + (long)a * tl.os_along + (long)w * tl.os_across;
@@ -517,61 +486,72 @@ sweep_axis_kernel(const T* __restrict__ P, const uint8_t* __restrict__ mask, T* 
   }
 }
 
-// The axis-0 sweep plus the conserved update.  K = ndim - 1 is the physical
-// index of axis 0 and fixes the rotation at compile time, so the update runs
-// on registers in the unrotated frame.
+// The axis-0 sweep plus the conserved update, on the tiles of
+// sweep_axis_kernel: phases 1 and 2 are the same; phase 3 adds each cell's
+// dt*dU and the other axes' contributions to U(P_int), converts back with
+// the floors, damps psi and writes the new primitive state once.  K =
+// ndim - 1 is the physical index of axis 0 and fixes the rotation at compile
+// time, so the update runs on registers in the unrotated frame.
 template <typename T, int EQN, int SOLVER, int AV, int ORDER, int K>
 __global__ void __launch_bounds__(THREADS)
 final_axis_kernel(const T* __restrict__ P, const uint8_t* __restrict__ mask,
                   const T* __restrict__ P_int, const T* __restrict__ c0, const T* __restrict__ c1,
                   T* __restrict__ out, const T* __restrict__ dt_p, const T* __restrict__ ch_p,
-                  Layout L, Consts<T> c) {
+                  Layout L, Tiling tl, Consts<T> c) {
   constexpr int NB = NBase<EQN>::value;
-  long offc, o;
-  if (!locate(L, offc, o)) return;
-  const T dt = *dt_p;
-  const T ch = *ch_p;
-  const GlobalCells<T> cells{P, mask, offc, L.vs, L.ss};
-  T dUr[NB], fm_lo, fm_hi;
-  cell_dU<T, EQN, SOLVER, AV, ORDER>(cells, L.k, c, dt, ch, dUr, fm_lo, fm_hi);
-  T dU[NB];
-  dU[RO] = dUr[RO];
-  dU[PG] = dUr[PG];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    dU[VX + (K + j) % 3] = dUr[VX + j];
-    dU[BX + (K + j) % 3] = dUr[BX + j];
-  }
-  if (NB == 9) dU[NB - 1] = dUr[NB - 1];
+  T dt, ch;
+  const Tile<T> t =
+      stage_and_solve<T, EQN, SOLVER, AV, ORDER>(P, mask, dt_p, ch_p, L, tl, c, dt, ch);
 
-  // U(P) + dU + sum(contribs) -> primitive with floors -> psi damping
-  T Pb[NB], U[NB];
+  // 3. each cell, x fastest: P_int, c0, c1 and the output are read and
+  // written coalesced
+  const long o0 = (long)t.a0 * tl.os_along + (long)t.w0 * tl.os_across + (long)t.t3 * tl.os_third;
+  for (int j = threadIdx.x; j < t.nA * t.nW; j += THREADS) {
+    int a, w;
+    tile_pos(j, t.nA, t.nW, tl.along_fast, a, w);
+    T acc[NB], fm_lo, fm_hi;
+    const TileCells<T> cells = cell_divergence<T, NB, ORDER>(t, a, w, c, acc, fm_lo, fm_hi);
+    T dUr[NB], dU[NB];
+    cell_sources<T, EQN>(cells, K, c, dt, acc, dUr);
+    dU[RO] = dUr[RO];
+    dU[PG] = dUr[PG];
 #pragma unroll
-  for (int v = 0; v < NB; ++v) Pb[v] = P_int[o + v * L.cells];
-  prim_to_cons<T, NB>(Pb, U, c.gm1);
-#pragma unroll
-  for (int v = 0; v < NB; ++v) {
-    U[v] = U[v] + dU[v];
-    if (c0 != nullptr) U[v] = U[v] + c0[o + v * L.cells];
-    if (c1 != nullptr) U[v] = U[v] + c1[o + v * L.cells];
-  }
-  T Pn[NB];
-  cons_to_prim<T, NB>(U, Pn, c);
-  if (EQN == EQN_GLM) Pn[NB - 1] = Pn[NB - 1] * exp(-dt * ch * c.cr);
-#pragma unroll
-  for (int v = 0; v < NB; ++v) out[o + v * L.cells] = Pn[v];
+    for (int jj = 0; jj < 3; ++jj) {
+      dU[VX + (K + jj) % 3] = dUr[VX + jj];
+      dU[BX + (K + jj) % 3] = dUr[BX + jj];
+    }
+    if (NB == 9) dU[NB - 1] = dUr[NB - 1];
+    const long o = o0 + (long)a * tl.os_along + (long)w * tl.os_across;
 
-  const T rho_old = Pb[RO], rho_new = Pn[RO];
-  const long cells_n = L.cells;
-  T* outp = out;
-  tracer_updates<T, EQN, ORDER>(
-      cells, L, c, dt, fm_lo, fm_hi,
-      [outp, o, cells_n, P_int, c0, c1, rho_old, rho_new](int v, T val) {
-        T u = P_int[o + v * cells_n] * rho_old + val;
-        if (c0 != nullptr) u = u + c0[o + v * cells_n];
-        if (c1 != nullptr) u = u + c1[o + v * cells_n];
-        outp[o + v * cells_n] = u / rho_new;
-      });
+    // U(P) + dU + sum(contribs) -> primitive with floors -> psi damping
+    T Pb[NB], U[NB];
+#pragma unroll
+    for (int v = 0; v < NB; ++v) Pb[v] = P_int[o + v * L.cells];
+    prim_to_cons<T, NB>(Pb, U, c.gm1);
+#pragma unroll
+    for (int v = 0; v < NB; ++v) {
+      U[v] = U[v] + dU[v];
+      if (c0 != nullptr) U[v] = U[v] + c0[o + v * L.cells];
+      if (c1 != nullptr) U[v] = U[v] + c1[o + v * L.cells];
+    }
+    T Pn[NB];
+    cons_to_prim<T, NB>(U, Pn, c);
+    if (EQN == EQN_GLM) Pn[NB - 1] = Pn[NB - 1] * exp(-dt * ch * c.cr);
+#pragma unroll
+    for (int v = 0; v < NB; ++v) out[o + v * L.cells] = Pn[v];
+
+    const T rho_old = Pb[RO], rho_new = Pn[RO];
+    const long cells_n = L.cells;
+    T* outp = out;
+    tracer_updates<T, EQN, ORDER>(
+        cells, L, c, dt, fm_lo, fm_hi,
+        [outp, o, cells_n, P_int, c0, c1, rho_old, rho_new](int v, T val) {
+          T u = P_int[o + v * cells_n] * rho_old + val;
+          if (c0 != nullptr) u = u + c0[o + v * cells_n];
+          if (c1 != nullptr) u = u + c1[o + v * cells_n];
+          outp[o + v * cells_n] = u / rho_new;
+        });
+  }
 }
 
 template <typename T>
@@ -600,7 +580,6 @@ inline Layout make_layout(int ndim, int nz, int ny, int nx, int axis, int nvar, 
   L.sz = (long)(ny + 4) * L.sy;
   L.vs = (long)(nz + 2 * L.gz) * L.sz;
   L.k = ndim - 1 - axis;
-  L.ss = L.k == 0 ? 1 : (L.k == 1 ? L.sy : L.sz);
   L.cells = (long)nz * ny * nx;
   L.nvar = nvar;
   L.scma = scma;
@@ -642,14 +621,21 @@ inline size_t tile_bytes(int nvar, int nb, int order, int T, int W, bool mask, s
   return (nvar * R * rs + nb * (size_t)(T + 1) * rs) * esz + (mask ? R * rs : 0);
 }
 
-// Opt sweep_axis_kernel<E, A, O> in to `bytes` of dynamic shared memory once
-// it needs more than the default (once per instantiation and size).
-template <typename T, int E, int S, int A, int O>
+// Opt a tile kernel in to `bytes` of dynamic shared memory once it needs
+// more than the default (once per instantiation and size).  K < 0:
+// sweep_axis_kernel<E, S, A, O>; else final_axis_kernel<E, S, A, O, K>.
+template <typename T, int E, int S, int A, int O, int K>
 cudaError_t allow_tile_smem(size_t bytes) {
   static size_t allowed = SMEM_DEFAULT;
   if (bytes <= allowed) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(sweep_axis_kernel<T, E, S, A, O>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaError_t e;
+  if constexpr (K < 0) {
+    e = cudaFuncSetAttribute(sweep_axis_kernel<T, E, S, A, O>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  } else {
+    e = cudaFuncSetAttribute(final_axis_kernel<T, E, S, A, O, K>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  }
   if (e == cudaSuccess) allowed = bytes;
   return e;
 }
@@ -705,7 +691,7 @@ extern "C" int pion_sweep_axis(const void* P, const void* mask, void* out, const
   cudaStream_t s = (cudaStream_t)stream;
 #define PION_SWEEP_CALL(E, A, O)                                                       \
   {                                                                                    \
-    const cudaError_t e = allow_tile_smem<real, E, PION_SOLVER, A, O>(smem);           \
+    const cudaError_t e = allow_tile_smem<real, E, PION_SOLVER, A, O, -1>(smem);           \
     if (e != cudaSuccess) return (int)e;                                               \
     sweep_axis_kernel<real, E, PION_SOLVER, A, O><<<(unsigned)nblocks, THREADS, smem, s>>>( \
         (const real*)P, (const uint8_t*)mask, (real*)out, (const real*)dt,             \
@@ -718,31 +704,42 @@ extern "C" int pion_sweep_axis(const void* P, const void* mask, void* out, const
 
 // The axis-0 sweep fused with the conserved update: writes the new primitive
 // state.  P_int: base state (nvar, [nz,] ny, nx); c0, c1: the other axes'
-// dt*dU of the same shape, or null.
+// dt*dU of the same shape, or null.  tile_t, tile_w: the tiles along axis 0
+// (fused_sweep.sweep_plan).  Returns as pion_sweep_axis.
 extern "C" int pion_final_axis(const void* P, const void* mask, const void* P_int, const void* c0,
                                const void* c1, void* out, const void* dt, const void* ch, int ndim,
                                int nz, int ny, int nx, int nvar, int eqn, int av, int order,
-                               double dx, double gamma, double etav, double rho_floor,
-                               double p_floor, double cr, void* stream) {
+                               int tile_t, int tile_w, double dx, double gamma, double etav,
+                               double rho_floor, double p_floor, double cr, void* stream) {
   if ((ndim != 2 && ndim != 3) || (order != 1 && order != 2) ||
-      (eqn != EQN_MHD && eqn != EQN_GLM) || nvar < (eqn == EQN_GLM ? 9 : 8) || nvar > 64) {
+      (eqn != EQN_MHD && eqn != EQN_GLM) || nvar < (eqn == EQN_GLM ? 9 : 8) || nvar > 64 ||
+      tile_t < 1 || tile_w < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const Layout L = make_layout(ndim, nz, ny, nx, 0, nvar, 0, 0ull);
+  const Tiling tl = make_tiling(L, tile_t, tile_w);
+  const size_t smem = tile_bytes(nvar, eqn == EQN_GLM ? 9 : 8, order, tile_t, tile_w,
+                                 mask != nullptr, sizeof(real));
+  const long nblocks = (long)tl.n_ta * tl.n_tw * tl.n_third;
+  if (smem > SMEM_MAX || nblocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
   const Consts<real> c = make_consts<real>(dx, gamma, etav, rho_floor, p_floor, cr);
-  const unsigned blocks = (unsigned)((L.cells + THREADS - 1) / THREADS);
   cudaStream_t s = (cudaStream_t)stream;
-#define PION_FINAL_CALL(E, A, O)                                                            \
-  if (ndim == 3) {                                                                          \
-    final_axis_kernel<real, E, PION_SOLVER, A, O, 2><<<blocks, THREADS, 0, s>>>(            \
+#define PION_FINAL_LAUNCH(E, A, O, K)                                                       \
+  {                                                                                         \
+    const cudaError_t e = allow_tile_smem<real, E, PION_SOLVER, A, O, K>(smem);             \
+    if (e != cudaSuccess) return (int)e;                                                    \
+    final_axis_kernel<real, E, PION_SOLVER, A, O, K><<<(unsigned)nblocks, THREADS, smem, s>>>( \
         (const real*)P, (const uint8_t*)mask, (const real*)P_int, (const real*)c0,          \
-        (const real*)c1, (real*)out, (const real*)dt, (const real*)ch, L, c);               \
-  } else {                                                                                  \
-    final_axis_kernel<real, E, PION_SOLVER, A, O, 1><<<blocks, THREADS, 0, s>>>(            \
-        (const real*)P, (const uint8_t*)mask, (const real*)P_int, (const real*)c0,          \
-        (const real*)c1, (real*)out, (const real*)dt, (const real*)ch, L, c);               \
+        (const real*)c1, (real*)out, (const real*)dt, (const real*)ch, L, tl, c);           \
+  }
+#define PION_FINAL_CALL(E, A, O)       \
+  if (ndim == 3) {                     \
+    PION_FINAL_LAUNCH(E, A, O, 2)      \
+  } else {                             \
+    PION_FINAL_LAUNCH(E, A, O, 1)      \
   }
   PION_DISPATCH(PION_FINAL_CALL)
 #undef PION_FINAL_CALL
+#undef PION_FINAL_LAUNCH
   return (int)cudaGetLastError();
 }

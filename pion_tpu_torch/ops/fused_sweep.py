@@ -9,7 +9,9 @@ TPU kernels of ``pion_tpu/ops/pallas_sweep.py``:
   the grid into those tiles).
 - :func:`final_axis` replaces ``_final_axis_pallas``: the axis-0 sweep plus
   ``U(P) + dU + sum(contribs)`` -> ``cons_to_prim`` -> GLM psi damping; it
-  returns the new primitive state.
+  returns the new primitive state.  It runs on the same tiles along axis 0
+  (:func:`sweep_plan` with ``axis=0``) and applies the update where
+  :func:`sweep_axis` writes ``dt*dU``.
 
 Both are bound by bytes on an H100, not by operations; what the design does
 about it is written at the head of ``csrc/sweep.cu``.
@@ -114,10 +116,11 @@ def tile_bytes(nvar: int, nbase: int, order: int, T: int, W: int,
 @functools.lru_cache(maxsize=None)
 def sweep_plan(shape: Tuple[int, ...], axis: int, nvar: int, nbase: int,
                itemsize: int, order: int, mask: bool) -> Mapping[str, int]:
-    """How ``sweep_axis_kernel`` cuts the interior of ``shape`` for a sweep
-    along ``axis``: tiles of ``T`` cells along the axis by ``W`` pencils
-    across it (across x for the y and z sweeps, across y for the x sweep),
-    one plane of the third axis each; one block a tile.  ``T`` starts at
+    """How ``sweep_axis_kernel`` (and, along axis 0, ``final_axis_kernel``)
+    cuts the interior of ``shape`` for a sweep along ``axis``: tiles of
+    ``T`` cells along the axis by ``W`` pencils across it (across x for the
+    y and z sweeps, across y for the x sweep), one plane of the third axis
+    each; one block a tile.  ``T`` starts at
     15 and ``W`` at 32, so that the tile's 16 x 32 faces are exactly four
     rounds of the block's 128 threads; while the tile's shared memory
     exceeds ``TILE_SMEM_BUDGET``, ``T + 1`` is halved (down to ``T = 3``),
@@ -298,12 +301,14 @@ def final_axis(P: torch.Tensor, Ph_pad: torch.Tensor,
         ch = cfg.cfl * geom.dx / dt_t
     ch_t = _scalar(ch, Ph_pad)
     cptr = [c.data_ptr() for c in contribs] + [None, None]
+    plan = sweep_plan(tuple(cfg.shape), 0, cfg.nvar, cfg.eqn.nbase,
+                      Ph_pad.element_size(), order, mask_ptr is not None)
     out = torch.empty(interior, dtype=Ph_pad.dtype, device=Ph_pad.device)
     err = lib.pion_final_axis(
         Ph_pad.data_ptr(), mask_ptr, P.data_ptr(), cptr[0], cptr[1],
         out.data_ptr(), dt_t.data_ptr(), ch_t.data_ptr(), cfg.ndim, nz, ny,
         nx, cfg.nvar, 1 if cfg.eqn is Eqn.GLM else 0,
-        1 if cfg.av is AV.FALLE else 0, order, *consts,
+        1 if cfg.av is AV.FALLE else 0, order, plan["T"], plan["W"], *consts,
         torch.cuda.current_stream(Ph_pad.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"final_axis kernel launch failed: CUDA error {err}")
