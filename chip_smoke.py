@@ -12,7 +12,9 @@ around an O star (MPv3 chemistry, point-source raytrace, GLM-MHD) through
 ``Simulation.run``, and the coupled flagship (a 2-level nested grid with that
 H II region and a magnetised stellar wind) through ``NGHierarchy.step`` — and
 checks that each run went through its kernels and that what came out is
-right.  Every phase prints one JSON line; any failed
+right.  Then each path again through ``run(chunk=k)``, k steps as one CUDA
+graph replay: bit for bit the run of k single steps, and timed beside it.
+Every phase prints one JSON line; any failed
 check raises, and the process then exits non-zero without the closing
 ``{"ok": true, ...}`` line.
 """
@@ -396,6 +398,13 @@ def step_parts(device, shape=(128, 128, 128), steps: int = 10):
     return parts
 
 
+# launches a step of each path, by wrapper (the hierarchy's: NG_LAUNCHES)
+BLAST_LAUNCHES = {"sweep_axis": 4, "final_axis": 2, "mpv3_update": 0,
+                  "mpv3_ydot": 0, "octant_trace": 0}
+HII_LAUNCHES = {"sweep_axis": 6, "final_axis": 0, "mpv3_update": 2,
+                "mpv3_ydot": 1, "octant_trace": 2}
+
+
 def _wrappers():
     from pion_tpu_torch.microphysics import fused_mpv3 as fm
     from pion_tpu_torch.ops import fused_sweep as fs
@@ -596,6 +605,54 @@ def check_mpv3(device, shape=(7, 33, 41)):
                           "newton_iterations_kernel_vs_plain":
                               [sum(r[1] for r in ladder),
                                sum(r[3] for r in ladder)]}
+
+
+def check_ydot_grid(device):
+    """B4's grid against ``ydot_plain`` (YDOT_TOL) on the cases it meets,
+    in float64 and float32: fewer cells than a tile; a count no multiple of
+    4 or of a tile; an odd number of tiles, the last partial; seven sources
+    with UV heating, whose tables (read in place by B4) would not fit in
+    shared memory in float64."""
+    from pion_tpu_torch.microphysics import fused_mpv3 as fm
+
+    recs = {}
+    for i, dtype in enumerate((torch.float64, torch.float32)):
+        name = str(dtype).split(".")[-1]
+        for j, (label, shape, ion, k, uv) in enumerate((
+                ("under_a_tile", (7, 9, 11), "mfion", 1, 0),
+                ("ragged", (5, 17, 31), "mono", 2, 1),
+                ("odd_tiles", (531 * fm.TILE - 3,), "mfion", 1, 0),
+                ("many_tables", (7, 33, 41), "mfion", 7, 1))):
+            mp = make_mp(ion, n_diff=uv)
+            omx, E, nH, rt = mp_inputs(mp, shape, k, dtype, device,
+                                       120 + 10 * i + j)
+            n = omx.numel()
+            plan = fm.ydot_plan(n)
+            tables = (11 * mp.mpc.n_table + (4 * k * mp._n_tau
+                                             if ion == "mfion" else 0)) \
+                * omx.element_size()
+            point = {"under_a_tile": n < fm.TILE,
+                     "ragged": n % 4 and n % fm.TILE and plan["tiles"] > 1,
+                     "odd_tiles": plan["tiles"] % 2 == 1 and n % fm.TILE,
+                     "many_tables": (tables > 48 * 1024)
+                     == (dtype == torch.float64)}[label]
+            if not point:
+                raise AssertionError(f"ydot case {label} ({name}) misses its "
+                                     f"point: {n} cells, plan {dict(plan)}")
+            got = fm.ydot(mp, omx, E, nH, rt)
+            ref = fm.ydot_plain(mp, omx, E, nH, rt)
+            torch.cuda.synchronize()
+            errs = [soft_err(g, r) for g, r in zip(got, ref)]
+            for e, tol in zip(errs, YDOT_TOL[dtype]):
+                if not e <= tol:
+                    raise AssertionError(
+                        f"mpv3 ydot, case {label} ({name}): {e:.3e} > "
+                        f"{tol:.1e}")
+            recs[f"{label}_{name}"] = {
+                "cells": n, "ion": ion, "sources": k, "uv": uv,
+                "tiles": plan["tiles"], "table_bytes": tables,
+                "max_soft_rel_err": max(errs)}
+    return recs
 
 
 # B3's two-launch design at its edges, each in float64 and float32: (label,
@@ -1018,8 +1075,7 @@ def measure_physics_kernels(device, n: int = 128, steps: int = 6):
         "plain_ms": time_ms(lambda: fm.ydot_plain(mp, omx, E, nH, rt), 3,
                             warmup=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        # one block of 256 threads a tile of 1024 cells
-        "plan": {"blocks": -(-cells // fm.TILE), "threads": 256}})
+        "plan": dict(fm.ydot_plan(cells))})
 
     # --- B3 update, on the run's state (with the ladder) and quiescent
     got, tiles, newton = update_stats(mp, omx, E, nH, dt, rt)
@@ -1178,9 +1234,7 @@ def hii_path(device, n: int, steps: int, agree_tol: float):
         raise AssertionError(f"state shape {tuple(sim.P.shape)}")
     if not bool(torch.isfinite(sim.P).all()):
         raise AssertionError("non-finite values in the state")
-    want = {"sweep_axis": 6 * steps, "final_axis": 0,
-            "mpv3_update": 2 * steps, "mpv3_ydot": steps,
-            "octant_trace": 2 * steps}
+    want = {k: v * steps for k, v in HII_LAUNCHES.items()}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     x = sim.P[xs]
@@ -1833,6 +1887,221 @@ def ng_dynamics(device, n: int, steps: int, hier):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# several steps in one dispatch: run(chunk=k), one CUDA graph replay a chunk
+# ---------------------------------------------------------------------------
+
+def states_of(run):
+    return run.P if isinstance(run.P, list) else [run.P]
+
+
+def same_run(a, b, what: str) -> dict:
+    """``a`` (chunked) against ``b`` (one step at a time): every state bit
+    for bit, the same clock and step count; raises otherwise."""
+    diff = max(float((x.double() - y.double()).abs().max())
+               for x, y in zip(states_of(a), states_of(b)))
+    same = all(torch.equal(x, y) for x, y in zip(states_of(a), states_of(b)))
+    if not (same and a.t == b.t and a.step_count == b.step_count
+            and a.last_dt == b.last_dt):
+        raise AssertionError(
+            f"{what}: run(chunk) differs from single steps: max |diff| "
+            f"{diff:.3e}, t {a.t!r} vs {b.t!r}, steps {a.step_count} vs "
+            f"{b.step_count}")
+    for x in states_of(a):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{what}: non-finite values")
+    return {"max_abs_diff": diff, "t": a.t, "steps": a.step_count}
+
+
+def sync_free(step, what: str):
+    """One eager step (its caches already filled) under
+    ``torch.cuda.set_sync_debug_mode("error")``: anything in it that waits
+    for the card raises, naming the operation."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    except RuntimeError as err:
+        raise AssertionError(f"{what}: the step waits for the card: "
+                             f"{err}") from err
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def chunk_graph(run):
+    """The one CUDA graph a run has recorded."""
+    graphs = (run._graphs if hasattr(run, "_graphs")
+              else run.fns.multi_step.graphs)
+    if len(graphs) != 1:
+        raise AssertionError(f"{len(graphs)} graphs recorded, expected 1")
+    return next(iter(graphs.values()))
+
+
+def chunk_case(make, what, per_step, first=0, **run):
+    """``make()`` twice: one run with ``chunk``, one without, from the same
+    state, compared bit for bit.  Before them, one eager step of a third
+    under the sync check.  The chunked run's launches are counted: its
+    ``first`` single steps, the graph's warm-up (one chunk, run for real)
+    and one chunk a replay; the capture launches nothing."""
+    from pion_tpu_torch.microphysics import fused_mpv3 as fm
+
+    probe = make()
+    if hasattr(probe, "_dt_and_advance"):
+        def one():
+            probe._dt_and_advance(list(probe.P), probe.t, probe.last_dt,
+                                  probe._dt_cap(), probe._sources())
+    else:
+        def one():
+            probe.fns.step(probe.P, probe.t, probe.last_dt, probe._dt_cap(),
+                           probe._sources())
+    one()
+    sync_free(one, what)
+    del probe
+    a, b = make(), make()
+    reset_counts()
+    fm.update.launches_seeded = 0
+    t0 = time.perf_counter()
+    a.run(**run)
+    sec = time.perf_counter() - t0
+    counts = read_counts()
+    seeded = fm.update.launches_seeded
+    b.run(**{k: v for k, v in run.items() if k != "chunk"})
+    rec = same_run(a, b, what)
+    k = run["chunk"]
+    # a replay runs all k steps of the body, the last chunk's dropped ones
+    # too
+    body = first + k * (1 + -(-(a.step_count - first) // k))
+    want = {name: n * body for name, n in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"{what}: launch counts {counts}, expected "
+                             f"{want} ({a.step_count} steps, {first} alone, "
+                             f"a warm-up chunk of {k})")
+    if per_step is NG_LAUNCHES and seeded != NG_SEEDED * body:
+        raise AssertionError(f"{what}: {seeded} updates seeded, expected "
+                             f"{NG_SEEDED * body}")
+    g = chunk_graph(a)
+    rec.update(chunk=k, launches=counts, first_run_s=sec,
+               capture_s=g.capture_s, graph_pool_bytes=g.pool_bytes)
+    return rec, a, b
+
+
+def chunk_checks(device):
+    """``run(chunk=k)`` against k single steps, bit for bit (max |diff| = 0
+    over every state, the same ``t`` and step count), on every path: the
+    blast (128^3 float32, k = 5, 10 steps; 64^3 float64), a ``tmax`` that
+    lands inside a chunk (blast 64^3 float64), the H II region (128^3
+    float32, k = 5), the coupled flagship (2 x 128^3 float32: one step
+    alone for the wind's first-step cap, then k = 6; and 2 x 32^3 float64,
+    k = 2).  Returns the records and the float32 runs (chunked, single
+    steps) by path, whose graphs ``chunk_timing`` replays."""
+    from pion_tpu_torch import NGHierarchy, Simulation
+    from pion_tpu_torch.ics import blast_wave
+
+    recs, runs = {}, {}
+
+    def blast(shape, dtype):
+        cfg = main_cfg(shape, dtype)
+        P0 = blast_wave(cfg, B0=(0.1, 0.05, 0.0))
+        return lambda: Simulation(cfg, P0)
+
+    rec, a, b = chunk_case(blast((128,) * 3, "float32"), "blast float32",
+                           BLAST_LAUNCHES, max_steps=10, chunk=5)
+    recs["blast_float32"], runs["blast"] = rec, (a, b, 5, BLAST_LAUNCHES)
+    recs["blast_float64"] = chunk_case(
+        blast((64,) * 3, "float64"), "blast float64", BLAST_LAUNCHES,
+        max_steps=10, chunk=5)[0]
+    make = blast((64,) * 3, "float64")
+    c = make().run(max_steps=7)
+    tmax = c.t + 0.5 * c.last_dt
+    rec = chunk_case(make, "blast float64, tmax inside a chunk",
+                     BLAST_LAUNCHES, tmax=tmax, chunk=5)[0]
+    if not (rec["steps"] % 5 and rec["t"] <= tmax):
+        raise AssertionError(f"tmax {tmax!r} was not reached inside a "
+                             f"chunk: {rec}")
+    recs["blast_float64_tmax"] = dict(rec, tmax=tmax)
+
+    cfg, P0, make_physics = hii_problem(128, "float32")
+    rec, a, b = chunk_case(
+        lambda: Simulation(cfg, P0, physics=make_physics()), "H II float32",
+        HII_LAUNCHES, max_steps=10, chunk=5)
+    recs["hii_float32"], runs["hii"] = rec, (a, b, 5, HII_LAUNCHES)
+
+    for n, dtype, steps, k in ((128, "float32", 7, 6), (32, "float64", 3, 2)):
+        ccfg, states, make_cphys = coupled_problem(n, dtype)
+
+        def make_hier():
+            hier = NGHierarchy(ccfg, 2, physics=make_cphys())
+            hier.set_states(states)
+            return hier
+
+        rec, a, b = chunk_case(make_hier, f"coupled {dtype}", NG_LAUNCHES,
+                               first=1, max_steps=steps, chunk=k)
+        check_hierarchy(a, f"coupled {dtype}, chunked")
+        recs[f"coupled_{dtype}"] = rec
+        if dtype == "float32":
+            runs["coupled"] = (a, b, k, NG_LAUNCHES)
+    return recs, runs
+
+
+def chunk_timing(runs, rounds: int = 4) -> dict:
+    """For each path, in this call: the host clock a step one step at a time
+    and ``chunk`` steps at a time (``rounds`` chunks, the graph recorded
+    already), the device time a step and the kernels a replay launches (the
+    profiler over the same chunks again, from the same state: the step's
+    device work moves as the chemistry stiffens), the device's idle share
+    (1 - device time over the unprofiled host clock), the capture's seconds
+    and the graph pool's bytes.  Each wrapper's
+    launches over the timed chunks must be its launches a step times the
+    steps (replays counted)."""
+    from pion_tpu_torch.microphysics import fused_mpv3 as fm
+
+    out = {}
+    for path, (a, b, k, per_step) in runs.items():
+        g = chunk_graph(a)
+
+        def timed(run, n, chunk=1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run.run(max_steps=run.step_count + n, chunk=chunk)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / n * 1.0e3
+
+        n = rounds * k
+        step_ms = timed(b, n)
+        start = ([x.clone() for x in states_of(a)], a.t, a.step_count,
+                 a.last_dt)
+        reset_counts()
+        chunk_ms = timed(a, n, k)
+        counts = read_counts()
+        want = {name: v * n for name, v in per_step.items()}
+        if counts != want:
+            raise AssertionError(f"{path}: launches over {rounds} replays "
+                                 f"{counts}, expected {want}")
+        P0, a.t, a.step_count, a.last_dt = start
+        a.P = P0 if isinstance(a.P, list) else P0[0]
+        prof = device_time_by_kernel(
+            lambda: a.run(max_steps=a.step_count + n, chunk=k), n)
+        rec = {
+            "chunk": k, "steps": n, "host_ms_per_step_single": step_ms,
+            "host_ms_per_step_chunked": chunk_ms,
+            "device_ms_per_step": prof["device_ms_per_step"],
+            "device_launches_per_replay":
+                prof["device_launches_per_step"] * k,
+            "device_ms_per_step_by_group":
+                prof["device_ms_per_step_by_group"],
+            "wrapper_launches_per_replay": dict(zip(
+                ("sweep_axis", "final_axis", "mpv3_ydot", "mpv3_update",
+                 "mpv3_update_seeded", "octant_trace"), g.per_replay)),
+            "capture_s": g.capture_s, "graph_pool_bytes": g.pool_bytes}
+        if prof["device_ms_per_step"] is not None:
+            rec["device_idle_share_chunked"] = max(
+                0.0, 1.0 - prof["device_ms_per_step"] / chunk_ms)
+        out[path] = rec
+    fm.update.launches_seeded = 0
+    return out
+
+
 def main_path(shape, dtype, steps: int, agree_tol: float, plain_steps: int):
     """The library's main path as a user calls it: ``Simulation(cfg,
     P0).run(max_steps=N)`` on the blast wave.  Returns the phase record and
@@ -1859,8 +2128,7 @@ def main_path(shape, dtype, steps: int, agree_tol: float, plain_steps: int):
         raise AssertionError(f"state shape {tuple(sim.P.shape)}")
     if not bool(torch.isfinite(sim.P).all()):
         raise AssertionError("non-finite values in the state")
-    want = {"sweep_axis": 4 * steps, "final_axis": 2 * steps,
-            "mpv3_update": 0, "mpv3_ydot": 0, "octant_trace": 0}
+    want = {k: v * steps for k, v in BLAST_LAUNCHES.items()}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     mass1 = conservation_totals(sim.P, cfg, sim.geom)["mass"]
@@ -1951,6 +2219,7 @@ def main(argv=None):
                                                        "float32": TOL[torch.float32]})
     w_mp, n_mp, ladder = check_mpv3(device)
     emit("mpv3_checks", cases=n_mp, max_soft_rel_err=w_mp, ladder=ladder,
+         ydot_grid=check_ydot_grid(device),
          tol={"ydot": {str(k).split(".")[-1]: v for k, v in YDOT_TOL.items()},
               "update": {str(k).split(".")[-1]: v
                          for k, v in UPDATE_TOL.items()},
@@ -2011,6 +2280,14 @@ def main(argv=None):
     rec_ng64["kernels_on_this_state"] = measure_ng_physics(
         device, hier64, timed=False)
     emit("ng_path_f64", **rec_ng64)
+    del hier64
+
+    # several steps in one dispatch: each path's chunked run against its
+    # single steps, then both timed in this call
+    rec_chunk, chunk_runs = chunk_checks(device)
+    emit("chunk_checks", cases=rec_chunk)
+    emit("chunk_timing", **chunk_timing(chunk_runs))
+    del chunk_runs
 
     # launches on the main paths: each kernel's count from the run of the
     # path its numbers were measured for (B1 and B2: the blast wave, and B1

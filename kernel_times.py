@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Device times of the sweep kernels (B1, B2), the chemistry update (B3) and
-the point-source trace (B5) on the traffic of the port's three main paths,
+right-hand side (B4) and the point-source trace (B5) on the traffic of the
+port's three main paths,
 and the host's cost of a call of each wrapper, for comparing two versions of
 the port on one card.
 
@@ -26,6 +27,13 @@ float32 it times:
   clusters running the same 192 (centre) or 381 (corner) rounds of the
   cluster barrier and nothing else, and the same rounds with a relaxed
   arrive;
+- B4 on the H II state (one mfion source, no UV); where the port has
+  ``fused_mpv3.ydot_plan``, also its plan and the probes of B4's design,
+  built from ``csrc/mpv3.cu`` with ``-DPION_YDOT_PROBE``: (a) the first
+  design (one block of 256 threads a tile of 1024 cells, the tables staged
+  by every block, four cells a thread one after another) and (b) that grid
+  doing only its table staging and barrier.  (c), the same cells with the
+  tables read in place, is B4 itself since its redesign;
 - B3 on the H II state (the step that state takes), on a quiescent state
   (Euler only), on a developed ionisation front, and on both levels of the
   coupled state (seeded with ``f0`` at half the step, unseeded at the step),
@@ -126,6 +134,7 @@ def main(argv=None):
     front = b3(mp, *mp.local_state(Pf), sim.physics.raytrace(Pf),
                float(sim.fns.calc_dt(Pf)))
     emit("hii_update", run_state=run_state, quiescent=quiescent, front=front)
+    emit("hii_ydot", **ydot_times(cs, sim, torch))
     emit("trace", **trace_times(cs, sim, torch))
     del sim
 
@@ -203,6 +212,55 @@ def trace_times(cs, sim, torch) -> dict:
             # the same rounds with a relaxed arrive: what the release costs
             rec["barrier_relaxed_ms"] = cs.time_ms(lambda: floor(1), 20)
         out[name] = rec
+    return out
+
+
+def ydot_times(cs, sim, torch) -> dict:
+    """B4 on the H II state: ms a call of the wrapper; with ``ydot_plan``,
+    the plan, the kernel launched alone, and the two probes of its first
+    design, the full one held against the wrapper's result."""
+    from pion_tpu_torch import _build
+    from pion_tpu_torch.microphysics import fused_mpv3 as fm
+
+    mp, P = sim.physics.mp, sim.P
+    omx, E, nH = mp.local_state(P)
+    rt = sim.physics.raytrace(P)
+    got = fm.ydot(mp, omx, E, nH, rt)
+    out = {"cells": omx.numel(), "sources": len(fm._entries(rt)),
+           "ms": cs.time_ms(lambda: fm.ydot(mp, omx, E, nH, rt), 20)}
+    if not hasattr(fm, "ydot_plan"):
+        return out
+    out["plan"] = dict(fm.ydot_plan(omx.numel()))
+    lib = _build.get_probe_lib("ydot_probe")
+    main_lib, head, tail, keep = fm._launch_args(mp, omx, E, nH, rt)
+    d_o, d_e = torch.empty_like(omx), torch.empty_like(omx)
+
+    def kernel():
+        err = main_lib.pion_mpv3_ydot(
+            *head, d_o.data_ptr(), d_e.data_ptr(), *tail,
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"ydot kernel: CUDA error {err}")
+
+    # the kernel alone, its inputs made once: the wrapper also writes
+    # Ndot/Vshell out as a plane and copies the tau table at every call
+    out["kernel_ms"] = cs.time_ms(kernel, 20)
+
+    def probe(which):
+        err = lib.pion_mpv3_ydot_probe(
+            which, *head, d_o.data_ptr(), d_e.data_ptr(), *tail,
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"ydot probe {which}: CUDA error {err}")
+
+    probe(0)
+    torch.cuda.synchronize()
+    out["first_design"] = {
+        "ms": cs.time_ms(lambda: probe(0), 20),
+        "soft_rel_diff_to_ydot": max(float(cs.soft_err(a, b))
+                                     for a, b in zip((d_o, d_e), got))}
+    out["staging_only"] = {"ms": cs.time_ms(lambda: probe(1), 20)}
+    del keep
     return out
 
 

@@ -11,7 +11,8 @@ package imports on a machine without a CUDA toolkit.
 One library per translation unit and scalar type: ``sweep.cu`` once per
 (scalar type, Riemann solver), ``mpv3.cu`` and ``trace.cu`` once per scalar
 type.  :func:`load_all` starts every missing build at once, one ``nvcc``
-process each.  The timing probes of ``PROBES`` are built only when a timing
+process each.  The timing probes of ``PROBES`` (``trace_floor.cu``, and
+``mpv3.cu`` with its B4 probes compiled in) are built only when a timing
 script asks for one (:func:`get_probe_lib`): no path launches them.
 """
 from __future__ import annotations
@@ -49,6 +50,7 @@ VARIANTS: Dict[Tuple[str, ...], Tuple[str, Tuple[str, ...]]] = {
 # timing probes: key -> (translation unit, definitions), as VARIANTS
 PROBES: Dict[Tuple[str, ...], Tuple[str, Tuple[str, ...]]] = {
     ("trace_floor",): ("trace_floor.cu", ()),
+    ("ydot_probe",): ("mpv3.cu", (_REAL["float32"], "-DPION_YDOT_PROBE")),
 }
 _UNITS = {**VARIANTS, **PROBES}
 
@@ -64,7 +66,8 @@ _SWEEP_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
 _FINAL_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                _I, _I, _D, _D, _D, _D, _D, _D, _P]
 _DP = ctypes.POINTER(ctypes.c_double)
-_MP_HEAD = [_P, _P, _P, _P, _I, _P, _P, _P]           # cells, sources, tables
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_MP_HEAD = [_P, _P, _P, _PP, _I, _P, _P, _P]          # cells, sources, tables
 _MP_TAIL = [_L, _I, _I, _DP, _I, _I]                  # n, modes, constants
 _YDOT_ARGS = _MP_HEAD + [_P, _P] + _MP_TAIL + [_P]
 _UPDATE_ARGS = (_MP_HEAD + [_P, _P, _P, _P, _P, _P] + _MP_TAIL
@@ -79,9 +82,11 @@ _FUNCTIONS = {
                 "pion_mpv3_update": _UPDATE_ARGS},
     "trace.cu": {"pion_octant_trace": _TRACE_ARGS},
 }
-# and of each timing probe
+# and of each timing probe, by its key in PROBES
 _PROBE_FUNCTIONS = {
-    "trace_floor.cu": {"pion_trace_barrier_floor": [_I, _I, _I, _I, _P]},
+    ("trace_floor",): {"pion_trace_barrier_floor": [_I, _I, _I, _I, _P]},
+    ("ydot_probe",): {"pion_mpv3_ydot_probe": [_I] + _MP_HEAD + [_P, _P]
+                      + _MP_TAIL + [_P]},
 }
 
 _libs: Dict[Tuple[str, ...], ctypes.CDLL] = {}
@@ -155,9 +160,11 @@ def parse_ptxas(log: str) -> list:
     return out
 
 
-def _bind(path: str, unit: str) -> ctypes.CDLL:
+def _bind(path: str, key: Tuple[str, ...]) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
-    for name, argtypes in {**_FUNCTIONS, **_PROBE_FUNCTIONS}[unit].items():
+    unit = _UNITS[key][0]
+    for name, argtypes in {**_FUNCTIONS.get(unit, {}),
+                           **_PROBE_FUNCTIONS.get(key, {})}.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = _I
@@ -211,7 +218,7 @@ def load_all() -> dict:
     for key in keys:
         so, log = _paths(key, digest)
         if key not in _libs:
-            _libs[key] = _bind(so, VARIANTS[key][0])
+            _libs[key] = _bind(so, key)
         if os.path.exists(log):
             with open(log) as f:
                 _info["_".join(key)] = parse_ptxas(f.read())
@@ -253,5 +260,5 @@ def get_probe_lib(name: str) -> ctypes.CDLL:
     if key not in _libs:
         digest = _source_hash()
         _compile([key], digest)
-        _libs[key] = _bind(_paths(key, digest)[0], PROBES[key][0])
+        _libs[key] = _bind(_paths(key, digest)[0], key)
     return _libs[key]

@@ -10,13 +10,17 @@
 // What they compute is MPv3.ydot term by term (reference: MPv3.cpp:1619-1936)
 // and the integrator of update_pallas.  What is not carried over is the TPU's
 // tiling: the hat-basis matrix products that stood in for table lookups are
-// plain reads here -- the rate curves (11 x NT) and, where they fit beside them
-// in the 48 KB a block gets without opting in, the per-source tau tables
-// (K x 4 x NTAU) are staged in shared memory once a block; tau tables that do
-// not fit are read in place (L1/L2).  The bin index is arithmetic (the grids
+// plain reads here.  The update's kernels stage the rate curves (11 x NT)
+// and, where they fit beside them in the 48 KB a block gets without opting
+// in, the per-source tau tables (K x 4 x NTAU) in shared memory once a block;
+// tau tables that do not fit are read in place (L1/L2), and ydot_kernel reads
+// all of them in place.  The bin index is arithmetic (the grids
 // are log-uniform), and a lookup is two reads.  The number of ionizing sources
-// K is a run-time loop over a table of plane pointers in device memory, so a
-// launch takes any K.
+// K is a run-time loop over the sources' plane pointers, up to MAX_SRC = 16.
+// The pointers travel by value in the launch's parameters (a __grid_constant__
+// struct, read in place through the constant cache), so a launch reads nothing
+// the host has to copy to the card first, and a CUDA graph of the step
+// replays it as it was recorded.
 //
 // The integrator's unit of adaptivity is a TILE of 1024 consecutive cells of
 // the flattened grid, and must stay so: a tile takes its substep count from
@@ -35,16 +39,32 @@
 // (a cell sitting exactly on MIN_NEUTRAL is common), integer bin indices carry
 // none.
 //
-// What bounds them.  ydot_kernel and a tile without the ladder: bytes (8
-// planes read, 2 written for one source; ~250 flops and ~12 transcendentals a
-// cell are well under the card's rate for that many bytes).  A tile that runs
-// the ladder: operations -- up to 32 substeps x 8 Newton iterations of a
+// What bounds them.  ydot_kernel and a tile without the ladder: bytes by the
+// roofline count (8 planes read, 2 written for one source; ~250 flops and ~12
+// transcendentals a cell are under the card's rate for that many bytes), but
+// in fact the issue of that arithmetic: without --use_fast_math each IEEE
+// exp, log, pow and division is tens of instructions.  A tile that runs the
+// ladder: operations -- up to 32 substeps x 8 Newton iterations of a
 // dual-number evaluation (about three times the flops of ydot) for each of its
 // 1024 cells -- but in fact latency: each Newton iteration of a tile is one
 // dependent chain of evaluation, clamp and tile-wide reduction, and a state
 // typically sends a few dozen of its 2048 tiles (128^3) through the ladder.
 //
-// What the design does about it.  The update is two launches.  Pass 1, one
+// What the design does about it.  Measured on an H100 (kernel_times.py,
+// 128^3 float32, one source): the first design of ydot_kernel -- every one
+// of its 2048 blocks staging the tables before its 1024 cells -- takes 0.075
+// ms with the source pointers by value, its staging and barrier alone
+// 0.0066, its cells alone with the tables read in place 0.070: the kernel is
+// bound by issuing its IEEE arithmetic (~1000 instructions a cell), not by
+// bytes or by the staging.  Trials whose code is not kept ran slower or
+// gained little: persistent grids that staged once a block and strode over
+// the tiles (their walk and static share of tiles cost more than the
+// staging), four cells a thread read first into registers by 128-bit loads
+// (80 registers), and source 0's inputs held in registers with only the two
+// tau-table curves the evaluation reads (a few per cent, for a template
+// parameter in ydot_cell, which the ladder shares).  So ydot_kernel keeps
+// one block a tile and stages nothing: it reads the tables in place.  The
+// update is two launches.  Pass 1, one
 // block of 256 threads a tile (4 cells a thread), evaluates ydot (or reads
 // the caller's f0), forms the Euler result and the tile's stiffness (a block
 // reduction), writes every cell it owns the result of, and appends each tile
@@ -86,6 +106,7 @@ constexpr int CPT = TILE / THREADS;
 constexpr int CLUSTER = 4;     // blocks of the cluster that runs one tile's ladder
 constexpr int LTHREADS = TILE / CLUSTER;   // one cell a thread there
 constexpr int HOIST = 4;       // sources whose inputs are kept through the ladder
+constexpr int MAX_SRC = 16;    // ionizing sources a launch takes
 constexpr int NCURVE = 10;     // temperature curves after the grid row
 
 constexpr double MIN_NEUTRAL = 1.0e-20;
@@ -215,10 +236,10 @@ struct Params {
   const R* omx;
   const R* E;
   const R* nH;
-  // device array of 4 pointers a source: the planes of the column to the
-  // cell's entry, of the path length through the cell and of Ndot/Vshell
-  // (mono) or scale/Vshell (mfion), then the (4, NTAU) log10 rate tables
-  const R* const* src;
+  // 4 pointers a source: the planes of the column to the cell's entry, of the
+  // path length through the cell and of Ndot/Vshell (mono) or scale/Vshell
+  // (mfion), then the (4, NTAU) log10 rate tables
+  const R* src[4 * MAX_SRC];
   int stage_tau;                   // the tau tables fit in shared memory
   const R* g0uv;
   const R* g0ir;
@@ -440,9 +461,36 @@ __device__ R block_max(R v, R* scratch) {
 // ---------------------------------------------------------------------------
 // B4: ydot over the grid
 // ---------------------------------------------------------------------------
+// One block a tile of 1024 cells, thread r the cells r + j THREADS (j < CPT),
+// one after another.  Nothing is staged: the temperature curves and the tau
+// tables are read in place, through L1.
 template <class R, int ION, int UV>
 __global__ void __launch_bounds__(THREADS)
-    ydot_kernel(Params<R> p, R* __restrict__ out_o, R* __restrict__ out_e) {
+    ydot_kernel(const __grid_constant__ Params<R> p, R* __restrict__ out_o,
+                R* __restrict__ out_e) {
+  const long base = (long)blockIdx.x * TILE + threadIdx.x;
+#pragma unroll 1
+  for (int j = 0; j < CPT; ++j) {
+    const long idx = base + (long)j * THREADS;
+    if (idx >= p.n) break;
+    R od, ed;
+    const CellIn<R> none{};
+    ydot_cell<R, R, ION, UV, false>(p, p.t1, nullptr, idx, true, p.omx[idx], p.E[idx],
+                                    p.nH[idx], none, od, ed);
+    out_o[idx] = od;
+    out_e[idx] = ed;
+  }
+}
+
+#ifdef PION_YDOT_PROBE
+// Timing probes of B4's first design (kernel_times.py), built only into the
+// probe library: one block a tile, four cells a thread one after another,
+// the tables staged in shared memory by every block; and that design's
+// staging and barrier alone.
+template <class R, int ION, int UV>
+__global__ void __launch_bounds__(THREADS)
+    ydot_tile_probe_kernel(const __grid_constant__ Params<R> p, R* __restrict__ out_o,
+                           R* __restrict__ out_e) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   R* s_t1 = reinterpret_cast<R*>(smem_raw);
   R* s_tau = s_t1 + (NCURVE + 1) * p.nt;
@@ -460,6 +508,18 @@ __global__ void __launch_bounds__(THREADS)
     out_e[idx] = ed;
   }
 }
+
+template <class R>
+__global__ void __launch_bounds__(THREADS)
+    ydot_stage_probe_kernel(const __grid_constant__ Params<R> p, R* __restrict__ sink) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  R* s_t1 = reinterpret_cast<R*>(smem_raw);
+  R* s_tau = s_t1 + (NCURVE + 1) * p.nt;
+  stage_tables(p, s_t1, s_tau, ION_MFION);
+  // a value no table holds: the staging is kept, nothing is written
+  if (s_t1[threadIdx.x] == R(-1.2345e30)) sink[blockIdx.x] = s_tau[threadIdx.x];
+}
+#endif
 
 // Largest value over a cluster of CLUSTER blocks, NaN handed on; every thread
 // of the cluster gets it, from the same values in the same order, so every
@@ -503,7 +563,8 @@ struct Ladder {
 // ---------------------------------------------------------------------------
 template <class R, int ION, int UV>
 __global__ void __launch_bounds__(THREADS)
-    update_euler_kernel(Params<R> p, const R* __restrict__ dt_ptr, const R* __restrict__ f0o,
+    update_euler_kernel(const __grid_constant__ Params<R> p, const R* __restrict__ dt_ptr,
+                        const R* __restrict__ f0o,
                         const R* __restrict__ f0e, R* __restrict__ out_o, R* __restrict__ out_e,
                         Ladder<R> lad, int* __restrict__ stats) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -578,7 +639,8 @@ __global__ void __launch_bounds__(THREADS)
 // ---------------------------------------------------------------------------
 template <class R, int ION, int UV>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(LTHREADS)
-    update_ladder_kernel(Params<R> p, const R* __restrict__ dt_ptr, int n_sub, int n_newton,
+    update_ladder_kernel(const __grid_constant__ Params<R> p, const R* __restrict__ dt_ptr,
+                         int n_sub, int n_newton,
                          R tol, R* __restrict__ out_o, R* __restrict__ out_e, Ladder<R> lad,
                          int* __restrict__ stats) {
   const int listed = *lad.count;
@@ -673,13 +735,13 @@ using namespace pion;
 
 // consts: gm1, kB, n_ion, n_elec, Z, Tmin, Tmax, lt0, inv_dlt, ltau0,
 // inv_dltau, tau_lo, tau_hi, mono_frac (14 doubles on the host).
-// srcs: 4*K device pointers in device memory, source by source: tau0, ds,
-// nvsv, tau table (null unless mfion).
+// srcs: a host array of 4*K device pointers, source by source: tau0, ds,
+// nvsv, tau table (null unless mfion); K at most MAX_SRC.
 static int make_params(Params<real>& p, const void* omx, const void* E, const void* nH,
-                       const void* srcs, int K, const void* g0uv, const void* g0ir,
+                       const void* const* srcs, int K, const void* g0uv, const void* g0ir,
                        const void* t1, long n, int ion, int has_uv, const double* consts, int nt,
                        int ntau) {
-  if (n <= 0 || nt < 2 || K < 0 || ion < ION_NONE || ion > ION_MFION) return 1;
+  if (n <= 0 || nt < 2 || K < 0 || K > MAX_SRC || ion < ION_NONE || ion > ION_MFION) return 1;
   if (ion != ION_NONE && (K < 1 || srcs == nullptr)) return 1;
   if (ion == ION_MFION && ntau < 2) return 1;
   if (has_uv && (g0uv == nullptr || g0ir == nullptr)) return 1;
@@ -704,7 +766,8 @@ static int make_params(Params<real>& p, const void* omx, const void* E, const vo
   p.omx = (const real*)omx;
   p.E = (const real*)E;
   p.nH = (const real*)nH;
-  p.src = (const real* const*)srcs;
+  for (int i = 0; i < 4 * MAX_SRC; ++i)
+    p.src[i] = i < 4 * p.K ? (const real*)srcs[i] : nullptr;
   p.g0uv = (const real*)g0uv;
   p.g0ir = (const real*)g0ir;
   p.t1 = (const real*)t1;
@@ -731,26 +794,54 @@ static size_t table_bytes(Params<real>& p, int ion) {
     if (has_uv) { CALL(ION_MFION, 1); } else { CALL(ION_MFION, 0); } \
   }
 
-// ydot of every cell.  Returns cudaGetLastError() of the launch, or
-// cudaErrorInvalidValue for arguments the kernel does not take (among them
-// temperature curves that do not fit in 48 KB of shared memory).
+// ydot of every cell, one block a tile (fused_mpv3.ydot_plan), the tables
+// read in place.  Returns cudaGetLastError() of the launch, or
+// cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int pion_mpv3_ydot(const void* omx, const void* E, const void* nH,
-                              const void* srcs, int K, const void* g0uv, const void* g0ir,
-                              const void* t1, void* out_o, void* out_e, long n, int ion,
-                              int has_uv, const double* consts, int nt, int ntau, void* stream) {
+                              const void* const* srcs, int K, const void* g0uv,
+                              const void* g0ir, const void* t1, void* out_o, void* out_e, long n,
+                              int ion, int has_uv, const double* consts, int nt, int ntau,
+                              void* stream) {
   Params<real> p;
   if (make_params(p, omx, E, nH, srcs, K, g0uv, g0ir, t1, n, ion, has_uv, consts, nt, ntau))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = table_bytes(p, ion);
-  if (smem == 0) return (int)cudaErrorInvalidValue;
+  p.stage_tau = 0;
   const unsigned blocks = (unsigned)((n + TILE - 1) / TILE);
   cudaStream_t s = (cudaStream_t)stream;
 #define PION_YDOT_CALL(I, U) \
-  ydot_kernel<real, I, U><<<blocks, THREADS, smem, s>>>(p, (real*)out_o, (real*)out_e)
+  ydot_kernel<real, I, U><<<blocks, THREADS, 0, s>>>(p, (real*)out_o, (real*)out_e)
   PION_MP_DISPATCH(PION_YDOT_CALL)
 #undef PION_YDOT_CALL
   return (int)cudaGetLastError();
 }
+
+#ifdef PION_YDOT_PROBE
+// which: 0 the first design of ydot_kernel, 1 its staging and barrier alone
+// (nothing written).
+extern "C" int pion_mpv3_ydot_probe(int which, const void* omx, const void* E, const void* nH,
+                                    const void* const* srcs, int K, const void* g0uv,
+                                    const void* g0ir, const void* t1, void* out_o, void* out_e,
+                                    long n, int ion, int has_uv, const double* consts, int nt,
+                                    int ntau, void* stream) {
+  Params<real> p;
+  if (make_params(p, omx, E, nH, srcs, K, g0uv, g0ir, t1, n, ion, has_uv, consts, nt, ntau))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = table_bytes(p, ion);
+  if (smem == 0 || which < 0 || which > 1) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((n + TILE - 1) / TILE);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (which == 1) {
+    if (ion != ION_MFION) return (int)cudaErrorInvalidValue;
+    ydot_stage_probe_kernel<real><<<blocks, THREADS, smem, s>>>(p, (real*)out_o);
+    return (int)cudaGetLastError();
+  }
+#define PION_PROBE_CALL(I, U) \
+  ydot_tile_probe_kernel<real, I, U><<<blocks, THREADS, smem, s>>>(p, (real*)out_o, (real*)out_e)
+  PION_MP_DISPATCH(PION_PROBE_CALL)
+#undef PION_PROBE_CALL
+  return (int)cudaGetLastError();
+}
+#endif
 
 // The update of every cell by *dt (a device scalar), in two launches: pass 1
 // (one block a tile) and pass 2 (the ladder, `clusters` clusters of CLUSTER
@@ -761,7 +852,7 @@ extern "C" int pion_mpv3_ydot(const void* omx, const void* E, const void* nH,
 // reals of scratch (fused_mpv3.update_plan).  Returns cudaGetLastError() after
 // each launch, or cudaErrorInvalidValue for arguments the kernels do not take.
 extern "C" int pion_mpv3_update(const void* omx, const void* E, const void* nH,
-                                const void* srcs, int K, const void* g0uv,
+                                const void* const* srcs, int K, const void* g0uv,
                                 const void* g0ir, const void* t1, const void* dt, const void* f0o,
                                 const void* f0e, void* out_o, void* out_e, void* stats,
                                 long n, int ion, int has_uv, const double* consts, int nt,

@@ -3,7 +3,8 @@
 Two CUDA kernels (sources in ``csrc/mpv3.cu``) take the place of the two TPU
 kernels of ``pion_tpu/microphysics/pallas_mpv3.py``:
 
-- :func:`ydot` replaces ``ydot_pallas``: the ODE right-hand side of every cell.
+- :func:`ydot` replaces ``ydot_pallas``: the ODE right-hand side of every
+  cell, one block a tile (:func:`ydot_plan`), the tables read in place.
 - :func:`update` replaces ``update_pallas``: every cell advanced by ``dt`` —
   forward Euler where the relative change stays below ``EULER_CUTOFF``, a
   backward-Euler Newton ladder elsewhere.  It launches two kernels
@@ -45,6 +46,8 @@ TILE = 1024      # cells a tile holds: the unit of adaptivity
 EULER_THREADS = 256   # pass 1: one block a tile, four cells a thread
 CLUSTER = 4           # pass 2: blocks of the cluster that runs a tile's ladder
 LADDER_THREADS = TILE // CLUSTER   # one cell a thread there
+YDOT_THREADS = 256    # B4: cells r + 256 j (j < 4) of a tile, thread r
+MAX_SRC = 16          # ionizing sources a launch takes (csrc/mpv3.cu)
 _ION_MODE = {None: 0, "mono": 1, "mfion": 2}
 
 
@@ -75,10 +78,11 @@ def _entries(rt: Optional[Dict]) -> Tuple[Dict, ...]:
 
 def supports(mp, rt: Optional[Dict], dtype) -> bool:
     """Whether the kernels cover this module: a known rate model, float32 or
-    float64.  Any number of ionizing sources in ``rt`` is taken (their planes
-    reach the kernel through a table of pointers)."""
+    float64, and at most ``MAX_SRC`` ionizing sources in ``rt`` (their plane
+    pointers reach the kernel by value in its parameters)."""
     return (mp.mpc.ion_src in _ION_MODE
-            and dtype in (torch.float32, torch.float64))
+            and dtype in (torch.float32, torch.float64)
+            and (mp.mpc.ion_src is None or len(_entries(rt)) <= MAX_SRC))
 
 
 def _planes(mp, rt: Optional[Dict], like: torch.Tensor):
@@ -145,10 +149,10 @@ def _check(name: str, a: torch.Tensor, like: torch.Tensor):
 
 
 def _launch_args(mp, omx, Eint, nH, rt):
-    """What both launches share: checks, the library, flat inputs, the table
-    of source pointers on the device and the host array of constants.  The
-    returned ``keep`` list holds every tensor a pointer was taken of until
-    the launch is queued."""
+    """What both launches share: checks, the library, flat inputs, the host
+    array of source pointers (the kernel gets them by value) and the host
+    array of constants.  The returned ``keep`` list holds every tensor a
+    pointer was taken of until the launch is queued."""
     from .. import _build
     from .mpv3 import E_MONO
 
@@ -175,13 +179,9 @@ def _launch_args(mp, omx, Eint, nH, rt):
         ptrs += [t0.data_ptr(), ds.data_ptr(), nv.data_ptr(),
                  0 if tab is None else tab.data_ptr()]
         flat.append(tab)         # a transposed copy outlives the launch
-    # 4 pointers a source, read by the kernel from device memory; copied
-    # from pinned memory in stream order, so that the host does not wait for
-    # the card
-    ptr_arr = None
-    if ptrs:
-        ptr_arr = torch.tensor(ptrs, dtype=torch.int64).pin_memory().to(
-            omx.device, non_blocking=True)
+    # 4 pointers a source, copied into the launch's parameters: nothing is
+    # copied to the card, so nothing waits and a CUDA graph can record it
+    ptr_arr = (ctypes.c_void_p * max(1, len(ptrs)))(*ptrs)
     mfion = c.ion_src == "mfion"
     consts = (ctypes.c_double * 14)(
         c.gamma - 1.0, K_B, c.n_ion, c.n_elec, c.metallicity,
@@ -191,7 +191,7 @@ def _launch_args(mp, omx, Eint, nH, rt):
         float(TB.hi_xsection_fractional(E_MONO)))
     keep = [flat, srcs, g0uv, g0ir, t1, ptr_arr, consts]
     head = (flat[0].data_ptr(), flat[1].data_ptr(), flat[2].data_ptr(),
-            None if ptr_arr is None else ptr_arr.data_ptr(), len(srcs),
+            ptr_arr if ptrs else None, len(srcs),
             None if g0uv is None else g0uv.data_ptr(),
             None if g0ir is None else g0ir.data_ptr(), t1.data_ptr())
     tail = (omx.numel(), _ION_MODE[c.ion_src], 1 if c.n_diff_srcs else 0,
@@ -226,6 +226,22 @@ def update_plan(n: int, n_sm: int = 132) -> Mapping[str, int]:
         "ladder_clusters": clusters, "pass2_blocks": clusters * CLUSTER,
         "pass2_threads": LADDER_THREADS,
         "ws_int": 1 + tiles + tiles * (TILE // 32), "ws_real": tiles})
+
+
+@functools.lru_cache(maxsize=None)
+def ydot_plan(n: int) -> Mapping[str, int]:
+    """B4's launch for a grid of ``n`` cells: one block of ``YDOT_THREADS``
+    a tile of ``TILE`` cells, block ``b``'s thread ``r`` serving cells
+    ``b TILE + r + YDOT_THREADS j``, ``j`` below ``cells_per_thread`` (the
+    last tile's cells past ``n`` are skipped).  A persistent grid that
+    staged the tables once a block and strode over the tiles ran slower on
+    an H100 than this (``csrc/mpv3.cu``, ``PERF.md``)."""
+    if n < 1:
+        raise ValueError(f"bad cell count {n}")
+    tiles = -(-n // TILE)
+    return MappingProxyType({
+        "tiles": tiles, "blocks": tiles, "threads": YDOT_THREADS,
+        "cells_per_thread": TILE // YDOT_THREADS})
 
 
 @functools.lru_cache(maxsize=None)

@@ -22,10 +22,12 @@ setup_NG_grid.cpp:205-260).
 The methods run eagerly, one PyTorch or CUDA launch after another.  ``dt``,
 the cleaning speed ``ch`` of each level and the half steps stay 0-d tensors
 on the device through the whole recursion; a step reads one number back,
-the ``dt`` it took.  No method writes into a state it was given: the
-corrector reads the start-of-step state again after the predictor, both
-child substeps read the parent's half-step state, and the restriction
-reads the child after both.  The only in-place write is the BC89 addition
+the ``dt`` it took.  ``run(chunk=k)`` takes k steps at a time with the dt
+policy on the device, as one CUDA graph replay on the card
+(:mod:`.graphs`), and reads back once a chunk.  No method writes into a
+state it was given: the corrector reads the start-of-step state again after
+the predictor, both child substeps read the parent's half-step state, and
+the restriction reads the child after both.  The only in-place write is the BC89 addition
 into the corrector's own fresh ``dU``.
 
 Prolongation, restriction, BC89 and the interface slabs are plain PyTorch;
@@ -50,12 +52,9 @@ from .ops.recon import van_albada
 from .ops.sweep import dynamics_dU, interface_flux, interface_flux_pair
 from .ops.timestep import dynamics_dt
 from .sim import _NO_PARAMS
-from .stepper import _scma_flag, cell_advance, glm_psi_damp
+from .stepper import _scma_flag, cell_advance, glm_psi_damp, later, limit_dt
 from .utils import StepLogger, resolve_device
 
-_NO_CHUNK = ("run(chunk>1) batches hierarchy steps into one dispatch; its "
-             "counterpart here is a CUDA graph of the step, which is not "
-             "written yet (ROADMAP.md, queue A item 21)")
 _NO_MESH = ("a hierarchy sharded over several devices is not ported yet "
             "(ROADMAP.md, queue A item 20)")
 
@@ -219,6 +218,8 @@ class NGHierarchy:
         self._ckpt_flip = 0
         self._writer = None
         self._next_optime = None
+        # CUDA graphs of chunks, by K and the layout of the sources' inputs
+        self._graphs: Dict = {}
 
     def set_states(self, states):
         if self.cfg0.mesh == "on" or self.cfg0.halo == "explicit":
@@ -671,7 +672,7 @@ class NGHierarchy:
         if glm:
             Ph = glm_psi_damp(Ph, 0.5 * dt, ch, cfg, geom)
         if phys is not None and phys.winds:
-            Ph = phys.apply_internal_bcs(Ph, t0 + 0.5 * dt)
+            Ph = phys.apply_internal_bcs(Ph, later(t0, 0.5 * dt))
 
         # columns handed to the child (lagged by a half step, like the
         # reference's boundary-data Tau: RT runs before the C2F send,
@@ -743,7 +744,7 @@ class NGHierarchy:
         fine_sums_2 = None
         if level + 1 < self.n_levels:
             fine_sums_2 = self._advance_level(level + 1, 0.5 * dt, Ph,
-                                              tau_child, t0 + 0.5 * dt,
+                                              tau_child, later(t0, 0.5 * dt),
                                               states, sp)
 
         # BC89: correct this level's dU with the fine fluxes
@@ -766,7 +767,7 @@ class NGHierarchy:
                                 phys.mp.set_temp(P_new, cfg.max_temperature,
                                                  cfg), P_new)
         if phys is not None and phys.winds:
-            P_new = phys.apply_internal_bcs(P_new, t0 + dt)
+            P_new = phys.apply_internal_bcs(P_new, later(t0, dt))
 
         # F2C restriction
         if level + 1 < self.n_levels:
@@ -818,18 +819,11 @@ class NGHierarchy:
         time_integrator.cpp:206-243; dt policy per calc_timestep.cpp:219-260
         with the coarse dt slaved to the finest, sim_control_NG.cpp:288-341).
         That ``dt`` is the one value read back from the device."""
-        sp = (self.physics.update_sources(self.t)
-              if self.physics is not None and self.physics.sources else None)
+        sp = self._sources()
         states = list(self.P)
         if dt is None:
-            rt0_map: Dict = {}
-            dtv = self._level_dt(states, sp, rt0_map)
-            if self.last_dt > 0.0:
-                dtv = torch.clamp(
-                    dtv, max=self.cfgs[0].max_dt_growth * self.last_dt)
-            dtv = torch.clamp(dtv, max=self._dt_cap())
-            self._advance_level(0, dtv, t0=self.t, states=states, sp=sp,
-                                rt0_map=rt0_map)
+            states, dtv = self._dt_and_advance(states, self.t, self.last_dt,
+                                               self._dt_cap(), sp)
             dt = float(dtv)
         else:
             self._advance_level(0, dt, t0=self.t, states=states, sp=sp)
@@ -838,6 +832,77 @@ class NGHierarchy:
         self.last_dt = dt
         self.step_count += 1
         return dt
+
+    def _sources(self):
+        """The evolving sources' parameters at ``t`` on the run's device
+        (``Physics.update_sources``, then ``device_sp``), or None."""
+        if self.physics is None or not self.physics.sources:
+            return None
+        return self.physics.device_sp(self.physics.update_sources(self.t),
+                                      self.P[0])
+
+    def _dt_and_advance(self, states, t, last_dt, cap, sp):
+        """The step without its host work: the levels' dt, the growth limit
+        and the cap (``stepper.limit_dt``), and the recursion from level 0.
+        ``t``, ``last_dt`` and ``cap`` are host numbers (``step``) or
+        float64 0-d tensors (a chunk).  Returns the new states and the 0-d
+        ``dt``, unread."""
+        rt0_map: Dict = {}
+        dtv = self._level_dt(states, sp, rt0_map)
+        dtv = limit_dt(dtv, last_dt, cap, self.cfgs[0].max_dt_growth)
+        states = list(states)
+        self._advance_level(0, dtv, t0=t, states=states, sp=sp,
+                            rt0_map=rt0_map)
+        return states, dtv
+
+    def _chunk(self, states, t, last_dt, t_stop, t_target, sp, K: int):
+        """K hierarchy steps on the device (the body of the JAX package's
+        ``_multi_step_fn``, ng.py:854-866).  ``t``, ``last_dt``, ``t_stop``
+        and ``t_target`` are float64 0-d tensors.  A step is live while
+        ``t < t_stop`` (the run loop's test) and is capped at ``t_target -
+        t``; a step that is not live is capped at 1 and dropped, so the
+        states pass through.  Returns the states and ``(2, K)`` float64:
+        dt (0 where not live) and live."""
+        rows = []
+        states = tuple(states)
+        for _ in range(K):
+            live = t < t_stop
+            st, dtv = self._dt_and_advance(
+                states, t, last_dt, torch.where(live, t_target - t, 1.0), sp)
+            states = tuple(torch.where(live, a, b)
+                           for a, b in zip(st, states))
+            dt64 = dtv.to(torch.float64)
+            dt_eff = torch.where(live, dt64, 0.0)
+            t = t + dt_eff
+            last_dt = torch.where(live, dt64, last_dt)
+            rows.append(torch.stack([dt_eff, live.to(torch.float64)]))
+        return states, torch.stack(rows, dim=1)
+
+    def _multi_step_fn(self, K: int):
+        """K hierarchy steps in one dispatch (the JAX package's
+        ``_multi_step_fn``, a ``lax.scan``): ``run_k(states, t, last_dt,
+        t_target, sp=None) -> (states, info)`` with host numbers ``t``,
+        ``last_dt`` and ``t_target``, ``sp`` from :meth:`_sources`, and
+        ``info`` the ``(2, K)`` of :meth:`_chunk`.  On the card with the
+        kernels on, one replay of a CUDA graph recorded at the first call
+        for each K and ``sp`` layout (raising if the recording fails); with
+        ``kernels="off"``, whose plain chemistry reads the host, and on the
+        CPU, eagerly, step after step."""
+        from . import graphs
+
+        def run_k(states, t, last_dt, t_target, sp=None):
+            states = tuple(states)
+            clock = graphs.clock(self.device, t, last_dt, t_target)
+            if self.device.type == "cuda" and self.cfg0.kernels != "off":
+                key = (K, graphs.layout(sp))
+                if key not in self._graphs:
+                    self._graphs[key] = graphs.ChunkGraph(
+                        lambda st, c, s: self._chunk(st, *c, s, K),
+                        (states, clock, sp), name=f"hierarchy step x{K}")
+                return self._graphs[key]((states, clock, sp))
+            return self._chunk(states, *clock, sp, K)
+
+        return run_k
 
     # -- snapshots / restart (reference: every snapshot is a full restart
     # file with one mesh per level, dataIO/dataio_silo.h:67) ---------------
@@ -912,16 +977,43 @@ class NGHierarchy:
     def run(self, tmax: Optional[float] = None, max_steps: int = 10**9,
             chunk: int = 1):
         """Advance to ``tmax`` or by ``max_steps`` hierarchy steps.
-        ``chunk`` > 1 (several steps in one dispatch) raises: it does not
-        step one by one in silence."""
-        if chunk > 1:
-            raise NotImplementedError(_NO_CHUNK)
+
+        ``chunk`` > 1 takes that many steps at a time through
+        :meth:`_multi_step_fn` when there is no timed output and the output,
+        checkpoint and log cadences are multiples of the chunk (the JAX
+        package's gate, ng.py:992-995): one CUDA
+        graph replay on the card, the same steps eagerly with
+        ``kernels="off"`` or on the CPU.  A chunk ends early at ``tmax``;
+        ``max_steps`` is never passed; a run with winds takes its first step
+        alone (the first-step wind cap).  The result equals the run without
+        ``chunk`` bit for bit, but that evolving sources are taken once a
+        chunk (as the JAX package does, ng.py:1005-1007)."""
         tmax = self.cfgs[0].tmax if tmax is None else tmax
         self._tmax = tmax
         logger = StepLogger(self.log_freq)
+        chunked = (chunk > 1 and self.opfreq_time == 0.0
+                   and self.opfreq % chunk == 0
+                   and self.checkpoint_freq % chunk == 0
+                   and (self.log_freq == 0 or self.log_freq % chunk == 0))
         while self.t < tmax * (1 - 1e-12) and self.step_count < max_steps:
-            # fused dt+advance (dt capped to tmax / output times)
-            dt = self.step()
+            if (chunked and self.step_count + chunk <= max_steps
+                    and not (self.step_count == 0
+                             and self.physics is not None
+                             and self.physics.wind_sources)):
+                states, info = self._multi_step_fn(chunk)(
+                    self.P, self.t, self.last_dt, tmax, self._sources())
+                dts, live = info.tolist()     # the chunk's one read-back
+                n = int(sum(live))
+                if n == 0:
+                    break
+                self.P = list(states)
+                for d in dts[:n]:
+                    self.t += d
+                self.last_dt = dt = dts[n - 1]
+                self.step_count += n
+            else:
+                # fused dt+advance (dt capped to tmax / output times)
+                dt = self.step()
             self._maybe_output()
             logger.log(self.step_count, self.t, dt, self.P[0])
         if self.device.type == "cuda":

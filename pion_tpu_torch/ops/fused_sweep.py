@@ -171,10 +171,15 @@ def _el_mask(cfg: SimConfig, scma) -> tuple:
 
 
 def _scalar(x, like: torch.Tensor) -> torch.Tensor:
-    """A number as a 0-d tensor of the state's dtype on its device; the
-    kernels read it through its device pointer.  A tensor that already
-    lives there is passed on untouched, so nothing is read back."""
-    return torch.as_tensor(0.0 if x is None else x, dtype=like.dtype,
+    """A number (None: 0) as a 0-d tensor of the state's dtype on its
+    device; the kernels read it through its device pointer.  A number is
+    written there by a fill kernel, not copied from the host, and a tensor
+    that already lives there is passed on untouched: nothing waits for the
+    card, and a CUDA graph of the step can be recorded."""
+    if not isinstance(x, torch.Tensor):
+        return torch.full((), 0.0 if x is None else float(x),
+                          dtype=like.dtype, device=like.device)
+    return torch.as_tensor(x, dtype=like.dtype,
                            device=like.device).reshape(())
 
 

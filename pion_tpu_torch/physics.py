@@ -176,6 +176,39 @@ class Physics:
             sp[str(i)] = entry
         return sp
 
+    def device_sp(self, sp: Optional[Dict], like: torch.Tensor):
+        """``sp`` of :meth:`update_sources` on ``like``'s device in its
+        dtype, as :meth:`raytrace` reads it inside a step: ``rel`` a 0-d
+        tensor (a fill, not a copy), ``tau_stack`` a tensor kept while
+        ``update_sources`` hands the same table.  None stays None."""
+        if sp is None:
+            return None
+        if not hasattr(self, "_sp_kept"):
+            self._sp_kept = {}
+        out: Dict = {}
+        for k, e in sp.items():
+            d = {"rel": torch.full((), float(e["rel"]), dtype=like.dtype,
+                                   device=like.device)}
+            if "tau_stack" in e:
+                key = (k, like.dtype, like.device)
+                kept = self._sp_kept.get(key)
+                if kept is None or kept[0] is not e["tau_stack"]:
+                    kept = (e["tau_stack"], torch.as_tensor(
+                        e["tau_stack"], dtype=like.dtype, device=like.device))
+                    self._sp_kept[key] = kept
+                d["tau_stack"] = kept[1]
+            out[k] = d
+        return out
+
+    def _static_stack(self, i: int, like: torch.Tensor):
+        """Source ``i``'s own tau table, made once per dtype and device."""
+        key = ("stack", i, like.dtype, like.device)
+        if key not in self._rate_cache:
+            self._rate_cache[key] = torch.as_tensor(
+                self._src_static[i]["stack"], dtype=like.dtype,
+                device=like.device)
+        return self._rate_cache[key]
+
     def _rate_factors(self, i: int, src: Source, Ph):
         """``(nv, sv)`` of source ``i``: Ndot/Vshell and 10^ls/Vshell, from
         the static tracer geometry on the host at float64, cast to the
@@ -205,7 +238,9 @@ class Physics:
         (reference: setup_radiation_source_parameters, MPv3.cpp:1431-1516).
         ``tau_in`` optionally adds per-source upstream column offsets (for
         nested-grid levels whose domain does not reach the ray origin).
-        ``sp``: evolving-source parameters from :meth:`update_sources`."""
+        ``sp``: evolving-source parameters from :meth:`update_sources`, with
+        host numbers and numpy tables, or from :meth:`device_sp`, which
+        copies nothing inside a step."""
         rt: Dict = {}
         g0_uv = None
         g0_ir = None
@@ -216,7 +251,9 @@ class Physics:
         for i, src in enumerate(self.sources):
             rel = None
             if sp is not None and str(i) in sp:
-                rel = float(sp[str(i)]["rel"])
+                rel = sp[str(i)]["rel"]
+                if not isinstance(rel, torch.Tensor):
+                    rel = float(rel)
             dtau = self.dtau_for(src, Ph, self._ds0(i, src, Ph))
             tau, ds, vshell = self.raytracer.trace_source(i, dtau)
             if tau_in is not None and i in tau_in:
@@ -230,7 +267,7 @@ class Physics:
                     sv = sv * rel
                 entry = {"tau0": tau, "ds": ds, "nv": nv, "sv": sv}
                 if static is not None:
-                    entry["tau_stack"] = table(static["stack"])
+                    entry["tau_stack"] = self._static_stack(i, Ph)
                 if sp is not None and str(i) in sp \
                         and "tau_stack" in sp[str(i)]:
                     entry["tau_stack"] = table(sp[str(i)]["tau_stack"])
@@ -308,9 +345,9 @@ class Physics:
         if mode != 0 and not set(mode_procs.get(mode, ())) & set(procs):
             # e.g. mode 4 (recomb only) with a cooling-only module:
             # no applicable process -> no chemistry limit
-            big = torch.tensor(1.0e99 if P.dtype == torch.float64
-                               else float("inf"),
-                               dtype=P.dtype, device=P.device)
+            big = torch.full((), 1.0e99 if P.dtype == torch.float64
+                             else float("inf"), dtype=P.dtype,
+                             device=P.device)
             if with_ydot:
                 # no usable ydot to seed the update with
                 return big, None

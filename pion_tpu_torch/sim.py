@@ -6,8 +6,9 @@ source/sim_control/calc_timestep.cpp:68-260).  The per-step device work is one
 call into :func:`pion_tpu_torch.stepper.make_step_fns`'s ``step``; everything
 here (dt caps, the clock, output cadence, logging) is cheap host logic, and
 the only value read back from the device per step is the pair (dt, dt_raw).
-A nested-grid run is driven by :class:`pion_tpu_torch.ng.NGHierarchy`, not
-from here.
+``run(chunk=k)`` takes k steps at a time through ``multi_step`` (one CUDA
+graph replay on the card) and reads back once a chunk.  A nested-grid run is
+driven by :class:`pion_tpu_torch.ng.NGHierarchy`, not from here.
 """
 from __future__ import annotations
 
@@ -185,11 +186,17 @@ class Simulation:
             raise RuntimeError(f"timestep too small: {dt}")
         return dt
 
+    def _sources(self):
+        """The evolving sources' parameters at ``t`` on the run's device
+        (``Physics.update_sources``, then ``device_sp``), or None."""
+        if self.physics is None or not self.physics.sources:
+            return None
+        return self.physics.device_sp(self.physics.update_sources(self.t),
+                                      self.P)
+
     def step(self) -> float:
-        sp = (self.physics.update_sources(self.t)
-              if self.physics is not None and self.physics.sources else None)
         Pn, dt, dt_raw = self.fns.step(self.P, self.t, self.last_dt,
-                                       self._dt_cap(), sp)
+                                       self._dt_cap(), self._sources())
         # the step's one read-back from the device
         dt, dt_raw = torch.stack([dt, dt_raw]).tolist()
         if dt_raw < self.cfg.min_timestep:
@@ -200,15 +207,60 @@ class Simulation:
         self.step_count += 1
         return dt
 
+    def _chunk(self, chunk: int, tmax: float) -> Optional[float]:
+        """``chunk`` steps through ``multi_step``, the evolving sources
+        taken once for all of them (as the JAX package does); the clock
+        advances by each live step's dt in turn, as ``step`` advances it.
+        Returns the last dt, or None when no step was live."""
+        Pn, info = self.fns.multi_step(self.P, self.t, self.last_dt, tmax,
+                                       self._sources(), K=chunk)
+        dts, raws, live = info.tolist()     # the chunk's one read-back
+        n = int(sum(live))
+        if n and min(raws[:n]) < self.cfg.min_timestep:
+            raise RuntimeError(f"timestep too small: {min(raws[:n])}")
+        if n == 0:
+            return None
+        self.P = Pn
+        for dt in dts[:n]:
+            self.t += dt
+        self.last_dt = dts[n - 1]
+        self.step_count += n
+        return self.last_dt
+
     def run(self, tmax: Optional[float] = None, max_steps: int = 10**9,
-            callback: Optional[Callable] = None):
+            callback: Optional[Callable] = None, chunk: int = 1):
         """Advance to ``tmax`` or by ``max_steps`` steps, whichever comes
-        first."""
+        first.
+
+        ``chunk`` > 1 takes that many steps at a time in one dispatch when
+        nothing has to run on the host between them: no timed output, no
+        callback, and output, checkpoint and log cadences that are multiples
+        of the chunk (the JAX package's gate, sim.py:255-262).  On a CUDA
+        state with the kernels on,
+        one replay of a CUDA graph recorded at the first chunk (raising if
+        the recording fails); with ``kernels="off"`` and on the CPU, the
+        same steps eagerly.  A chunk ends early at ``tmax``; ``max_steps``
+        is never passed (the steps short of a whole chunk go one by one); a
+        run with winds takes its first step alone, for the first-step wind
+        cap.  The result equals the run without ``chunk`` bit for bit, but
+        that evolving sources are taken once a chunk."""
         tmax = self.cfg.tmax if tmax is None else tmax
         self._tmax = tmax
         logger = StepLogger(self.log_freq)
+        chunked = (chunk > 1 and self.opfreq_time == 0.0 and callback is None
+                   and self.opfreq % chunk == 0
+                   and self.checkpoint_freq % chunk == 0
+                   and (self.log_freq == 0 or self.log_freq % chunk == 0))
         while self.t < tmax * (1.0 - 1e-12) and self.step_count < max_steps:
-            dt = self.step()
+            if (chunked and self.step_count + chunk <= max_steps
+                    and not (self.step_count == 0
+                             and self.physics is not None
+                             and self.physics.wind_sources)):
+                dt = self._chunk(chunk, tmax)
+                if dt is None:
+                    break
+            else:
+                dt = self.step()
             self._maybe_output()
             logger.log(self.step_count, self.t, dt, self.P)
             if callback is not None:

@@ -13,6 +13,11 @@ Scheme (OA2): Ph = P + (dt/2)*dU[Ph, 1st-order space];
 ``dt`` and the GLM cleaning speed ``ch`` stay on the device as 0-d tensors
 from the CFL reduction to the last kernel of the step; nothing in this module
 reads them back.
+
+``multi_step`` runs K steps with the dt policy on the device (the clock
+``t`` and ``last_dt`` as float64 0-d tensors): on a CUDA state with the
+kernels on, as one replay of a CUDA graph (:mod:`.graphs`); otherwise
+eagerly, step after step.
 """
 from __future__ import annotations
 
@@ -29,6 +34,32 @@ from .ops.eqns import cons_to_prim, prim_to_cons
 from .ops.sweep import dynamics_dU
 from .ops.timestep import dynamics_dt
 from .utils import resolve_device
+
+
+def later(t, dt):
+    """``t + dt`` as the per-step path forms it.  There ``t`` is a host
+    number and ``dt`` a 0-d tensor, and the sum is a tensor of ``dt``'s
+    dtype (the number rounded to it first); a tensor ``t`` (float64, the
+    clock of a chunk) is rounded the same way, so that a chunk passes the
+    same instant to a time-dependent boundary as the step does."""
+    if isinstance(t, torch.Tensor) and isinstance(dt, torch.Tensor):
+        return t.to(dt.dtype) + dt
+    return t + dt
+
+
+def limit_dt(dt, last_dt, cap, growth: float):
+    """The growth limit, then the cap (reference: calc_timestep.cpp:219-260
+    timestep_checking_and_limiting).  Host numbers ``last_dt`` and ``cap``
+    are rounded to ``dt``'s dtype by ``torch.clamp``; float64 0-d tensors
+    (the clock of a chunk) are rounded the same way, so both give the same
+    ``dt`` bit for bit."""
+    if isinstance(last_dt, torch.Tensor):
+        grown = (growth * last_dt).to(dt.dtype)
+        dt = torch.where(last_dt > 0.0, torch.minimum(dt, grown), dt)
+        return torch.minimum(dt, cap.to(dt.dtype))
+    if last_dt > 0.0:
+        dt = torch.clamp(dt, max=growth * last_dt)
+    return torch.clamp(dt, max=cap)
 
 
 def cell_advance(P, dU, cfg: SimConfig):
@@ -96,7 +127,7 @@ def _partial_update(P, Ph, dt, order_space, cfg, geom, bdata, ch,
             Pnew = torch.where(
                 T > cfg.max_temperature,
                 physics.mp.set_temp(Pnew, cfg.max_temperature, cfg), Pnew)
-        Pnew = physics.apply_internal_bcs(Pnew, t + dt)
+        Pnew = physics.apply_internal_bcs(Pnew, later(t, dt))
     return Pnew
 
 
@@ -127,8 +158,8 @@ class StepFns(NamedTuple):
     advance: callable   # (P, dt, t=0.0, sp=None) -> P_new
     calc_dt: callable   # (P,) -> 0-d tensor, dt before the growth limit
     step: callable      # (P, t, last_dt, dt_cap, sp=None) -> (P_new, dt, dt_raw)
-    # K fused steps in one dispatch; its counterpart here is a CUDA graph,
-    # which is not written yet
+    # (P, t, last_dt, t_target, sp=None, K=16) -> (P_new, info (3, K)):
+    # K steps in one dispatch, the rows of info dt, dt_raw and live
     multi_step: callable = None
 
 
@@ -163,6 +194,13 @@ def make_step_fns(cfg: SimConfig, geom: Geometry,
     def _calc_dt(P):
         return _dt_expr(_state(P))
 
+    def _dt_of(P, sp):
+        rt0 = None
+        if (physics is not None and physics.sources
+                and physics.mp is not None):
+            rt0 = physics.raytrace(P, sp=sp)
+        return _dt_expr(P, rt0), rt0
+
     def _step(P, t, last_dt, dt_cap, sp=None):
         """Fused dt + advance.  The radiation columns through P are traced
         ONCE and shared between the chemistry dt limit and the predictor
@@ -174,17 +212,66 @@ def make_step_fns(cfg: SimConfig, geom: Geometry,
         are host numbers; ``dt`` and ``dt_raw`` come back as 0-d tensors on
         the device, unread."""
         P = _state(P)
-        rt0 = None
-        if (physics is not None and physics.sources
-                and physics.mp is not None):
-            rt0 = physics.raytrace(P, sp=sp)
-        dt_raw = _dt_expr(P, rt0)
-        dt = dt_raw
-        if last_dt > 0.0:
-            dt = torch.clamp(dt, max=cfg.max_dt_growth * last_dt)
-        dt = torch.clamp(dt, max=dt_cap)
+        dt_raw, rt0 = _dt_of(P, sp)
+        dt = limit_dt(dt_raw, last_dt, dt_cap, cfg.max_dt_growth)
         Pn = advance(P, dt, cfg, geom, bdata, physics=physics, t=t, rt0=rt0,
                      sp=sp)
         return Pn, dt, dt_raw
 
-    return StepFns(advance=_advance, calc_dt=_calc_dt, step=_step)
+    def _chunk(P, t, last_dt, t_stop, t_target, sp, K):
+        """K steps of :func:`_step` on the device.  ``t``, ``last_dt``,
+        ``t_stop`` and ``t_target`` are float64 0-d tensors.  A step is live
+        while ``t < t_stop`` (the host loop's test); each applies the growth
+        limit and the cap ``t_target - t``; a step that is not live advances
+        by dt = 1 and is dropped, so the state passes through (the body of
+        the JAX package's ``multi_step``, stepper.py:228-252).  Returns the
+        state and ``(3, K)`` float64: dt (0 where not live), dt_raw, live."""
+        rows = []
+        for _ in range(K):
+            dt_raw, rt0 = _dt_of(P, sp)
+            dt = limit_dt(dt_raw, last_dt, t_target - t, cfg.max_dt_growth)
+            live = t < t_stop
+            Pn = advance(P, torch.where(live, dt, 1.0), cfg, geom, bdata,
+                         physics=physics, t=t, rt0=rt0, sp=sp)
+            P = torch.where(live, Pn, P)
+            dt64 = dt.to(torch.float64)
+            dt_eff = torch.where(live, dt64, 0.0)
+            t = t + dt_eff
+            last_dt = torch.where(live, dt64, last_dt)
+            rows.append(torch.stack([dt_eff, dt_raw.to(torch.float64),
+                                     live.to(torch.float64)]))
+        return P, torch.stack(rows, dim=1)
+
+    def _multi_step(P, t, last_dt, t_target, sp=None, K=16):
+        """K steps in one dispatch (the JAX package's ``multi_step``, a
+        ``lax.scan``).  ``t``, ``last_dt`` and ``t_target`` are host
+        numbers; ``sp`` is taken once for the K steps.  Returns the state
+        and ``(3, K)`` float64 on the state's device: the dt of each step (0
+        once ``t`` has reached ``t_target``), its dt before the limits, and
+        whether it was live.  On a CUDA state with the kernels on, the K
+        steps are one replay of a CUDA graph, captured at the first call for
+        each K and ``sp`` layout (and raising if the capture fails);
+        with ``kernels="off"``, whose plain chemistry reads the host, and on
+        the CPU they run eagerly, step after step."""
+        from . import graphs
+
+        P = _state(P)
+        spt = physics.device_sp(sp, P) if physics is not None else None
+        clock = graphs.clock(P.device, t, last_dt, t_target)
+        if P.is_cuda and cfg.kernels != "off":
+            key = (K, graphs.layout(spt))
+            if key not in recorded:
+                recorded[key] = graphs.ChunkGraph(
+                    lambda P_, c, s: _chunk(P_, *c, s, K),
+                    (P, clock, spt), name=f"step x{K}")
+            return recorded[key]((P, clock, spt))
+        return _chunk(P, *clock, spt, K)
+
+    # the graphs by K and sources' layout; the function does not refer to
+    # itself, so that a run's graphs go with it and not with a later
+    # collection of reference cycles (which might fall inside a capture)
+    recorded: dict = {}
+    _multi_step.graphs = recorded
+
+    return StepFns(advance=_advance, calc_dt=_calc_dt, step=_step,
+                   multi_step=_multi_step)

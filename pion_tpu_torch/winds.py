@@ -90,18 +90,30 @@ def _cos(a):
     return torch.cos(a) if _is_t(a) else float(np.cos(a))
 
 
+# host arrays made into tensors inside a step, kept per dtype and device
+# (with the array itself, so that its id is not taken again): a step copies
+# nothing from the host, and a CUDA graph of several steps can be recorded
+_KEPT: Dict = {}
+
+
+def _kept(a, dtype, device) -> torch.Tensor:
+    key = (id(a), dtype, device)
+    if key not in _KEPT:
+        _KEPT[key] = (a, torch.as_tensor(np.ascontiguousarray(a),
+                                         dtype=dtype, device=device))
+    return _KEPT[key][1]
+
+
 def interp(x, xp, fp):
     """Piecewise-linear interpolation of the table ``(xp, fp)`` at ``x``,
     constant outside the table — ``numpy.interp``.  A host number gives a
     host float (float64); a tensor gives a tensor of its dtype on its
-    device."""
+    device (the table is copied there once and kept)."""
     if not _is_t(x):
         return float(np.interp(x, np.asarray(xp, dtype=np.float64),
                                np.asarray(fp, dtype=np.float64)))
-    xt = torch.as_tensor(np.ascontiguousarray(xp), dtype=x.dtype,
-                         device=x.device)
-    ft = torch.as_tensor(np.ascontiguousarray(fp), dtype=x.dtype,
-                         device=x.device)
+    xt = _kept(xp, x.dtype, x.device)
+    ft = _kept(fp, x.dtype, x.device)
     n = xt.numel()
     i = torch.clamp(torch.searchsorted(xt, x.contiguous(), right=True),
                     1, n - 1)
@@ -156,13 +168,16 @@ def _simpson(lo: float, hi: float, npt: int, like):
     """Nodes, weights and spacing of the fixed-grid Simpson rule; float64
     on the CPU unless ``like`` is a tensor (then its dtype and device)."""
     h = (hi - lo) / npt
-    w = np.full(npt + 1, 2.0)
-    w[1::2] = 4.0
-    w[0] = w[-1] = 1.0
     dtype, device = ((like.dtype, like.device) if _is_t(like)
-                     else (torch.float64, "cpu"))
+                     else (torch.float64, torch.device("cpu")))
+    key = ("simpson", lo, hi, npt, dtype, device)
+    if key not in _KEPT:
+        w = np.full(npt + 1, 2.0)
+        w[1::2] = 4.0
+        w[0] = w[-1] = 1.0
+        _KEPT[key] = (None, torch.as_tensor(w, dtype=dtype, device=device))
     th = lo + h * torch.arange(npt + 1, dtype=dtype, device=device)
-    return th, torch.as_tensor(w, dtype=dtype, device=device), h
+    return th, _KEPT[key][1], h
 
 
 def fn_delta(omega, teff, xi, npt: int = 230):

@@ -13,6 +13,9 @@ decodes a B1/B2 block's index as ``sweep_axis_kernel`` and
   one cluster a tile up to 32 blocks an SM, and every cell of a tile to
   exactly one thread of its cluster; the Euler flags pass 1 writes sit where
   pass 2 reads them.
+- B4: ``fused_mpv3.ydot_plan`` -- block ``b``'s thread ``r`` serves cells
+  ``1024 b + r + 256 j`` -- writes every cell of the grid exactly once and
+  none past its end, the last tile partial.
 - B5: every cell of every face of every shell of every octant belongs to
   exactly one block's share (rows dealt out in turn), at a slot of its own
   within the block's buffer; the faces of the shells cover each octant
@@ -161,6 +164,30 @@ def test_update_plan_rejects_bad_arguments():
         fm.update_plan(0)
     with pytest.raises(ValueError):
         fm.update_plan(10, 0)
+
+
+@pytest.mark.parametrize("n", [1, 3, 255, 256, 257, 1023, 1024, 1025, 2635,
+                               7 * 33 * 41, 531 * 1024 - 3, 128 ** 3])
+def test_ydot_plan_covers_every_cell_once(n):
+    plan = fm.ydot_plan(n)
+    tiles = -(-n // fm.TILE)
+    assert plan["tiles"] == plan["blocks"] == tiles
+    assert plan["threads"] * plan["cells_per_thread"] == fm.TILE
+    # the kernel's cells: block b, thread r, cell j; it stops at the end of
+    # the grid
+    b, j, r = np.meshgrid(np.arange(plan["blocks"]),
+                          np.arange(plan["cells_per_thread"]),
+                          np.arange(plan["threads"]), indexing="ij")
+    cell = (b * fm.TILE + j * plan["threads"] + r).ravel()
+    written = np.bincount(cell[cell < n], minlength=n)
+    assert (written == 1).all() and written.size == n
+    # the last tile holds the rest: n - TILE (tiles - 1) cells
+    assert 1 <= n - fm.TILE * (tiles - 1) <= fm.TILE
+
+
+def test_ydot_plan_rejects_bad_arguments():
+    with pytest.raises(ValueError):
+        fm.ydot_plan(0)
 
 
 @pytest.mark.parametrize("shape", [(37, 40, 48), (20, 36), (15, 7, 9),

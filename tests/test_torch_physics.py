@@ -220,10 +220,18 @@ def test_what_is_not_ported_raises():
     assert phys.apply_internal_bcs(P, 0.0) is P
     lvl = phys.for_level(cfg, geom)
     assert lvl.mp is phys.mp and lvl.raytracer is not phys.raytracer
-    # several steps in one dispatch are not ported: no silent stepping
+    # several steps in one dispatch are ported: a one-level hierarchy with
+    # this physics takes two steps in one chunk as it takes them one by one
     from pion_tpu_torch.ng import NGHierarchy
-    with pytest.raises(NotImplementedError, match="item 21"):
-        NGHierarchy(cfg, 1, device="cpu").run(chunk=4)
+    runs = []
+    for chunk in (1, 2):
+        h = NGHierarchy(cfg, 1, physics=physics_pair([star(CENTRE)])[1],
+                        device="cpu")
+        h.set_states([state(phys.mp.mpc, 35)])
+        runs.append(h.run(max_steps=2, chunk=chunk))
+    assert runs[0].step_count == runs[1].step_count == 2
+    assert runs[0].t == runs[1].t > 0.0
+    assert torch.equal(runs[0].P[0], runs[1].P[0])
     import pion_tpu_torch.microphysics as mph
     with pytest.raises(ImportError, match="ROADMAP"):
         mph.MPv5

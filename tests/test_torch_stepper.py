@@ -125,9 +125,13 @@ def test_no_silent_cpu_run():
     with pytest.raises(RuntimeError, match="CUDA"):
         make_step_fns(cfg, pion_tpu_torch.make_geometry(cfg))
     fns = make_step_fns(cfg, pion_tpu_torch.make_geometry(cfg), device="cpu")
-    assert fns.multi_step is None
     Pn, dt, dt_raw = fns.step(Pt, 0.0, 0.0, 1.0)
     assert dt.ndim == 0 and float(dt) == float(dt_raw) > 0
+    # several steps in one dispatch run eagerly on the CPU: one of them is
+    # the step above, bit for bit
+    Pk, info = fns.multi_step(Pt, 0.0, 0.0, 1.0, K=1)
+    assert torch.equal(Pk, Pn) and Pk.device.type == "cpu"
+    assert info.tolist() == [[float(dt)], [float(dt_raw)], [1.0]]
 
 
 @pytest.mark.parametrize("field,value", [
