@@ -20,6 +20,10 @@ float32 it times:
   state after six steps (three axes, ``scma``) and on level 1 of the coupled
   hierarchy after eight steps (prolonged ghosts, half ``dx``, wind cells);
 - B2 on the blast wave, orders 1 and 2;
+- B1 (axes 0-2) and B2 on the Euler blast wave for each Euler solver of the
+  kernels (HLL, linear, Roe-CV, Roe-PV), and B1 on configuration 1's blast
+  with the MHD linear and Roe-CV solvers (where the port's kernels take
+  them: ``fused_sweep.supports``);
 - B5 on the H II state's optical depths (128^3 float32), the source at the
   centre (the H II and coupled traffic: 65 shells) and in a corner (128
   shells); where the port has ``fused_trace.trace_plan``, also the plan and
@@ -118,6 +122,30 @@ def main(argv=None):
     emit("blast", sweep_axis=b1, sweep_axis_mix_ms=mix(
         {k: v for k, v in b1.items() if not k.startswith("axis0")}),
         final_axis=b2, final_axis_mix_ms=mix(b2))
+
+    # --- the Euler blast with each Euler solver; the MHD linear/Roe blast
+    waves = {}
+    for kw in ([dict(eqn="euler", solver=s) for s in cs.EULER_SOLVERS]
+               + [dict(solver="linear"), dict(solver="roe")]):
+        vcfg = cs.main_cfg((128,) * 3, "float32", **kw)
+        name = cs.variant(vcfg)
+        if not fs.supports(vcfg):
+            waves[name] = None
+            continue
+        vgeom, vP, vpad, vstrong, vdt, vch = cs.kernel_inputs(vcfg, 7, dev)
+        vb1 = cs.sweep_mix_ms(vpad, vcfg, vgeom, (0, 1, 2), vdt, vch, vstrong)
+        rec = {"sweep_axis": vb1, "sweep_axis_mix_ms": mix(
+            {k: v for k, v in vb1.items() if not k.startswith("axis0")})}
+        if vcfg.eqn.value == "euler":
+            vc = [fs.sweep_axis(vpad, vcfg, vgeom, a, 2, vdt, ch=vch)
+                  for a in (1, 2)]
+            vb2 = {f"order{o}": cs.time_ms(
+                lambda: fs.final_axis(vP, vpad, vc, vcfg, vgeom, o, vdt,
+                                      ch=vch), 20) for o in (1, 2)}
+            rec.update(final_axis=vb2, final_axis_mix_ms=mix(vb2))
+        waves[name] = rec
+        del vP, vpad, vstrong
+    emit("solver_variants", **waves)
 
     # --- the H II region after six steps: B1 (scma) and B3
     sim, P0 = cs.hii_run(128, 6)

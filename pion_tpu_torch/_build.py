@@ -9,8 +9,10 @@ loaded from disk.  The build happens at first use, never at import, so the
 package imports on a machine without a CUDA toolkit.
 
 One library per translation unit and scalar type: ``sweep.cu`` once per
-(scalar type, Riemann solver), ``mpv3.cu`` and ``trace.cu`` once per scalar
-type.  :func:`load_all` starts every missing build at once, one ``nvcc``
+(scalar type, Riemann solver) -- HLL, HLLD, linear, Roe-CV and Roe-PV, each
+with the equation systems that run it (HLLD: MHD and GLM only; Roe-PV: Euler
+only, since for MHD it is the linear solver) -- ``mpv3.cu`` and ``trace.cu``
+once per scalar type.  :func:`load_all` starts every missing build at once, one ``nvcc``
 process each.  The timing probes of ``PROBES`` (``trace_floor.cu``, and
 ``mpv3.cu`` with its B4 probes compiled in) are built only when a timing
 script asks for one (:func:`get_probe_lib`): no path launches them.
@@ -30,18 +32,20 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 # every file a translation unit is made of: a change to any rebuilds all
-SOURCES = ("sweep.cu", "riemann_mhd.cuh", "eqns.cuh", "async_copy.cuh", "mpv3.cu",
-           "trace.cu", "trace_floor.cu")
+SOURCES = ("sweep.cu", "riemann_mhd.cuh", "riemann_hydro.cuh", "eqns.cuh",
+           "async_copy.cuh", "mpv3.cu", "trace.cu", "trace_floor.cu")
 
 _REAL = {"float32": "-DPION_REAL=float", "float64": "-DPION_REAL=double"}
 
 # library key -> (translation unit, compile-time definitions).  The sweep
 # libraries keep their two-part key (dtype name, solver name).
+# the solvers of sweep.cu by the value of -DPION_SOLVER (SOLVER_* of eqns.cuh)
+SWEEP_SOLVERS = {"hll": 0, "hlld": 1, "linear": 2, "roe": 3, "roe_pv": 4}
+
 VARIANTS: Dict[Tuple[str, ...], Tuple[str, Tuple[str, ...]]] = {
-    ("float32", "hll"): ("sweep.cu", (_REAL["float32"], "-DPION_SOLVER=0")),
-    ("float32", "hlld"): ("sweep.cu", (_REAL["float32"], "-DPION_SOLVER=1")),
-    ("float64", "hll"): ("sweep.cu", (_REAL["float64"], "-DPION_SOLVER=0")),
-    ("float64", "hlld"): ("sweep.cu", (_REAL["float64"], "-DPION_SOLVER=1")),
+    **{(dtype, solver): ("sweep.cu", (_REAL[dtype], f"-DPION_SOLVER={i}"))
+       for dtype in ("float32", "float64")
+       for solver, i in SWEEP_SOLVERS.items()},
     ("mpv3", "float32"): ("mpv3.cu", (_REAL["float32"],)),
     ("mpv3", "float64"): ("mpv3.cu", (_REAL["float64"],)),
     ("trace", "float32"): ("trace.cu", (_REAL["float32"],)),

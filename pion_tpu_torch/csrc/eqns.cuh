@@ -2,10 +2,11 @@
 // ideal-MHD flux, fast magnetosonic speed, the van Albada limiter.
 //
 // Device-side counterpart of pion_tpu_torch/ops/eqns.py and ops/recon.py for
-// the MHD and GLM-MHD systems.  The scalar type T is float or double; every
-// literal goes through T(...) so that nothing in a float kernel is promoted
-// to double.  Slot layout as in constants.py: the same index holds the same
-// kind of quantity in the primitive and the conserved vector.
+// the Euler, MHD and GLM-MHD systems; the number of base variables NB (5, 8,
+// 9) names the system.  The scalar type T is float or double; every literal
+// goes through T(...) so that nothing in a float kernel is promoted to
+// double.  Slot layout as in constants.py: the same index holds the same kind
+// of quantity in the primitive and the conserved vector.
 #pragma once
 
 namespace pion {
@@ -14,12 +15,17 @@ enum Slot : int { RO = 0, PG = 1, VX = 2, VY = 3, VZ = 4, BX = 5, BY = 6, BZ = 7
 
 constexpr int EQN_MHD = 0;
 constexpr int EQN_GLM = 1;
+constexpr int EQN_EULER = 2;
+// the solvers, as built with -DPION_SOLVER (_build.VARIANTS)
 constexpr int SOLVER_HLL = 0;
 constexpr int SOLVER_HLLD = 1;
+constexpr int SOLVER_LINEAR = 2;   // Euler linear_pv; MHD 7-wave linear
+constexpr int SOLVER_RCV = 3;      // Roe, conserved variables
+constexpr int SOLVER_RPV = 4;      // Euler Roe-mean primitive variables
 
 template <int EQN>
 struct NBase {
-  static constexpr int value = (EQN == EQN_GLM) ? 9 : 8;
+  static constexpr int value = (EQN == EQN_GLM) ? 9 : (EQN == EQN_MHD ? 8 : 5);
 };
 
 // Numbers of a run that the kernels take by value, already in the scalar
@@ -32,8 +38,8 @@ struct Consts {
   T gamma;      // adiabatic index
   T gm1;        // gamma - 1
   T etav;       // Falle artificial-viscosity coefficient
-  T rho_floor;  // BASE_RHO * rho_ref
-  T p_floor;    // 1e-6 * p_ref
+  T rho_floor;  // BASE_RHO * rho_ref (MHD), BASE_RHO (Euler)
+  T p_floor;    // 1e-6 * p_ref (MHD); Euler's floor is 0.01 rho
   T cr;         // glm_cr_factor / dx
 };
 
@@ -69,44 +75,53 @@ __device__ __forceinline__ void prim_to_cons(const T (&P)[NB], T (&U)[NB], T gm1
   const T rho = P[RO];
   const T v2 = sq(P[VX]) + sq(P[VY]) + sq(P[VZ]);
   T E = T(0.5) * rho * v2 + P[PG] / gm1;
-  const T b2 = sq(P[BX]) + sq(P[BY]) + sq(P[BZ]);
-  E = E + T(0.5) * b2;
   U[RO] = rho;
   U[VX] = rho * P[VX];
   U[VY] = rho * P[VY];
   U[VZ] = rho * P[VZ];
-  U[BX] = P[BX];
-  U[BY] = P[BY];
-  U[BZ] = P[BZ];
-  if (NB == 9) {
+  if constexpr (NB >= 8) {
+    const T b2 = sq(P[BX]) + sq(P[BY]) + sq(P[BZ]);
+    E = E + T(0.5) * b2;
+    U[BX] = P[BX];
+    U[BY] = P[BY];
+    U[BZ] = P[BZ];
+  }
+  if constexpr (NB == 9) {
     E = E + T(0.5) * sq(P[NB - 1]);
     U[NB - 1] = P[NB - 1];
   }
   U[PG] = E;
 }
 
-// eqns.cons_to_prim with the density and pressure floors.
+// eqns.cons_to_prim with the density and pressure floors (Euler's pressure
+// floor is 0.01 rho, MHD's a constant).
 template <typename T, int NB>
 __device__ __forceinline__ void cons_to_prim(const T (&U)[NB], T (&P)[NB], const Consts<T>& c) {
   const T rho = U[RO] > T(0.0) ? U[RO] : c.rho_floor;
   const T vx = U[VX] / rho, vy = U[VY] / rho, vz = U[VZ] / rho;
   const T ke = T(0.5) * rho * (vx * vx + vy * vy + vz * vz);
   T e_int = U[PG] - ke;
-  const T b2 = sq(U[BX]) + sq(U[BY]) + sq(U[BZ]);
-  e_int = e_int - T(0.5) * b2;
-  if (NB == 9) {
+  if constexpr (NB >= 8) {
+    const T b2 = sq(U[BX]) + sq(U[BY]) + sq(U[BZ]);
+    e_int = e_int - T(0.5) * b2;
+    P[BX] = U[BX];
+    P[BY] = U[BY];
+    P[BZ] = U[BZ];
+  }
+  if constexpr (NB == 9) {
     e_int = e_int - T(0.5) * sq(U[NB - 1]);
     P[NB - 1] = U[NB - 1];
   }
   const T pg = c.gm1 * e_int;
   P[RO] = rho;
-  P[PG] = pg > T(0.0) ? pg : c.p_floor;
+  if constexpr (NB == 5) {
+    P[PG] = pg > T(0.0) ? pg : T(0.01) * rho;
+  } else {
+    P[PG] = pg > T(0.0) ? pg : c.p_floor;
+  }
   P[VX] = vx;
   P[VY] = vy;
   P[VZ] = vz;
-  P[BX] = U[BX];
-  P[BY] = U[BY];
-  P[BZ] = U[BZ];
 }
 
 // eqns.flux_from_pu, MHD branch: the eight physical slots (F(Bx) = 0; the
@@ -124,6 +139,25 @@ __device__ __forceinline__ void flux_from_pu(const T (&P)[8], const T (&U)[8], T
   f[BX] = T(0.0);
   f[BY] = P[VX] * P[BY] - P[VY] * P[BX];
   f[BZ] = P[VX] * P[BZ] - P[VZ] * P[BX];
+}
+
+// eqns.flux_from_pu, Euler branch.
+template <typename T>
+__device__ __forceinline__ void flux_from_pu(const T (&P)[5], const T (&U)[5], T (&f)[5]) {
+  const T mx = U[VX];
+  f[RO] = mx;
+  f[VX] = mx * P[VX] + P[PG];
+  f[VY] = mx * P[VY];
+  f[VZ] = mx * P[VZ];
+  f[PG] = P[VX] * (U[PG] + P[PG]);
+}
+
+// eqns.flux_from_prim for NB = 5 or 8: the conserved state, then the flux.
+template <typename T, int NB>
+__device__ __forceinline__ void flux_from_prim(const T (&P)[NB], T (&f)[NB], T gm1) {
+  T U[NB];
+  prim_to_cons<T, NB>(P, U, gm1);
+  flux_from_pu(P, U, f);
 }
 
 }  // namespace pion

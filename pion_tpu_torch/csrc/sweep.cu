@@ -1,12 +1,15 @@
-// Fused finite-volume sweep kernels for MHD and GLM-MHD on Cartesian grids.
+// Fused finite-volume sweep kernels for the Euler, MHD and GLM-MHD systems on
+// Cartesian grids.
 //
 // What they replace.  `sweep_axis_kernel` replaces the TPU kernel
 // `_sweep_axis_pallas` (pion_tpu/ops/pallas_sweep.py, tile math in
 // `_axis_tile_math`): for one axis, MUSCL reconstruction -> rotation into the
-// sweep frame -> GLM (Bx, psi) interface solve -> HLL/HLLD Riemann flux with
-// the per-interface HLL fallback -> Falle artificial viscosity -> upwind
-// tracer flux with the sCMA clamp and element renormalisation -> flux
-// divergence -> Powell and GLM source terms; it writes dt*dU for the interior.
+// sweep frame -> GLM (Bx, psi) interface solve -> Riemann flux (Euler: HLL,
+// linear, Roe-CV, Roe-PV, riemann_hydro.cuh; MHD: HLL, HLLD with the
+// per-interface HLL fallback, linear, Roe-CV, riemann_mhd.cuh) -> Falle
+// artificial viscosity -> upwind tracer flux with the sCMA clamp and element
+// renormalisation -> flux divergence -> Powell and GLM source terms (MHD);
+// it writes dt*dU for the interior.
 // `final_axis_kernel` replaces `_final_axis_pallas` (same file): the axis-0
 // sweep followed in the same thread as each cell's flux divergence by U(P) +
 // dU + sum(contribs) -> cons_to_prim with floors -> GLM psi damping; it
@@ -53,14 +56,23 @@
 // handled one at a time after the base variables, so any number of tracers
 // runs without per-thread arrays indexed at run time.
 //
+// The Euler system (5 base variables) runs the same tiles and phases; its
+// interface state P* is the solver's full primitive state (Falle viscosity
+// reads its sound speed), and it has no Powell or GLM sources.  The Euler
+// and the MHD linear/Roe branches are the plain port of their solvers to one
+// interface a thread, on the tiles redesigned for MHD.
+//
 // Built once per (scalar type, solver) with -DPION_REAL and -DPION_SOLVER;
 // equation system, viscosity and order are template parameters selected in the
-// launchers.  dt and c_h are read through device pointers, so the host never
+// launchers.  The HLLD library holds no Euler kernels, the Roe-PV library only
+// Euler ones (for MHD, roe_pv is the linear solver: the host takes the linear
+// library).  dt and c_h are read through device pointers, so the host never
 // has to know them.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "async_copy.cuh"
+#include "riemann_hydro.cuh"
 #include "riemann_mhd.cuh"
 
 #ifndef PION_REAL
@@ -69,6 +81,9 @@
 #ifndef PION_SOLVER
 #define PION_SOLVER 1
 #endif
+// which equation systems this library holds
+#define PION_HAS_EULER (PION_SOLVER != 1)
+#define PION_HAS_MHD (PION_SOLVER != 4)
 
 namespace pion {
 
@@ -131,9 +146,9 @@ __device__ __forceinline__ void load_cell(const Cells& P, int rel, int k, T (&q)
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     q[VX + j] = P(VX + rot(k, j), rel);
-    q[BX + j] = P(BX + rot(k, j), rel);
+    if constexpr (NB >= 8) q[BX + j] = P(BX + rot(k, j), rel);
   }
-  if (NB == 9) q[NB - 1] = P(SI, rel);
+  if constexpr (NB == 9) q[NB - 1] = P(SI, rel);
 }
 
 // Edge states of one variable at the face between cells a and b = a + 1, from
@@ -153,35 +168,36 @@ __device__ __forceinline__ void edge_pair(T qm, T qa, T qb, T qp, const Consts<T
   }
 }
 
-// The interface pipeline for the base variables: sweep-frame flux through the
-// face between the cell `P` is centred on and the next one along the axis.
-template <typename T, int EQN, int SOLVER, int AV, int ORDER, class Cells>
-__device__ __forceinline__ void interface_flux(const Cells& P, int k, const Consts<T>& c, T ch,
-                                               T (&flux)[NBase<EQN>::value]) {
-  constexpr int NB = NBase<EQN>::value;
-  T Pl[NB], Pr[NB];
-  {
-    T qa[NB], qb[NB];
-    load_cell<T, NB>(P, 0, k, qa);
-    load_cell<T, NB>(P, 1, k, qb);
-    if (ORDER == 1) {
+// The Euler system's solve of one interface from its edge states: the
+// configured solver's flux and full interface state P*, and Falle, Komissarov
+// & Joarder (1998) viscosity from the sound speed of P*.
+template <typename T, int SOLVER, int AV>
+__device__ __forceinline__ void euler_flux(const T (&Pl)[5], const T (&Pr)[5], const Consts<T>& c,
+                                           T (&flux)[5]) {
+  T ps[5];
+  riemann_hydro<T, SOLVER>(Pl, Pr, c, flux, ps);
+  if (AV == 1) {
+    const T pref = sqrt(c.gamma * ps[PG] / ps[RO]) * c.etav * ps[RO];
+    T erg = T(0.0);
 #pragma unroll
-      for (int v = 0; v < NB; ++v) { Pl[v] = qa[v]; Pr[v] = qb[v]; }
-    } else {
-      T qm[NB], qp[NB];
-      load_cell<T, NB>(P, -1, k, qm);
-      load_cell<T, NB>(P, 2, k, qp);
-#pragma unroll
-      for (int v = 0; v < NB; ++v) edge_pair<T, ORDER>(qm[v], qa[v], qb[v], qp[v], c, Pl[v], Pr[v]);
+    for (int v = VX; v <= VZ; ++v) {
+      const T mv = pref * (Pr[v] - Pl[v]);
+      flux[v] = flux[v] - mv;
+      erg = erg + mv * ps[v];
     }
+    flux[PG] = flux[PG] - erg;
   }
+}
 
-  // interface uses HLL when either adjacent cell is flagged
-  bool use_hll = false;
-  if (SOLVER == SOLVER_HLLD && P.has_mask()) {
-    use_hll = (P.flag(0) | P.flag(1)) != 0;
-  }
-
+// The MHD and GLM-MHD solve of one interface from its edge states (Pl, Pr
+// are written: the GLM solve replaces Bx): the GLM (Bx, psi) problem, the
+// configured solver with the HLL fallback of flagged interfaces, and Falle
+// viscosity from the slim star state.
+template <typename T, int EQN, int SOLVER, int AV>
+__device__ __forceinline__ void mhd_flux(T (&Pl)[NBase<EQN>::value], T (&Pr)[NBase<EQN>::value],
+                                         bool use_hll, const Consts<T>& c, T ch,
+                                         T (&flux)[NBase<EQN>::value]) {
+  constexpr int NB = NBase<EQN>::value;
   T psistar = T(0.0), bxstar = T(0.0);
   if (EQN == EQN_GLM) {
     // Dedner 2x2 Riemann problem for (Bx, psi)
@@ -235,6 +251,37 @@ __device__ __forceinline__ void interface_flux(const Cells& P, int k, const Cons
 
 #pragma unroll
   for (int v = 0; v < 8; ++v) flux[v] = f8[v];
+}
+
+// The interface pipeline for the base variables: sweep-frame flux through the
+// face between the cell `P` is centred on and the next one along the axis.
+template <typename T, int EQN, int SOLVER, int AV, int ORDER, class Cells>
+__device__ __forceinline__ void interface_flux(const Cells& P, int k, const Consts<T>& c, T ch,
+                                               T (&flux)[NBase<EQN>::value]) {
+  constexpr int NB = NBase<EQN>::value;
+  T Pl[NB], Pr[NB];
+  {
+    T qa[NB], qb[NB];
+    load_cell<T, NB>(P, 0, k, qa);
+    load_cell<T, NB>(P, 1, k, qb);
+    if (ORDER == 1) {
+#pragma unroll
+      for (int v = 0; v < NB; ++v) { Pl[v] = qa[v]; Pr[v] = qb[v]; }
+    } else {
+      T qm[NB], qp[NB];
+      load_cell<T, NB>(P, -1, k, qm);
+      load_cell<T, NB>(P, 2, k, qp);
+#pragma unroll
+      for (int v = 0; v < NB; ++v) edge_pair<T, ORDER>(qm[v], qa[v], qb[v], qp[v], c, Pl[v], Pr[v]);
+    }
+  }
+  if constexpr (EQN == EQN_EULER) {
+    euler_flux<T, SOLVER, AV>(Pl, Pr, c, flux);
+  } else {
+    // interface uses HLL when either adjacent cell is flagged
+    const bool use_hll = SOLVER == SOLVER_HLLD && P.has_mask() && (P.flag(0) | P.flag(1)) != 0;
+    mhd_flux<T, EQN, SOLVER, AV>(Pl, Pr, use_hll, c, ch, flux);
+  }
 }
 
 // Upwind tracer flux on the mass flux (reference: solver_eqn_base.cpp:281-342).
@@ -307,40 +354,43 @@ __device__ __forceinline__ void tracer_updates(const Cells& P, const Layout& L, 
 }
 
 // Powell 8-wave and GLM advective source terms of the cell `P` is centred on,
-// added to its flux divergence `acc` (sweep frame); writes dt * dU.
+// added to its flux divergence `acc` (sweep frame); writes dt * dU.  The
+// Euler system has no sources.
 template <typename T, int EQN, class Cells>
 __device__ __forceinline__ void cell_sources(const Cells& P, int k, const Consts<T>& c, T dt,
                                              T (&acc)[NBase<EQN>::value],
                                              T (&dU)[NBase<EQN>::value]) {
   constexpr int NB = NBase<EQN>::value;
-  // Powell 8-wave source terms (reference: solver_eqn_mhd_adi.cpp:396-443)
-  T Pc[NB];
-  load_cell<T, NB>(P, 0, k, Pc);
-  const int bn = BX + k;
-  const T b_lo = P(bn, -1), b_hi = P(bn, 1);
-  const T dbm = (T(0.5) * (b_lo + Pc[BX]) - T(0.5) * (Pc[BX] + b_hi)) / c.dx;
-  // u.B summed in the order of the unrotated slots x, y, z
-  const int jx = rot(3 - k, 0);  // sweep-frame slot that holds the x component
-  T ub[3];
+  if constexpr (EQN != EQN_EULER) {
+    // Powell 8-wave source terms (reference: solver_eqn_mhd_adi.cpp:396-443)
+    T Pc[NB];
+    load_cell<T, NB>(P, 0, k, Pc);
+    const int bn = BX + k;
+    const T b_lo = P(bn, -1), b_hi = P(bn, 1);
+    const T dbm = (T(0.5) * (b_lo + Pc[BX]) - T(0.5) * (Pc[BX] + b_hi)) / c.dx;
+    // u.B summed in the order of the unrotated slots x, y, z
+    const int jx = rot(3 - k, 0);  // sweep-frame slot that holds the x component
+    T ub[3];
 #pragma unroll
-  for (int j = 0; j < 3; ++j) ub[j] = Pc[VX + j] * Pc[BX + j];
-  const T udotb = jx == 0 ? ub[0] + ub[1] + ub[2]
-                          : (jx == 1 ? ub[1] + ub[2] + ub[0] : ub[2] + ub[0] + ub[1]);
+    for (int j = 0; j < 3; ++j) ub[j] = Pc[VX + j] * Pc[BX + j];
+    const T udotb = jx == 0 ? ub[0] + ub[1] + ub[2]
+                            : (jx == 1 ? ub[1] + ub[2] + ub[0] : ub[2] + ub[0] + ub[1]);
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    acc[VX + j] = acc[VX + j] + dbm * Pc[BX + j];
-    acc[BX + j] = acc[BX + j] + dbm * Pc[VX + j];
+    for (int j = 0; j < 3; ++j) {
+      acc[VX + j] = acc[VX + j] + dbm * Pc[BX + j];
+      acc[BX + j] = acc[BX + j] + dbm * Pc[VX + j];
+    }
+    T pg_new = acc[PG] + dbm * udotb;
+    if (EQN == EQN_GLM) {
+      // GLM advective psi source (reference: solver_eqn_mhd_adi.cpp:782-813)
+      const T s_lo = P(SI, -1), s_hi = P(SI, 1);
+      const T dsm = (T(0.5) * (s_lo + Pc[NB - 1]) - T(0.5) * (Pc[NB - 1] + s_hi)) / c.dx;
+      const T vn = Pc[VX];
+      pg_new = pg_new + dsm * vn * Pc[NB - 1];
+      acc[NB - 1] = acc[NB - 1] + dsm * vn;
+    }
+    acc[PG] = pg_new;
   }
-  T pg_new = acc[PG] + dbm * udotb;
-  if (EQN == EQN_GLM) {
-    // GLM advective psi source (reference: solver_eqn_mhd_adi.cpp:782-813)
-    const T s_lo = P(SI, -1), s_hi = P(SI, 1);
-    const T dsm = (T(0.5) * (s_lo + Pc[NB - 1]) - T(0.5) * (Pc[NB - 1] + s_hi)) / c.dx;
-    const T vn = Pc[VX];
-    pg_new = pg_new + dsm * vn * Pc[NB - 1];
-    acc[NB - 1] = acc[NB - 1] + dsm * vn;
-  }
-  acc[PG] = pg_new;
 #pragma unroll
   for (int v = 0; v < NB; ++v) dU[v] = dt * acc[v];
 }
@@ -476,9 +526,9 @@ sweep_axis_kernel(const T* __restrict__ P, const uint8_t* __restrict__ mask, T* 
 #pragma unroll
     for (int jj = 0; jj < 3; ++jj) {
       out[o + (VX + rot(L.k, jj)) * L.cells] = dU[VX + jj];
-      out[o + (BX + rot(L.k, jj)) * L.cells] = dU[BX + jj];
+      if constexpr (NB >= 8) out[o + (BX + rot(L.k, jj)) * L.cells] = dU[BX + jj];
     }
-    if (NB == 9) out[o + SI * L.cells] = dU[NB - 1];
+    if constexpr (NB == 9) out[o + SI * L.cells] = dU[NB - 1];
     T* outp = out;
     const long cells_n = L.cells;
     tracer_updates<T, EQN, ORDER>(cells, L, c, dt, fm_lo, fm_hi,
@@ -518,9 +568,9 @@ final_axis_kernel(const T* __restrict__ P, const uint8_t* __restrict__ mask,
 #pragma unroll
     for (int jj = 0; jj < 3; ++jj) {
       dU[VX + (K + jj) % 3] = dUr[VX + jj];
-      dU[BX + (K + jj) % 3] = dUr[BX + jj];
+      if constexpr (NB >= 8) dU[BX + (K + jj) % 3] = dUr[BX + jj];
     }
-    if (NB == 9) dU[NB - 1] = dUr[NB - 1];
+    if constexpr (NB == 9) dU[NB - 1] = dUr[NB - 1];
     const long o = o0 + (long)a * tl.os_along + (long)w * tl.os_across;
 
     // U(P) + dU + sum(contribs) -> primitive with floors -> psi damping
@@ -536,7 +586,7 @@ final_axis_kernel(const T* __restrict__ P, const uint8_t* __restrict__ mask,
     }
     T Pn[NB];
     cons_to_prim<T, NB>(U, Pn, c);
-    if (EQN == EQN_GLM) Pn[NB - 1] = Pn[NB - 1] * exp(-dt * ch * c.cr);
+    if constexpr (EQN == EQN_GLM) Pn[NB - 1] = Pn[NB - 1] * exp(-dt * ch * c.cr);
 #pragma unroll
     for (int v = 0; v < NB; ++v) out[o + v * L.cells] = Pn[v];
 
@@ -645,28 +695,42 @@ cudaError_t allow_tile_smem(size_t bytes) {
 using real = PION_REAL;
 using namespace pion;
 
-#define PION_DISPATCH(KERNEL_CALL)                      \
-  if (eqn == EQN_GLM) {                                 \
-    if (av) {                                           \
-      if (order == 2) { KERNEL_CALL(EQN_GLM, 1, 2); }   \
-      else            { KERNEL_CALL(EQN_GLM, 1, 1); }   \
-    } else {                                            \
-      if (order == 2) { KERNEL_CALL(EQN_GLM, 0, 2); }   \
-      else            { KERNEL_CALL(EQN_GLM, 0, 1); }   \
-    }                                                   \
-  } else {                                              \
-    if (av) {                                           \
-      if (order == 2) { KERNEL_CALL(EQN_MHD, 1, 2); }   \
-      else            { KERNEL_CALL(EQN_MHD, 1, 1); }   \
-    } else {                                            \
-      if (order == 2) { KERNEL_CALL(EQN_MHD, 0, 2); }   \
-      else            { KERNEL_CALL(EQN_MHD, 0, 1); }   \
-    }                                                   \
+// The base variables of an equation system, and whether this library holds
+// its kernels.
+inline int nbase_of(int eqn) { return eqn == EQN_GLM ? 9 : (eqn == EQN_MHD ? 8 : 5); }
+inline bool holds(int eqn) {
+  if (eqn == EQN_EULER) return PION_HAS_EULER;
+  return (eqn == EQN_MHD || eqn == EQN_GLM) && PION_HAS_MHD;
+}
+
+#define PION_AV_ORDER(KERNEL_CALL, E)                  \
+  if (av) {                                            \
+    if (order == 2) { KERNEL_CALL(E, 1, 2); }          \
+    else            { KERNEL_CALL(E, 1, 1); }          \
+  } else {                                             \
+    if (order == 2) { KERNEL_CALL(E, 0, 2); }          \
+    else            { KERNEL_CALL(E, 0, 1); }          \
   }
+#if PION_HAS_EULER
+#define PION_CASE_EULER(KERNEL_CALL) \
+  if (eqn == EQN_EULER) { PION_AV_ORDER(KERNEL_CALL, EQN_EULER) } else
+#else
+#define PION_CASE_EULER(KERNEL_CALL)
+#endif
+#if PION_HAS_MHD
+#define PION_CASE_MHD(KERNEL_CALL)                                 \
+  if (eqn == EQN_GLM) { PION_AV_ORDER(KERNEL_CALL, EQN_GLM) }      \
+  else if (eqn == EQN_MHD) { PION_AV_ORDER(KERNEL_CALL, EQN_MHD) } \
+  else
+#else
+#define PION_CASE_MHD(KERNEL_CALL)
+#endif
+#define PION_DISPATCH(KERNEL_CALL) \
+  PION_CASE_EULER(KERNEL_CALL) PION_CASE_MHD(KERNEL_CALL) { return (int)cudaErrorInvalidValue; }
 
 // One axis's dt*dU.  P: padded state (nvar, [nz+4,] ny+4, nx+4); mask: padded
 // per-cell flags as bytes, or null; out: (nvar, [nz,] ny, nx).  eqn: 0 MHD,
-// 1 GLM.  tile_t, tile_w: cells along and pencils across a block's tile
+// 1 GLM, 2 Euler.  tile_t, tile_w: cells along and pencils across a block's tile
 // (fused_sweep.sweep_plan).  Returns cudaGetLastError() of the launch, or
 // cudaErrorInvalidValue for arguments no instantiation covers and tiles
 // whose shared memory exceeds what a block can have.
@@ -677,13 +741,12 @@ extern "C" int pion_sweep_axis(const void* P, const void* mask, void* out, const
                                double gamma, double etav, double rho_floor, double p_floor,
                                double cr, void* stream) {
   if ((ndim != 2 && ndim != 3) || axis < 0 || axis >= ndim || (order != 1 && order != 2) ||
-      (eqn != EQN_MHD && eqn != EQN_GLM) || nvar < (eqn == EQN_GLM ? 9 : 8) || nvar > 64 ||
-      tile_t < 1 || tile_w < 1) {
+      !holds(eqn) || nvar < nbase_of(eqn) || nvar > 64 || tile_t < 1 || tile_w < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const Layout L = make_layout(ndim, nz, ny, nx, axis, nvar, scma, el_mask);
   const Tiling tl = make_tiling(L, tile_t, tile_w);
-  const size_t smem = tile_bytes(nvar, eqn == EQN_GLM ? 9 : 8, order, tile_t, tile_w,
+  const size_t smem = tile_bytes(nvar, nbase_of(eqn), order, tile_t, tile_w,
                                  mask != nullptr, sizeof(real));
   const long nblocks = (long)tl.n_ta * tl.n_tw * tl.n_third;
   if (smem > SMEM_MAX || nblocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
@@ -711,14 +774,13 @@ extern "C" int pion_final_axis(const void* P, const void* mask, const void* P_in
                                int nz, int ny, int nx, int nvar, int eqn, int av, int order,
                                int tile_t, int tile_w, double dx, double gamma, double etav,
                                double rho_floor, double p_floor, double cr, void* stream) {
-  if ((ndim != 2 && ndim != 3) || (order != 1 && order != 2) ||
-      (eqn != EQN_MHD && eqn != EQN_GLM) || nvar < (eqn == EQN_GLM ? 9 : 8) || nvar > 64 ||
-      tile_t < 1 || tile_w < 1) {
+  if ((ndim != 2 && ndim != 3) || (order != 1 && order != 2) || !holds(eqn) ||
+      nvar < nbase_of(eqn) || nvar > 64 || tile_t < 1 || tile_w < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const Layout L = make_layout(ndim, nz, ny, nx, 0, nvar, 0, 0ull);
   const Tiling tl = make_tiling(L, tile_t, tile_w);
-  const size_t smem = tile_bytes(nvar, eqn == EQN_GLM ? 9 : 8, order, tile_t, tile_w,
+  const size_t smem = tile_bytes(nvar, nbase_of(eqn), order, tile_t, tile_w,
                                  mask != nullptr, sizeof(real));
   const long nblocks = (long)tl.n_ta * tl.n_tw * tl.n_third;
   if (smem > SMEM_MAX || nblocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;

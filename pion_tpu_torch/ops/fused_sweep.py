@@ -28,10 +28,16 @@ multiplies the slopes by ``del_n``/``del_p``; the kernels divide by the
 constant ``dx`` and use ``+-dx/2``.  Tests hold them at ``rtol=1e-10`` in
 float64.
 
-Scope (:func:`supports`): Cartesian 2D and 3D, MHD and GLM-MHD, the HLL and
-HLLD solvers (HLLD with or without the fallback mask), Falle viscosity or
-none, any number of tracers up to slot 63, sCMA off, on, or with element
-slots, orders 1 and 2, float32 and float64.
+Scope (:func:`supports`, the Cartesian scope of the Pallas gate
+``pallas_sweep.supports``): Cartesian 2D and 3D; the Euler system with the
+HLL, linear (``linear_pv``), Roe conserved-variable and Roe-mean
+primitive-variable solvers; MHD and GLM-MHD with HLL, HLLD (with or without
+the fallback mask), linear and Roe conserved-variable (``roe_pv`` runs the
+linear solver for MHD, as in the reference); Falle viscosity or none, any
+number of tracers up to slot 63, sCMA off, on, or with element slots, orders
+1 and 2, float32 and float64.  The other solvers (``lf``, ``exact``,
+``hybrid``, ``fvs``) lie outside it, as they lie outside the Pallas gate:
+the stepper routes them to the plain sweep by configuration.
 """
 from __future__ import annotations
 
@@ -63,12 +69,26 @@ def supports(cfg: SimConfig) -> bool:
     return (
         cfg.coords is Coord.CARTESIAN
         and cfg.ndim in (2, 3)
-        and cfg.eqn in (Eqn.MHD, Eqn.GLM)
-        and cfg.solver in (Solver.HLL, Solver.HLLD)
+        and (cfg.solver in (Solver.HLL, Solver.LINEAR, Solver.RCV,
+                            Solver.RPV)
+             or (cfg.solver is Solver.HLLD and cfg.eqn.is_mhd))
         and cfg.av in (AV.NONE, AV.FALLE)
         and cfg.nvar <= MAX_NVAR
         and cfg.dtype in ("float32", "float64")
     )
+
+
+def kernel_solver(cfg: SimConfig) -> Solver:
+    """The solver the kernels compute for ``cfg``: its own, but ``roe_pv``
+    for MHD and GLM-MHD is the linear solver (reference:
+    ``pallas_sweep.py:220-223``, ``sweep.py:167``)."""
+    if cfg.solver is Solver.RPV and cfg.eqn.is_mhd:
+        return Solver.LINEAR
+    return cfg.solver
+
+
+# equation-system codes of csrc/sweep.cu (EQN_MHD, EQN_GLM, EQN_EULER)
+_EQN_CODE = {Eqn.MHD: 0, Eqn.GLM: 1, Eqn.EULER: 2}
 
 
 def _uses_mask(cfg: SimConfig) -> bool:
@@ -76,29 +96,63 @@ def _uses_mask(cfg: SimConfig) -> bool:
             and cfg.hlld_fallback)
 
 
+# Operations of one interface's Riemann solve, by (Euler?, solver), counted
+# by hand from the formulas of the plain version (an add, multiply, divide,
+# square root, compare-and-select each count one).  Each includes what the
+# solver itself needs of the two sides (conserved states, fluxes, sound or
+# fast speeds); the MHD HLL and HLLD rows share 161 of them (prim_to_cons
+# 2 x 27, flux_from_pu 2 x 33, fast speeds 2 x 18, wave speeds 5).
+_SOLVE_FLOPS = {
+    # Euler: both sides' U and flux 2 x 18; speeds 11; mid flux 35, selects
+    # 10, ustar 30, cons_to_prim with floors 17
+    (True, Solver.HLL): 139,
+    # linear_pv: arithmetic means, p*, v*, rho*, the sampling selects, and
+    # flux_from_prim of the sampled state (18)
+    (True, Solver.LINEAR): 71,
+    # roe_cv: Roe averages and enthalpies 54, both sides' U 24, strengths 32,
+    # eigenvector entries 7, both fluxes 41, 5 waves x 12 of dissipation, p
+    (True, Solver.RCV): 229,
+    # roe_pv: roe_average_state 48, the enthalpy mean again 24, a 13, p* v*
+    # rho* 32, sampling 16, flux_from_prim 18
+    (True, Solver.RPV): 146,
+    (False, Solver.HLL): 161 + 8 + 8 * 11,
+    # star 30, two outer stars 2 x 62, Alfven speeds 10, double star 45,
+    # 2 x 16, assembly 8 x 7
+    (False, Solver.HLLD): 161 + 30 + 2 * 62 + 10 + 45 + 2 * 16 + 8 * 7,
+    # linear: means and betas 35, speeds 50, jumps 10, strengths 91,
+    # eigenvectors 66, P* from the left 154 and from the right 178, floors,
+    # flux_from_prim and prim_to_cons of P* 87
+    (False, Solver.LINEAR): 673,
+    # roe_cv: Roe averages 24, both sides' U 54, enthalpies 22, jumps and X
+    # and dp 42, speeds 65, strengths 81, eigenvectors 144, both fluxes 128,
+    # 7 waves x 16 of dissipation, U of the Roe mean 29
+    (False, Solver.RCV): 725,
+}
+
+
 def flops_per_interface(cfg: SimConfig, order: int) -> int:
-    """Floating-point operations of one interface solve, counted by hand
-    from the formulas of the plain version (an add, multiply, divide,
-    square root, compare-and-select each count one).  Used for the
-    operations side of the kernels' roofline bound."""
+    """Floating-point operations of one interface solve and its share of
+    the cell update, counted by hand from the formulas of the plain version
+    (an add, multiply, divide, square root, compare-and-select each count
+    one); distinct for each (equation system, solver) the kernels run.
+    Used for the operations side of the kernels' roofline bound."""
     nb = cfg.eqn.nbase
+    euler = cfg.eqn is Eqn.EULER
     n = 0
     if order == 2:
         n += cfg.nvar * 29          # 3 differences/dx, 2 limiters, 2 edges
-    n += 2 * 27 + 2 * 33            # prim_to_cons and flux_from_pu, both sides
-    n += 2 * 18 + 5                 # fast speeds and the two wave speeds
-    if cfg.solver is Solver.HLLD:
-        n += 30 + 2 * 62 + 10 + 45 + 2 * 16 + 8 * 7   # star, double-star, assembly
-        if cfg.hlld_fallback:
-            n += 8 + 8 * 11         # the HLL fallback of flagged interfaces
-    else:
-        n += 8 + 8 * 11
+    n += _SOLVE_FLOPS[(euler, kernel_solver(cfg))]
+    if _uses_mask(cfg):
+        n += 8 + 8 * 11             # the HLL fallback of flagged interfaces
     if cfg.eqn is Eqn.GLM:
         n += 14
     if cfg.av is AV.FALLE:
-        n += 5 + 18 + 2 + 3 * 5 + 1 + 2 * 5 + 1
+        # Euler: sound speed of p*, 3 momenta, energy; MHD: fast speed of
+        # the mean, momenta and transverse field of the slim star
+        n += 21 if euler else 5 + 18 + 2 + 3 * 5 + 1 + 2 * 5 + 1
     n += cfg.ntracer * 6
-    n += nb * 3 + 24                # divergence, Powell and GLM sources, dt
+    # divergence and dt; MHD also the Powell and GLM sources
+    n += nb * 3 + (5 if euler else 24)
     return n
 
 
@@ -216,11 +270,15 @@ def _launch_args(Ph_pad, cfg: SimConfig, geom: Geometry, strong):
             raise ValueError("mask must be a contiguous bool tensor of the "
                              "padded spatial shape on the state's device")
         mask_ptr = strong.data_ptr()
-    lib = _build.get_lib(cfg.dtype, cfg.solver.value)
+    lib = _build.get_lib(cfg.dtype, kernel_solver(cfg).value)
     nz, ny, nx = ((1,) + tuple(cfg.shape))[-3:]
     dx = float(geom.dx)
+    # the floors of cons_to_prim: Euler's density floor is BASE_RHO itself
+    # and its pressure floor 0.01 rho (in the kernel)
+    euler = cfg.eqn is Eqn.EULER
     consts = (dx, float(cfg.gamma), float(cfg.etav),
-              BASE_RHO * cfg.rho_ref, 1.0e-6 * cfg.p_ref,
+              BASE_RHO if euler else BASE_RHO * cfg.rho_ref,
+              0.0 if euler else 1.0e-6 * cfg.p_ref,
               cfg.glm_cr_factor / dx)
     # ``strong`` is returned so that it outlives the launch in the caller
     return lib, mask_ptr, strong, (nz, ny, nx), consts
@@ -257,7 +315,7 @@ def sweep_axis(Ph_pad: torch.Tensor, cfg: SimConfig, geom: Geometry,
     err = lib.pion_sweep_axis(
         Ph_pad.data_ptr(), mask_ptr, out.data_ptr(), dt_t.data_ptr(),
         ch_t.data_ptr(), cfg.ndim, nz, ny, nx, axis, cfg.nvar,
-        1 if cfg.eqn is Eqn.GLM else 0, 1 if cfg.av is AV.FALLE else 0,
+        _EQN_CODE[cfg.eqn], 1 if cfg.av is AV.FALLE else 0,
         order, clamp, bits, plan["T"], plan["W"], *consts,
         torch.cuda.current_stream(Ph_pad.device).cuda_stream)
     if err != 0:
@@ -312,7 +370,7 @@ def final_axis(P: torch.Tensor, Ph_pad: torch.Tensor,
     err = lib.pion_final_axis(
         Ph_pad.data_ptr(), mask_ptr, P.data_ptr(), cptr[0], cptr[1],
         out.data_ptr(), dt_t.data_ptr(), ch_t.data_ptr(), cfg.ndim, nz, ny,
-        nx, cfg.nvar, 1 if cfg.eqn is Eqn.GLM else 0,
+        nx, cfg.nvar, _EQN_CODE[cfg.eqn],
         1 if cfg.av is AV.FALLE else 0, order, plan["T"], plan["W"], *consts,
         torch.cuda.current_stream(Ph_pad.device).cuda_stream)
     if err != 0:

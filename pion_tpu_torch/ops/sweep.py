@@ -22,9 +22,9 @@ sweep axis in its natural position (length n+1 there).
 ``interface_flux`` and ``interface_flux_pair`` give single interface planes
 of those face fluxes from 4-cell slabs, for the nested-grid hierarchy.
 
-Ported: Cartesian grids, MHD and GLM-MHD with the HLL and HLLD solvers, Falle
-artificial viscosity.  Other solvers, the Euler system, curvilinear metrics
-and the H-correction raise ``NotImplementedError``.
+Ported: Cartesian grids, the Euler, MHD and GLM-MHD systems with every
+solver of the reference's menu, Falle artificial viscosity.  Curvilinear
+metrics and the H-correction raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -36,11 +36,13 @@ import torch
 from ..config import SimConfig
 from ..constants import BX, BY, BZ, PG, RO, SI, VX, VY, VZ, AV, Coord, Eqn, Solver
 from ..grid import Geometry
+from . import riemann_hydro as rh
 from . import riemann_mhd as rm
 from .eqns import (
     cfast_components,
     cons_to_prim,
     inverse_perm,
+    maxspeed,
     permute,
     sweep_perm,
 )
@@ -140,20 +142,44 @@ def _riemann(Pl_r, Pr_r, cfg: SimConfig, dx_over_dt, hc_eta,
              hll_mask=None):
     """Dispatch on the configured flux solver (sweep frame).
 
-    Mirrors reference solver dispatch (solver_eqn_mhd_adi.cpp:102-200).
-    Returns (flux, pstar).  Only the MHD/GLM branch with HLL and HLLD is
-    ported.
+    Mirrors reference solver dispatch (solver_eqn_hydro_adi.cpp:94-201,
+    solver_eqn_mhd_adi.cpp:102-200).  Returns (flux, pstar).
     """
     s = cfg.solver
     if cfg.eqn is Eqn.EULER:
-        raise NotImplementedError(
-            "the Euler solvers (ops/riemann_hydro) are not ported yet")
+        if s is Solver.LF:
+            return rh.lax_friedrichs(Pl_r, Pr_r, cfg, dx_over_dt)
+        if s is Solver.HLL:
+            return rh.hll(Pl_r, Pr_r, cfg)
+        if s is Solver.RCV:
+            return rh.roe_cv(Pl_r, Pr_r, cfg, hc_eta)
+        if s is Solver.RPV:
+            # distinct Roe-mean PV solver (reference:
+            # Roe_Hydro_PrimitiveVar_solver.cpp), not the arithmetic-mean
+            # linear solver
+            return rh.roe_pv(Pl_r, Pr_r, cfg)
+        if s is Solver.LINEAR:
+            return rh.linear_pv(Pl_r, Pr_r, cfg)
+        if s is Solver.EXACT:
+            return rh.exact(Pl_r, Pr_r, cfg)
+        if s is Solver.HYBRID:
+            return rh.hybrid(Pl_r, Pr_r, cfg)
+        if s is Solver.FVS:
+            return rh.fvs(Pl_r, Pr_r, cfg)
+        raise ValueError(f"unsupported hydro solver {s}")
+    # MHD / GLM
+    if s is Solver.LF:
+        return rh.lax_friedrichs(Pl_r, Pr_r, cfg, dx_over_dt)
     if s is Solver.HLL:
         return rm_to_pstar(rm.hll(Pl_r, Pr_r, cfg), cfg)
     if s is Solver.HLLD:
         return rm_to_pstar(
             rm.hlld_with_hll_fallback(Pl_r, Pr_r, cfg, hll_mask), cfg)
-    raise NotImplementedError(f"MHD solver {s} is not ported yet")
+    if s is Solver.RCV:
+        return rm_to_pstar(rm.roe_cv(Pl_r, Pr_r, cfg, hc_eta), cfg)
+    if s in (Solver.LINEAR, Solver.EXACT, Solver.HYBRID, Solver.RPV):
+        return rm_to_pstar(rm.linear(Pl_r, Pr_r, cfg), cfg)
+    raise ValueError(f"unsupported MHD solver {s}")
 
 
 def rm_to_pstar(fu, cfg):
@@ -163,33 +189,35 @@ def rm_to_pstar(fu, cfg):
 
 def _av_falle(flux, Pl, Pr, pstar, cfg: SimConfig):
     """FKJ98 viscous flux correction (reference:
-    solver_eqn_mhd_adi.cpp:209-286).  Returns a new flux tensor."""
+    solver_eqn_hydro_adi.cpp:283-330, solver_eqn_mhd_adi.cpp:209-286).
+    Returns a new flux tensor."""
     if cfg.eqn is Eqn.EULER:
-        raise NotImplementedError("Falle AV for the Euler system is not "
-                                  "ported yet")
-    pref = (
-        cfast_components(
-            0.5 * (Pl[RO] + Pr[RO]),
-            0.5 * (Pl[PG] + Pr[PG]),
-            0.5 * (Pl[BX] + Pr[BX]),
-            0.5 * (Pl[BY] + Pr[BY]),
-            0.5 * (Pl[BZ] + Pr[BZ]),
-            cfg.gamma,
+        pref = maxspeed(pstar, cfg) * cfg.etav * pstar[RO]
+    else:
+        pref = (
+            cfast_components(
+                0.5 * (Pl[RO] + Pr[RO]),
+                0.5 * (Pl[PG] + Pr[PG]),
+                0.5 * (Pl[BX] + Pr[BX]),
+                0.5 * (Pl[BY] + Pr[BY]),
+                0.5 * (Pl[BZ] + Pr[BZ]),
+                cfg.gamma,
+            )
+            * cfg.etav
+            * pstar[RO]
         )
-        * cfg.etav
-        * pstar[RO]
-    )
     upd = {}
     erg = torch.zeros_like(pref)
     for v in (VX, VY, VZ):
         mv = pref * (Pr[v] - Pl[v])
         upd[v] = flux[v] + (-mv)
         erg = erg + mv * pstar[v]
-    prefb = pref / pstar[RO]  # etaB == etav (reference :277)
-    for b in (BY, BZ):
-        mv = prefb * (Pr[b] - Pl[b])
-        upd[b] = flux[b] + (-mv)
-        erg = erg + mv * pstar[b]
+    if cfg.eqn.is_mhd:
+        prefb = pref / pstar[RO]  # etaB == etav (reference :277)
+        for b in (BY, BZ):
+            mv = prefb * (Pr[b] - Pl[b])
+            upd[b] = flux[b] + (-mv)
+            erg = erg + mv * pstar[b]
     upd[PG] = flux[PG] + (-erg)
     return _replace(flux, upd)
 
@@ -359,45 +387,55 @@ def dynamics_dU(
         cp = _bcast(g["div_cp"], axis, nd)
         dudt = cn * _slab(flux, ax, 0, -1) - cp * _slab(flux, ax, 1, None)
 
-        Pc = _slab(Pt, ax, ng, ng + n)  # interior cells
-
-        # Powell 8-wave source terms (MHD; reference:
-        # solver_eqn_mhd_adi.cpp:396-443): dU_i -= (d<Bn>/dx) * S_i
-        k = nd - 1 - axis
-        bn = Pt[BX + k:BX + k + 1]  # padded along the sweep axis
-        bm = 0.5 * (_slab(bn, ax, ng - 1, ng + n)[0]
-                    + _slab(bn, ax, ng, ng + n + 1)[0])
-        dbm = (_slab(bm[None], ax, 0, -1)[0]
-               - _slab(bm[None], ax, 1, None)[0]) / dx
-        udotb = Pc[VX] * Pc[BX] + Pc[VY] * Pc[BY] + Pc[VZ] * Pc[BZ]
-        upd = {
-            VX: dudt[VX] + dbm * Pc[BX],
-            VY: dudt[VY] + dbm * Pc[BY],
-            VZ: dudt[VZ] + dbm * Pc[BZ],
-            BX: dudt[BX] + dbm * Pc[VX],
-            BY: dudt[BY] + dbm * Pc[VY],
-            BZ: dudt[BZ] + dbm * Pc[VZ],
-        }
-        pg_new = dudt[PG] + dbm * udotb
-        if glm:
-            # GLM advective psi source (reference:
-            # solver_eqn_mhd_adi.cpp:782-813)
-            psi = Pt[SI:SI + 1]
-            sm = 0.5 * (_slab(psi, ax, ng - 1, ng + n)[0]
-                        + _slab(psi, ax, ng, ng + n + 1)[0])
-            dsm = (_slab(sm[None], ax, 0, -1)[0]
-                   - _slab(sm[None], ax, 1, None)[0]) / dx
-            vn = Pc[VX + k]
-            pg_new = pg_new + dsm * vn * Pc[SI]
-            upd[SI] = dudt[SI] + dsm * vn
-        upd[PG] = pg_new
-        dudt = _replace(dudt, upd)
-
         face_fluxes.append(flux)
+        if cfg.eqn.is_mhd:
+            dudt = _mhd_sources(dudt, Pt, cfg, axis, dx, glm)
         contrib = dt * dudt
         dU = contrib if dU is None else dU + contrib
 
     return dU, face_fluxes
+
+
+def _mhd_sources(dudt, Pt, cfg: SimConfig, axis: int, dx: float, glm: bool):
+    """``dudt`` of one axis with the Powell 8-wave and GLM advective source
+    terms added (``Pt`` padded along ``axis`` only)."""
+    ng = cfg.ng
+    n = cfg.shape[axis]
+    ax = 1 + axis
+    nd = cfg.ndim
+    Pc = _slab(Pt, ax, ng, ng + n)  # interior cells
+
+    # Powell 8-wave source terms (MHD; reference:
+    # solver_eqn_mhd_adi.cpp:396-443): dU_i -= (d<Bn>/dx) * S_i
+    k = nd - 1 - axis
+    bn = Pt[BX + k:BX + k + 1]  # padded along the sweep axis
+    bm = 0.5 * (_slab(bn, ax, ng - 1, ng + n)[0]
+                + _slab(bn, ax, ng, ng + n + 1)[0])
+    dbm = (_slab(bm[None], ax, 0, -1)[0]
+           - _slab(bm[None], ax, 1, None)[0]) / dx
+    udotb = Pc[VX] * Pc[BX] + Pc[VY] * Pc[BY] + Pc[VZ] * Pc[BZ]
+    upd = {
+        VX: dudt[VX] + dbm * Pc[BX],
+        VY: dudt[VY] + dbm * Pc[BY],
+        VZ: dudt[VZ] + dbm * Pc[BZ],
+        BX: dudt[BX] + dbm * Pc[VX],
+        BY: dudt[BY] + dbm * Pc[VY],
+        BZ: dudt[BZ] + dbm * Pc[VZ],
+    }
+    pg_new = dudt[PG] + dbm * udotb
+    if glm:
+        # GLM advective psi source (reference:
+        # solver_eqn_mhd_adi.cpp:782-813)
+        psi = Pt[SI:SI + 1]
+        sm = 0.5 * (_slab(psi, ax, ng - 1, ng + n)[0]
+                    + _slab(psi, ax, ng, ng + n + 1)[0])
+        dsm = (_slab(sm[None], ax, 0, -1)[0]
+               - _slab(sm[None], ax, 1, None)[0]) / dx
+        vn = Pc[VX + k]
+        pg_new = pg_new + dsm * vn * Pc[SI]
+        upd[SI] = dudt[SI] + dsm * vn
+    upd[PG] = pg_new
+    return _replace(dudt, upd)
 
 
 @functools.lru_cache(maxsize=64)

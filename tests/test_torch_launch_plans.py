@@ -120,6 +120,52 @@ def test_sweep_plan_main_path_sizes():
             assert blocks_per_sm * (plan["smem"] + 1024) <= 228 * 1024
 
 
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_sweep_plan_euler_base(itemsize):
+    """The Euler base of 5 variables with 0, 1 and 4 tracers (no fallback
+    mask: HLLD is MHD's): within the per-dtype budget, the 15 x 32 tile of
+    the main paths at 128^3, and every cell and face covered as for MHD."""
+    for nvar in (5, 6, 9):
+        for order in (1, 2):
+            plan = fs.sweep_plan((128,) * 3, 2, nvar, 5, itemsize, order,
+                                 False)
+            assert plan["smem"] == fs.tile_bytes(nvar, 5, order, plan["T"],
+                                                 plan["W"], False, itemsize)
+            assert plan["smem"] <= fs.TILE_SMEM_BUDGET[itemsize]
+            assert (plan["T"], plan["W"]) == (15, 32)
+            for shape in ((12, 20, 36), (20, 36)):
+                for axis in range(len(shape)):
+                    p = fs.sweep_plan(shape, axis, nvar, 5, itemsize, order,
+                                      False)
+                    cells, faces = _cells_and_faces(shape, axis, p)
+                    assert (cells == 1).all() and faces.min() == 1
+
+
+def test_flops_per_interface_distinct_by_system_and_solver():
+    """The operations side of B1/B2's bound counts each (equation system,
+    solver) the kernels run: ten distinct counts at both orders, with MHD's
+    ``roe_pv`` the linear solver's own count; order 2 and Falle AV add."""
+    from pion_tpu_torch import SimConfig
+
+    box = dict(ndim=3, shape=(8, 8, 8), xmin=(0,) * 3, xmax=(1,) * 3,
+               bcs=(("outflow", "outflow"),) * 3, ntracer=1, av="falle")
+    runs = [("euler", s) for s in ("hll", "linear", "roe", "roe_pv")] + \
+        [(e, s) for e in ("mhd", "glm") for s in ("hll", "hlld", "linear",
+                                                  "roe")]
+    for order in (1, 2):
+        counts = {r: fs.flops_per_interface(
+            SimConfig(eqn=r[0], solver=r[1], **box), order) for r in runs}
+        assert len(set(counts.values())) == len(runs), counts
+        for eqn in ("mhd", "glm"):
+            assert fs.flops_per_interface(
+                SimConfig(eqn=eqn, solver="roe_pv", **box), order) \
+                == counts[(eqn, "linear")]
+    cfg = SimConfig(eqn="euler", solver="roe", **box)
+    assert fs.flops_per_interface(cfg, 2) > fs.flops_per_interface(cfg, 1)
+    none = SimConfig(eqn="euler", solver="roe", **dict(box, av="none"))
+    assert fs.flops_per_interface(cfg, 1) > fs.flops_per_interface(none, 1)
+
+
 def test_sweep_plan_rejects_bad_arguments():
     with pytest.raises(ValueError):
         fs.sweep_plan((8, 8, 8), 3, 10, 9, 4, 2, True)

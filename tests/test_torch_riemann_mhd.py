@@ -100,3 +100,34 @@ def test_hlld_with_hll_fallback_random_mask(eqn):
     assert torch.equal(f[:, m], fh[:, m]) and torch.equal(f[:, ~m], fd[:, ~m])
     f0, u0 = rm.hlld_with_hll_fallback(Plt, Prt, cfg, None)
     assert torch.equal(f0, fd)
+
+
+@pytest.mark.parametrize("eqn", ["mhd", "glm"])
+@pytest.mark.parametrize("name", ["linear", "roe_cv"])
+def test_linear_and_roe_cv(eqn, name):
+    """The 7-wave linear solver and the Roe conserved-variable solver on
+    the same interfaces (every wave sign, and bx == 0), flux and conserved
+    interface state at 1e-12."""
+    rcfg = _cfg(eqn)
+    Pl, Pr = _interfaces(rcfg.nvar, 4 if name == "linear" else 5)
+    cfg, Plt, _ = to_port(rcfg, Pl)
+    Prt = torch.from_numpy(Pr)
+    f, u = getattr(rm, name)(Plt, Prt, cfg)
+    fr, ur = getattr(ref_rm, name)(jnp.asarray(Pl), jnp.asarray(Pr), rcfg)
+    assert f.shape == tuple(fr.shape) and u.shape == tuple(ur.shape)
+    assert torch.isfinite(f).all() and torch.isfinite(u).all()
+    close(f, fr, rtol=RTOL, atol=1e-12)
+    close(u, ur, rtol=RTOL, atol=1e-12)
+
+
+def test_roe_cv_with_hcorrection_floor():
+    rcfg = _cfg("mhd")
+    Pl, Pr = _interfaces(rcfg.nvar, 6)
+    eta = np.random.default_rng(7).uniform(0.0, 2.0, Pl.shape[1])
+    cfg, Plt, _ = to_port(rcfg, Pl)
+    Prt = torch.from_numpy(Pr)
+    f, u = rm.roe_cv(Plt, Prt, cfg, torch.from_numpy(eta))
+    fr, ur = ref_rm.roe_cv(jnp.asarray(Pl), jnp.asarray(Pr), rcfg,
+                           jnp.asarray(eta))
+    close(f, fr, rtol=RTOL, atol=1e-12)
+    close(u, ur, rtol=RTOL, atol=1e-12)

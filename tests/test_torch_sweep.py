@@ -179,31 +179,50 @@ def test_float32_state_stays_float32():
 
 
 def test_supports_and_unported_configs():
+    """The kernels' scope is the Cartesian scope of the Pallas gate: Euler
+    with HLL/linear/Roe-CV/Roe-PV, MHD and GLM with those and HLLD; the
+    other solvers, cylindrical grids, the H-correction and 1D stay out.
+    Cylindrical grids and the H-correction still raise in the plain sweep;
+    Euler with HLLD raises the reference's ``ValueError``."""
     cfg = to_port(*(lambda r: (r, noisy_state(r, 0)))(ref_config("glm3d")))[0]
     assert fused_sweep.supports(cfg)
     S = pion_tpu_torch.SimConfig
     box2 = dict(ndim=2, shape=(8, 8), xmin=(0, 0), xmax=(1, 1),
                 bcs=(("outflow", "outflow"),) * 2)
-    assert not fused_sweep.supports(S(eqn="euler", solver="hll", **box2))
-    assert not fused_sweep.supports(S(eqn="mhd", solver="roe", **box2))
+    for solver in ("hll", "linear", "roe", "roe_pv"):
+        assert fused_sweep.supports(S(eqn="euler", solver=solver, **box2))
+        assert fused_sweep.supports(S(eqn="mhd", solver=solver, **box2))
+        assert fused_sweep.supports(S(eqn="glm", solver=solver, av="falle",
+                                      **box2))
+    assert not fused_sweep.supports(S(eqn="euler", solver="hlld", **box2))
+    for solver in ("lf", "exact", "hybrid", "fvs"):
+        assert not fused_sweep.supports(S(eqn="euler", solver=solver, **box2))
+        assert not fused_sweep.supports(S(eqn="mhd", solver=solver, **box2))
+    # roe_pv runs the linear solver for MHD (the same kernel build), and the
+    # distinct Roe-mean solver for Euler
+    assert fused_sweep.kernel_solver(S(eqn="mhd", solver="roe_pv", **box2)) \
+        is pion_tpu_torch.Solver.LINEAR
+    assert fused_sweep.kernel_solver(S(eqn="euler", solver="roe_pv",
+                                       **box2)) is pion_tpu_torch.Solver.RPV
     assert not fused_sweep.supports(S(eqn="mhd", solver="hll",
                                       coords="cylindrical", **box2))
-    assert not fused_sweep.supports(S(eqn="mhd", solver="hll", av="hcorr",
+    assert not fused_sweep.supports(S(eqn="euler", solver="hll", av="hcorr",
                                       **box2))
     assert not fused_sweep.supports(
-        S(ndim=1, eqn="mhd", solver="hll", shape=(8,), xmin=(0,), xmax=(1,),
-          bcs=(("outflow", "outflow"),)))
-    P = torch.ones((5, 12, 12), dtype=torch.float64)
-    geom = pion_tpu_torch.make_geometry(S(eqn="euler", solver="hll", **box2))
-    with pytest.raises(NotImplementedError):
-        sweep.dynamics_dU(P, S(eqn="euler", solver="hll", **box2), geom, DT, 1)
+        S(ndim=1, eqn="euler", solver="hll", shape=(8,), xmin=(0,),
+          xmax=(1,), bcs=(("outflow", "outflow"),)))
+    euler_hlld = S(eqn="euler", solver="hlld", **box2)
+    with pytest.raises(ValueError, match="hydro solver"):
+        sweep.dynamics_dU(torch.ones((5, 12, 12), dtype=torch.float64),
+                          euler_hlld, pion_tpu_torch.make_geometry(euler_hlld),
+                          DT, 1)
     cyl = S(eqn="mhd", solver="hll", coords="cylindrical", **box2)
     with pytest.raises(NotImplementedError):
         sweep.dynamics_dU(torch.ones((8, 12, 12), dtype=torch.float64), cyl,
                           pion_tpu_torch.make_geometry(cyl), DT, 1)
-    roe = S(eqn="mhd", solver="roe", **box2)
+    hc = S(eqn="euler", solver="roe", av="hcorr", **box2)
     with pytest.raises(NotImplementedError):
-        sweep.dynamics_dU(torch.ones((8, 12, 12), dtype=torch.float64), roe,
-                          pion_tpu_torch.make_geometry(roe), DT, 1)
+        sweep.dynamics_dU(torch.ones((5, 12, 12), dtype=torch.float64), hc,
+                          pion_tpu_torch.make_geometry(hc), DT, 1)
     with pytest.raises(ValueError):
         S(kernels="interpret", **box2)
