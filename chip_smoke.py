@@ -14,8 +14,15 @@ point-source raytrace, GLM-MHD) and the photoionised Euler wind bubble
 (MPv3, a point source and a stellar wind) through ``Simulation.run``, and
 the coupled flagship (a 2-level nested grid with that H II region and a
 magnetised stellar wind) through ``NGHierarchy.step`` — and checks that each
-run went through its kernels and that what came out is right.  Then each path again through ``run(chunk=k)``, k steps as one CUDA
-graph replay: bit for bit the run of k single steps, and timed beside it.
+run went through its kernels and that what came out is right.  Then the 2D
+axisymmetric (cylindrical) paths, which take the radial branch of B1 and B2:
+the axisymmetric blast at (R, z) = (1024, 2048) (as many cells as 128^3;
+Euler too, and float64 at (256, 512)), the Ostar2-class cooling GLM-MHD
+wind bubble at (128, 256) through ``Simulation(physics=...)`` and the
+Wind2D-class 3-level wind hierarchy at (128, 256) a level through
+``NGHierarchy``.  Then each path again through ``run(chunk=k)``, k steps as
+one CUDA graph replay: bit for bit the run of k single steps, and timed
+beside it.
 Every phase prints one JSON line; any failed
 check raises, and the process then exits non-zero without the closing
 ``{"ok": true, ...}`` line.
@@ -47,9 +54,10 @@ TOL = {torch.float64: 1.0e-10,   # same arithmetic, other order and FMA use
 # B1/B2 with the MHD linear and Roe solvers on the seeded noisy states: their
 # wave decompositions divide by a^2 and cf^2 - cs^2 and sum seven waves'
 # terms that cancel, and the linear solver's star state jumps where a wave
-# speed changes sign, so a last-bit difference at the input (the kernels'
-# reconstruction divides by dx, the plain one by the centre-of-volume
-# spacing) can come out ~1e4 times larger, or as a jump.  In float64 the
+# speed changes sign, so a last-bit difference at the input (on a Cartesian
+# axis the kernels' reconstruction divides by dx, the plain one by the
+# centre-of-volume spacing; on the radial axis both take the latter, and
+# FMA contraction differs) can come out ~1e4 times larger, or as a jump.  In float64 the
 # kernels stand 1e-12 from the plain version.  In float32 the plain version
 # itself stands up to 0.2 from its own float64 on the 128^3 noisy blast
 # (two cells of 2.1M, read on the card), so there both float32 versions are
@@ -264,12 +272,20 @@ def check_kernels(device):
     and off, tracers and the sCMA variants.  On three of the shapes also
     every Euler solver (HLL, linear, Roe-CV, Roe-PV) and the MHD linear and
     Roe solvers (GLM and MHD, roe_pv too), viscosity, tracers and sCMA
-    taken in turn.  Returns the worst errors by dtype, the case count, and
-    the worst errors by dtype of each variant (``variant``)."""
+    taken in turn.  Then the radial branch: 2D axisymmetric grids of two
+    such shapes (``cyl_box``, the noisy blast on the axis, so that the
+    stencils reach across R = 0 into the mirrored ghosts), B1 on both axes
+    (axis 0 the radial one) and B2, for every variant: Euler HLL, linear,
+    Roe-CV and Roe-PV, MHD and GLM HLL, HLLD with and without the mask,
+    linear and Roe-CV, with viscosity, tracers and sCMA taken in turn.
+    Returns the worst errors by dtype, the case count, the worst errors by
+    dtype of each variant (``variant``) and of the radial cases by
+    variant."""
     from pion_tpu_torch import SimConfig
 
     worst = {}
     by_variant = {}
+    radial = {}
     ncase = 0
     for dtype in ("float64", "float32"):
         cases = []
@@ -308,10 +324,35 @@ def check_kernels(device):
                     eqn=("glm", "mhd")[m], solver=solver,
                     av=("falle", "none")[m], ntracer=(1, 2)[m], **box),
                     (False, True)[m]))
+        for shape in ((20, 36), (37, 50)):
+            box = dict(ndim=2, shape=shape, dtype=dtype, **cyl_box(shape))
+            cyl = [(main_cfg(shape, dtype, **cyl_box(shape)), False),
+                   (SimConfig(eqn="glm", solver="hlld", av="none", ntracer=2,
+                              hlld_fallback=False, **box), False),
+                   (SimConfig(eqn="mhd", solver="hll", av="falle",
+                              ntracer=0, **box), False),
+                   (SimConfig(eqn="glm", solver="hll", av="falle",
+                              ntracer=3, **box), (10, 11)),
+                   (SimConfig(eqn="mhd", solver="linear", av="falle",
+                              ntracer=1, **box), False),
+                   (SimConfig(eqn="glm", solver="roe", av="none", ntracer=1,
+                              **box), True)]
+            for j, solver in enumerate(EULER_SOLVERS):
+                m = j % 2
+                cyl.append((SimConfig(
+                    eqn="euler", solver=solver, gamma=1.4,
+                    av=("falle", "none")[m], ntracer=(1, 3)[m], **box),
+                    (False, (6, 7))[m]))
+            cases += [(c, sc, "radial") for c, sc in cyl]
         w1 = w2 = 0.0
-        for i, (cfg, scma) in enumerate(cases):
+        for i, (cfg, scma, *radial_case) in enumerate(cases):
             a, b = check_case(cfg, 100 + i, device, scma=scma)
             ncase += 1
+            if radial_case:
+                key = f"{variant(cfg)}{'_mask' if fs_mask(cfg) else ''}"
+                v = radial.setdefault(key, {}).setdefault(dtype, [0.0, 0.0])
+                v[0], v[1] = max(v[0], a), max(v[1], b)
+                continue
             if cfg.solver.value in ("hll", "hlld") and cfg.eqn.is_mhd:
                 w1, w2 = max(w1, a), max(w2, b)
                 continue
@@ -319,7 +360,14 @@ def check_kernels(device):
                 dtype, [0.0, 0.0])
             v[0], v[1] = max(v[0], a), max(v[1], b)
         worst[dtype] = (w1, w2)
-    return worst, ncase, by_variant
+    return worst, ncase, by_variant, radial
+
+
+def fs_mask(cfg) -> bool:
+    """Whether B1/B2 of ``cfg`` take the HLLD fallback mask."""
+    from pion_tpu_torch.ops import fused_sweep as fs
+
+    return fs._uses_mask(cfg)
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -398,18 +446,31 @@ def update_stats(mp, omx, E, nH, dt, rt, f0=None):
     return got, tiles, newton
 
 
-def measure_b1_b2(cfg, device, b2: bool = True) -> dict:
+def measure_b1_b2(cfg, device, b2: bool = True, b1_axes=None) -> dict:
     """B1 (and with ``b2`` B2) on the main path's mix of ``cfg`` at its
     shape, the seeded noisy blast state: held against the plain versions on
     the same inputs (an ill-conditioned variant in float32 against the
     float64 plain version too, ``held_conditioned``), then timed beside them
-    -- B1 on axes 1 and 2 and B2 on axis 0, each at orders 1 (predictor)
-    and 2 (corrector); times are means over that mix.  Bounds: each input
-    read once, each output written once; the operations from
-    ``flops_per_interface`` (and for B2 the update of each cell, 80
+    -- B1 on ``b1_axes`` (by default every axis but 0) and B2 on axis 0,
+    each at orders 1 (predictor) and 2 (corrector); times are means over
+    that mix.  Bounds: each input read once (on a cylindrical grid's radial
+    axis also the geometry pack), each output written once; the operations
+    from ``flops_per_interface`` (and for B2 the update of each cell, 80
     operations for MHD, 40 for Euler).  Returns ``{"sweep_axis": rec,
     "final_axis": rec}``."""
     from pion_tpu_torch.ops import fused_sweep as fs
+
+    b1_axes = tuple(range(1, cfg.ndim)) if b1_axes is None else b1_axes
+    cyl = cfg.coords.value == "cylindrical"
+
+    def geo_bytes(axis):
+        return (fs.GEO_ROWS * (cfg.shape[0] + 2 * cfg.ng) * esz
+                if cyl and axis == 0 else 0)
+
+    def flops(axis):
+        radial = cyl and axis == 0
+        return (fs.flops_per_interface(cfg, 1, radial)
+                + fs.flops_per_interface(cfg, 2, radial)) // 2
 
     geom, P, Ppad, strong, dt, ch = kernel_inputs(cfg, 7, device)
     cells = int(np.prod(cfg.shape))
@@ -419,7 +480,7 @@ def measure_b1_b2(cfg, device, b2: bool = True) -> dict:
     c64 = dataclasses.replace(cfg, dtype="float64")
     mask_bytes = strong.numel() if strong is not None else 0
     contribs = [fs.sweep_axis_plain(Ppad, cfg, geom, a, 2, dt, ch=ch)
-                for a in (1, 2)]
+                for a in range(1, cfg.ndim)]
 
     def held(name, case, out, ref, ref64_fn):
         rel, ab = scaled_err(out, ref)
@@ -439,18 +500,20 @@ def measure_b1_b2(cfg, device, b2: bool = True) -> dict:
                "bound_ms": b_ms, "bound_by": b_by,
                "bound_ms_bytes_operations": bound_sides(nbytes, flops,
                                                         Ppad.dtype),
-               "flops_per_interface": [fs.flops_per_interface(cfg, o)
-                                       for o in (1, 2)],
+               "flops_per_interface": [
+                   fs.flops_per_interface(cfg, o, cyl and axis == 0)
+                   for o in (1, 2)],
                "plan": dict(fs.sweep_plan(cfg.shape, axis, cfg.nvar,
                                           cfg.eqn.nbase, esz, 2,
-                                          strong is not None))}
+                                          strong is not None,
+                                          cyl and axis == 0))}
         if against64:
             rec["against_plain_float64"] = against64
         return rec
 
     out = {}
     errs, plain, against64 = [0.0, 0.0], [], {}
-    for axis in (1, 2):
+    for axis in b1_axes:
         for order in (1, 2):
             def plain_fn():
                 return fs.sweep_axis_plain(Ppad, cfg, geom, axis, order, dt,
@@ -466,12 +529,14 @@ def measure_b1_b2(cfg, device, b2: bool = True) -> dict:
                 against64[case] = h
             errs = [max(errs[0], rel), max(errs[1], ab)]
             plain.append(time_ms(plain_fn, 1, warmup=1))
-    n_if = cells // cfg.shape[1] * (cfg.shape[1] + 1)
+    # a launch on average over the mix's axes
+    n_ax = len(b1_axes)
     out["sweep_axis"] = record(
-        errs, sweep_mix_ms(Ppad, cfg, geom, (1, 2), dt, ch, strong), plain,
-        Ppad.numel() * esz + mask_bytes + 2 * esz + cfg.nvar * cells * esz,
-        n_if * (fs.flops_per_interface(cfg, 1)
-                + fs.flops_per_interface(cfg, 2)) // 2, against64, 1)
+        errs, sweep_mix_ms(Ppad, cfg, geom, b1_axes, dt, ch, strong), plain,
+        Ppad.numel() * esz + mask_bytes + 2 * esz + cfg.nvar * cells * esz
+        + sum(geo_bytes(a) for a in b1_axes) // n_ax,
+        sum(cells // cfg.shape[a] * (cfg.shape[a] + 1) * flops(a)
+            for a in b1_axes) // n_ax, against64, b1_axes[0])
     if not b2:
         return out
     errs, plain, against64, ms2 = [0.0, 0.0], [], {}, {}
@@ -498,10 +563,9 @@ def measure_b1_b2(cfg, device, b2: bool = True) -> dict:
     n_if = cells // cfg.shape[0] * (cfg.shape[0] + 1)
     out["final_axis"] = record(
         errs, ms2, plain,
-        Ppad.numel() * esz + mask_bytes + 2 * esz
+        Ppad.numel() * esz + mask_bytes + 2 * esz + geo_bytes(0)
         + (2 + len(contribs)) * cfg.nvar * cells * esz,
-        n_if * (fs.flops_per_interface(cfg, 1)
-                + fs.flops_per_interface(cfg, 2)) // 2
+        n_if * flops(0)
         + (40 if cfg.eqn.value == "euler" else 80) * cells, against64, 0)
     return out
 
@@ -533,6 +597,24 @@ def measure_variants(device, shape=(128, 128, 128)):
         cfg = main_cfg(shape, "float32", **kw)
         out[variant(cfg)] = measure_b1_b2(cfg, device,
                                           b2=cfg.eqn.value == "euler")
+    return out
+
+
+def measure_radial(device, shape=None) -> dict:
+    """The radial branch at the axisymmetric blast's shape (``CYL_SHAPE``,
+    float32): ``measure_b1_b2`` of configuration 1's physics and of the
+    Euler/HLL variant on a cylindrical grid, B1 on the radial axis and B2
+    (which always takes it), and B1 on axis 1 of the same grid beside them.
+    Returns ``{variant: {"sweep_axis": ..., "final_axis": ...,
+    "sweep_axis_axis1": ...}}``."""
+    shape = CYL_SHAPE if shape is None else shape
+    out = {}
+    for kw in (dict(), dict(eqn="euler", solver="hll")):
+        cfg = main_cfg(shape, "float32", **cyl_box(shape), **kw)
+        rec = measure_b1_b2(cfg, device, b1_axes=(0,))
+        rec["sweep_axis_axis1"] = measure_b1_b2(cfg, device,
+                                                b2=False)["sweep_axis"]
+        out[variant(cfg)] = rec
     return out
 
 
@@ -1530,7 +1612,7 @@ def level_errs(a: torch.Tensor, b: torch.Tensor, dx_over_dt: float) -> dict:
     groups = {"mass": [RO], "velocity": [VX, VX + 1, VX + 2],
               "pressure": [PG], "field": [BX, BX + 1, BX + 2],
               "tracer": list(range(SI + 1, a.shape[0]))}
-    out = {k: grouped_err(a, b, [g]) for k, g in groups.items()}
+    out = {k: grouped_err(a, b, [g]) for k, g in groups.items() if g}
     psi_scale = max(float(b[SI].abs().max()),
                     float(b[BX:BX + 3].abs().max()) * dx_over_dt)
     out["psi"] = float((a[SI] - b[SI]).abs().max()) / psi_scale
@@ -2283,18 +2365,21 @@ def chunk_timing(runs, rounds: int = 4) -> dict:
 
 
 def main_path(shape, dtype, steps: int, agree_tol: float, plain_steps: int,
-              **cfg_kw):
+              launches=None, B0=(0.1, 0.05, 0.0), **cfg_kw):
     """The library's main path as a user calls it: ``Simulation(cfg,
     P0).run(max_steps=N)`` on the blast wave (configuration 1, or with
-    ``cfg_kw`` another system or solver: the Euler path).  Returns the phase
-    record, the launch counts of the counted run and the run."""
+    ``cfg_kw`` another system, solver or grid: the Euler path, the
+    axisymmetric blast), ``launches`` a step by wrapper (BLAST_LAUNCHES by
+    default).  Returns the phase record, the launch counts of the counted
+    run and the run."""
     from pion_tpu_torch import Simulation
     from pion_tpu_torch.ics import blast_wave
     from pion_tpu_torch.utils import conservation_totals
 
     cfg = main_cfg(shape, dtype, **cfg_kw)
-    P0 = blast_wave(cfg, B0=(0.1, 0.05, 0.0))
+    P0 = blast_wave(cfg, B0=B0)
     cells = int(np.prod(shape))
+    launches = BLAST_LAUNCHES if launches is None else launches
 
     Simulation(cfg, P0).run(max_steps=2)       # warm-up, not counted
 
@@ -2310,7 +2395,7 @@ def main_path(shape, dtype, steps: int, agree_tol: float, plain_steps: int,
         raise AssertionError(f"state shape {tuple(sim.P.shape)}")
     if not bool(torch.isfinite(sim.P).all()):
         raise AssertionError("non-finite values in the state")
-    want = {k: v * steps for k, v in BLAST_LAUNCHES.items()}
+    want = {k: v * steps for k, v in launches.items()}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     mass1 = conservation_totals(sim.P, cfg, sim.geom)["mass"]
@@ -2568,6 +2653,299 @@ def euler_wind_path(device, n: int, steps: int):
     return rec, counts
 
 
+# ---------------------------------------------------------------------------
+# 2D axisymmetric (cylindrical) runs: the radial branch of B1 and B2
+# ---------------------------------------------------------------------------
+
+AXIS_BCS = (("axisymmetric", "outflow"), ("outflow", "outflow"))
+# the axisymmetric blast: as many cells as the 128^3 blast
+CYL_SHAPE = (1024, 2048)
+# launches a step.  Pure dynamics: B1 on axis 1 and B2 (the radial axis,
+# with the geometry pack) at both partial steps; a run with physics: B1 on
+# both axes at both; a 3-level hierarchy step: B1 on both axes of each of
+# its 1 + 2 + 4 level steps' predictors (the correctors take the plain sweep
+# with its faces)
+CYL_BLAST_LAUNCHES = {"sweep_axis": 2, "final_axis": 2, "mpv3_update": 0,
+                      "mpv3_ydot": 0, "octant_trace": 0}
+CYL_WIND_LAUNCHES = {"sweep_axis": 4, "final_axis": 0, "mpv3_update": 0,
+                     "mpv3_ydot": 0, "octant_trace": 0}
+CYL_NG_LAUNCHES = {"sweep_axis": 14, "final_axis": 0, "mpv3_update": 0,
+                   "mpv3_ydot": 0, "octant_trace": 0}
+# kernels against the plain path after two steps of the wind runs, each
+# group of variables scaled by its own range (``level_errs``)
+CYL_AGREE_TOL = 1.0e-5
+
+
+def cyl_box(shape) -> dict:
+    """A 2D axisymmetric box: R on array axis 0 from the axis to 1, z on
+    axis 1 centred on 0, square cells; axisymmetric at R = 0, outflow
+    elsewhere.  The blast wave's centre is then on the axis."""
+    h = 0.5 * shape[1] / shape[0]
+    return dict(coords="cylindrical", xmin=(0.0, -h), xmax=(1.0, h),
+                bcs=AXIS_BCS)
+
+
+def cyl_wind_problem(dtype: str = "float32", kernels: str = "auto"):
+    """The Ostar2 class (the reference's 2D walltime benchmark, SURVEY.md:
+    a cylindrical GLM-MHD wind bubble with cooling) on its published grid
+    of (R, z) = (128, 256) cells of 4.8e16 cm; the parameter file itself is
+    not in the repo, so the set-up is built from what the repo's tests
+    state: the split-monopole wind of tests/test_winds.py:211-231 (1e-6
+    Msun/yr, 2000 km/s, 1 G at 7e11 cm, 3e4 K) on the axis at z = 0, inside
+    four cells; an ambient medium of 2 m_p cm^-3 at 8000 K threaded by a
+    field of 10 muG along z (``B010``); MPOnlyCooling with
+    WSS09_CIE_LINE_HEAT_COOL (EP_cooling 8) and the cooling dt limit; GLM-MHD
+    with HLL and Falle viscosity.  Returns (cfg, P0, make_physics)."""
+    from pion_tpu_torch import SimConfig
+    from pion_tpu_torch.constants import BX, K_B, M_P, MSUN, PG, RO, YEAR
+    from pion_tpu_torch.microphysics import CoolingConfig, MPOnlyCooling
+    from pion_tpu_torch.physics import Physics
+    from pion_tpu_torch.winds import WindSource
+
+    n0, n1, dx = 128, 256, 4.8e16
+    cfg = SimConfig(ndim=2, eqn="glm", solver="hll", ntracer=0,
+                    shape=(n0, n1), coords="cylindrical",
+                    xmin=(0.0, -0.5 * n1 * dx), xmax=(n0 * dx, 0.5 * n1 * dx),
+                    bcs=AXIS_BCS, cfl=0.3, ooa=2, av="falle", etav=0.15,
+                    min_temperature=10.0, max_temperature=1.0e9, tmax=1.0e20,
+                    dtype=dtype, kernels=kernels)
+
+    def make_physics():
+        return Physics(
+            mp=MPOnlyCooling(CoolingConfig(curve="WSS09_CIE_LINE_HEAT_COOL")),
+            wind_sources=[WindSource(position=(0.0, 0.0), radius=4.0 * dx,
+                                     mdot=1.0e-6 * MSUN / YEAR, vinf=2.0e8,
+                                     b_star=1.0, rstar=7.0e11,
+                                     t_wind=3.0e4)],
+            dt_limit=True)
+
+    P0 = np.zeros((cfg.nvar,) + cfg.shape)
+    P0[RO] = 2.0 * M_P
+    P0[PG] = 2.0 * K_B * 8.0e3 / 0.61
+    P0[BX] = 1.0e-5 / np.sqrt(4.0 * np.pi)      # along z: array axis 1
+    return cfg, P0, make_physics
+
+
+def cyl_ng_problem(dtype: str = "float32", kernels: str = "auto"):
+    """The Wind2D class (the reference's test_problems/Wind2D, a bow shock
+    on a nested grid; its parameter file is not in the repo): 3 levels of
+    (R, z) = (128, 256), Euler + HLL without viscosity, a 2000 km/s wind
+    of 1e-6 Msun/yr on the axis at the nest's centre inside four fine
+    cells, into an ambient medium of 7e-24 g cm^-3 at 8000 K streaming at
+    -25 km/s along z (tests/test_cli.py:262-284): inflow at the upstream
+    face, outflow downstream and at R_max, axisymmetric at R = 0.  With
+    Falle viscosity this set-up goes non-finite beside the wind on the axis
+    at its ninth step, in the JAX package as in the port (ROADMAP C14).
+    Returns (cfg, one state a level, make_physics)."""
+    from pion_tpu_torch import SimConfig
+    from pion_tpu_torch.constants import K_B, M_P, MSUN, PG, RO, VX, YEAR
+    from pion_tpu_torch.physics import Physics
+    from pion_tpu_torch.winds import WindSource
+
+    n0, n1, L = 128, 256, 3.0e18
+    cfg = SimConfig(ndim=2, eqn="euler", solver="hll", ntracer=0,
+                    shape=(n0, n1), coords="cylindrical", xmin=(0.0, -L),
+                    xmax=(L, L),
+                    bcs=(("axisymmetric", "outflow"), ("outflow", "inflow")),
+                    cfl=0.3, ooa=2, av="none", nlevels=3,
+                    ng_centre=(0.0, 0.0), tmax=1.0e20, dtype=dtype,
+                    kernels=kernels)
+    fine_dx = cfg.dx / 4
+
+    def make_physics():
+        return Physics(wind_sources=[WindSource(
+            position=(0.0, 0.0), radius=4.0 * fine_dx,
+            mdot=1.0e-6 * MSUN / YEAR, vinf=2.0e8, t_wind=3.0e4)],
+            dt_limit=0)
+
+    P0 = np.zeros((cfg.nvar,) + cfg.shape)
+    P0[RO] = 7.0e-24
+    P0[PG] = 7.0e-24 / (0.61 * M_P) * K_B * 8.0e3
+    P0[VX] = -25.0e5                             # along z: array axis 1
+    return cfg, [P0.copy() for _ in range(3)], make_physics
+
+
+def check_cyl_wind(sim, what: str) -> dict:
+    """Finite; T in [10, 1e9] outside the wind region (inside, the inert
+    cells hold rho = p = 1e-31); the wind region holds the wind state."""
+    P, cfg, phys = sim.P, sim.cfg, sim.physics
+    if tuple(P.shape) != (cfg.nvar,) + cfg.shape:
+        raise AssertionError(f"{what}: state shape {tuple(P.shape)}")
+    if not bool(torch.isfinite(P).all()):
+        raise AssertionError(f"{what}: non-finite values in the state")
+    w = phys.winds[0]
+    m = w.mask_like(P)
+    T = phys.mp.temperature(P, cfg)[~m]
+    Tr = (float(T.min()), float(T.max()))
+    if not (10.0 * (1 - 1e-5) <= Tr[0] and Tr[1] <= 1.0e9 * (1 + 1e-5)):
+        raise AssertionError(f"{what}: temperature outside [10, 1e9]: {Tr}")
+    if not torch.equal(P[:, m], w.wind_state(P, sim.t)[:, m]):
+        raise AssertionError(f"{what}: the wind region does not hold the "
+                             f"wind state")
+    return {"T_range_outside_wind": Tr, "wind_cells": int(m.sum())}
+
+
+def check_cyl_hierarchy(hier, what: str) -> dict:
+    """Finite on every level; the finest level's wind region holds the wind
+    state; level l equals level l+1's restriction where that covers it."""
+    for l in range(hier.n_levels):
+        if not bool(torch.isfinite(hier.P[l]).all()):
+            raise AssertionError(f"{what}: non-finite values on level {l}")
+    fine = hier.n_levels - 1
+    w = hier.phys[fine].winds[0]
+    m = w.mask_like(hier.P[fine])
+    if not torch.equal(hier.P[fine][:, m],
+                       w.wind_state(hier.P[fine], hier.t)[:, m]):
+        raise AssertionError(f"{what}: the wind region of level {fine} does "
+                             f"not hold the wind state")
+    for l in range(fine):
+        if not torch.equal(hier._restrict(hier.P[l], hier.P[l + 1], l + 1),
+                           hier.P[l]):
+            raise AssertionError(f"{what}: level {l} is not the restriction "
+                                 f"of level {l + 1} where that covers it")
+    return {"wind_cells": int(m.sum())}
+
+
+def cyl_blast_path():
+    """The axisymmetric blast as a user runs it, ``Simulation(cfg,
+    P0).run``: configuration 1's physics (GLM-MHD, HLLD with the fallback,
+    Falle AV, a tracer) on (R, z) = (1024, 2048) float32, the blast on the
+    axis, a field of 0.1 along z; 10 steps, mass (volume-weighted, float64
+    on the host) to 1e-5, kernels against ``kernels="off"`` after 2 more
+    steps to 1e-4.  Then the Euler/HLL variant, and float64 at (256, 512),
+    3 steps, to 1e-9.  Then 10 steps chunked (k = 5) against single steps,
+    bit for bit.  Returns (record, launch counts of the GLM run, the chunked
+    runs for ``chunk_timing``)."""
+    from pion_tpu_torch import Simulation
+    from pion_tpu_torch.ics import blast_wave
+
+    b0 = (0.1, 0.0, 0.0)
+    rec, counts, sim = main_path(CYL_SHAPE, "float32", steps=10,
+                                 agree_tol=1.0e-4, plain_steps=2,
+                                 launches=CYL_BLAST_LAUNCHES, B0=b0,
+                                 **cyl_box(CYL_SHAPE))
+    del sim
+    rec["euler_hll"] = main_path(
+        CYL_SHAPE, "float32", steps=10, agree_tol=1.0e-4, plain_steps=2,
+        launches=CYL_BLAST_LAUNCHES, eqn="euler", solver="hll",
+        **cyl_box(CYL_SHAPE))[0]
+    rec["float64"] = main_path((256, 512), "float64", steps=3,
+                               agree_tol=1.0e-9, plain_steps=2,
+                               launches=CYL_BLAST_LAUNCHES, B0=b0,
+                               **cyl_box((256, 512)))[0]
+    cfg = main_cfg(CYL_SHAPE, "float32", **cyl_box(CYL_SHAPE))
+    P0 = blast_wave(cfg, B0=b0)
+    rec["chunked"], a, b = chunk_case(lambda: Simulation(cfg, P0),
+                                      "cylindrical blast float32",
+                                      CYL_BLAST_LAUNCHES, max_steps=10,
+                                      chunk=5)
+    return rec, counts, {"cyl_blast": (a, b, 5, CYL_BLAST_LAUNCHES)}
+
+
+def cyl_wind_path(steps: int = 10):
+    """The Ostar2 class as a user runs it, ``Simulation(cfg, P0,
+    physics=Physics(mp=MPOnlyCooling(...), wind_sources=[...],
+    dt_limit=True)).run``, on (128, 256) float32 (``cyl_wind_problem``):
+    ``steps`` single steps (the wind's first alone, under its first-step
+    cap), the state checked; 2 more steps with the kernels and with
+    ``kernels="off"``, compared group by group at CYL_AGREE_TOL; then the
+    same run chunked (k = 5) against single steps, bit for bit.  Returns
+    (record, launch counts, the chunked runs for ``chunk_timing``)."""
+    from pion_tpu_torch import Simulation
+
+    cfg, P0, make_physics = cyl_wind_problem()
+    cells = int(np.prod(cfg.shape))
+    Simulation(cfg, P0, physics=make_physics()).run(max_steps=2)  # warm-up
+    sim = Simulation(cfg, P0, physics=make_physics())
+    reset_counts()
+    sec, peak = timed_run(sim, steps)
+    counts = read_counts()
+    if sim.step_count != steps or not sim.t > 0.0:
+        raise AssertionError(f"run ended at step {sim.step_count}, t={sim.t}")
+    want = {k: v * steps for k, v in CYL_WIND_LAUNCHES.items()}
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    state = check_cyl_wind(sim, "cylindrical wind")
+    clock = dict(t=sim.t, step_count=sim.step_count, last_dt=sim.last_dt)
+    a = Simulation(cfg, sim.P, physics=make_physics(), **clock)
+    a.run(max_steps=steps + 2)
+    b = Simulation(dataclasses.replace(cfg, kernels="off"), sim.P,
+                   physics=make_physics(), **clock)
+    sec_off, _ = timed_run(b, 2)
+    errs = level_errs(a.P, b.P, cfg.dx / b.last_dt)
+    bad = {k: e for k, e in errs.items() if not e <= CYL_AGREE_TOL}
+    if bad or abs(a.t - b.t) > 1.0e-5 * abs(b.t):
+        raise AssertionError(f"kernel and plain paths disagree after 2 "
+                             f"steps: {errs} (t {a.t} vs {b.t}), tol "
+                             f"{CYL_AGREE_TOL:.1e}")
+    chunked, ca, cb = chunk_case(
+        lambda: Simulation(cfg, P0, physics=make_physics()),
+        "cylindrical wind float32", CYL_WIND_LAUNCHES, first=1,
+        max_steps=11, chunk=5)
+    chunked["state"] = check_cyl_wind(ca, "cylindrical wind, chunked")
+    rec = {
+        "shape": list(cfg.shape), "dtype": cfg.dtype, "steps": steps,
+        "t": sim.t, "last_dt": sim.last_dt, "launches": counts, **state,
+        "kernels_vs_plain_2_steps": errs, "tol": CYL_AGREE_TOL,
+        "host_ms_per_step": sec / steps * 1.0e3,
+        "cell_updates_per_s": cells * steps / sec, "peak_mem_bytes": peak,
+        "plain_host_ms_per_step": sec_off / 2 * 1.0e3, "chunked": chunked}
+    return rec, counts, {"cyl_wind": (ca, cb, 5, CYL_WIND_LAUNCHES)}
+
+
+def cyl_ng_path(steps: int = 6):
+    """The Wind2D class as a user runs it, ``NGHierarchy(cfg, 3,
+    physics=...)`` (``cyl_ng_problem``, 3 levels of (128, 256) float32):
+    ``steps`` hierarchy steps, checked; 2 more with the kernels and with
+    ``kernels="off"``, every level compared at CYL_AGREE_TOL; then 7 steps
+    chunked (the first alone, then k = 3) against single steps, bit for
+    bit.  Returns (record, launch counts, the chunked runs)."""
+    from pion_tpu_torch import NGHierarchy
+
+    cfg, states, make_physics = cyl_ng_problem()
+    cells = 3 * int(np.prod(cfg.shape))
+
+    def make(c=cfg):
+        hier = NGHierarchy(c, 3, physics=make_physics())
+        hier.set_states(states)
+        return hier
+
+    make().step()                                       # warm-up
+    hier = make()
+    reset_counts()
+    sec, peak = time_steps(hier, steps)
+    counts = read_counts()
+    want = {k: v * steps for k, v in CYL_NG_LAUNCHES.items()}
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    state = check_cyl_hierarchy(hier, "cylindrical hierarchy")
+    a, b = make(), make(dataclasses.replace(cfg, kernels="off"))
+    for h in (a, b):
+        h.set_states([p.clone() for p in hier.P])
+        h.t, h.step_count, h.last_dt = hier.t, hier.step_count, hier.last_dt
+    time_steps(a, 2)
+    sec_off, _ = time_steps(b, 2)
+    errs = {f"level{l}": grouped_err(a.P[l], b.P[l], [[0], [1], [2, 3, 4]])
+            for l in range(3)}
+    if max(errs.values()) > CYL_AGREE_TOL or abs(a.t - b.t) > 1.0e-5 * b.t:
+        raise AssertionError(f"kernel and plain hierarchies disagree after 2 "
+                             f"steps: {errs} (t {a.t} vs {b.t}), tol "
+                             f"{CYL_AGREE_TOL:.1e}")
+    chunked, ca, cb = chunk_case(make, "cylindrical hierarchy float32",
+                                 CYL_NG_LAUNCHES, first=1, max_steps=7,
+                                 chunk=3)
+    chunked["state"] = check_cyl_hierarchy(ca, "cylindrical hierarchy, "
+                                                "chunked")
+    rec = {
+        "levels": 3, "shape": list(cfg.shape), "dtype": cfg.dtype,
+        "steps": steps, "t": hier.t, "launches": counts, **state,
+        "kernels_vs_plain_2_steps": errs, "tol": CYL_AGREE_TOL,
+        "host_ms_per_step": sec / steps * 1.0e3,
+        "cell_updates_per_s": cells * steps / sec, "peak_mem_bytes": peak,
+        "plain_host_ms_per_step": sec_off / 2 * 1.0e3, "chunked": chunked}
+    return rec, counts, {"cyl_ng": (ca, cb, 3, CYL_NG_LAUNCHES)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -2604,17 +2982,27 @@ def main(argv=None):
 
     info = _build.load_all()
     # per library: [kernel, registers, spill stores, spill loads] of the
-    # instantiation with the most registers and of the one that spills most
+    # instantiation with the most registers and of the one that spills most,
+    # and the same over the radial instantiations of B1/B2 (GEO = 1, the
+    # last template argument)
+    def most(rows):
+        return {"kernels": len(rows),
+                "max_registers": max(rows, key=lambda r: r["registers"]),
+                "max_spill": max(rows, key=lambda r: r["spill_stores"])}
+
+    def radial_rows(rows):
+        return [r for r in rows if r["kernel"].startswith(
+            ("sweep_axis<", "final_axis<")) and r["kernel"].endswith(",1>")]
+
     emit("build", seconds=info["seconds"], built=info["built"],
-         ptxas={name: {"kernels": len(rows),
-                       "max_registers": max(rows, key=lambda r: r["registers"]),
-                       "max_spill": max(rows, key=lambda r: r["spill_stores"])}
+         ptxas={name: dict(most(rows), radial=most(radial_rows(rows))
+                           if radial_rows(rows) else None)
                 for name, rows in info["variants"].items() if rows})
     if args.out:
         with open(os.path.join(args.out, "ptxas.json"), "w") as f:
             json.dump(info["variants"], f, indent=1)
 
-    worst, ncase, by_variant = check_kernels(device)
+    worst, ncase, by_variant, radial_errs = check_kernels(device)
     emit("kernel_checks", cases=ncase,
          max_rel_err={k: {"sweep_axis": v[0], "final_axis": v[1]}
                       for k, v in worst.items()}, tol={"float64": TOL[torch.float64],
@@ -2624,7 +3012,11 @@ def main(argv=None):
                     for k, v in by_dtype.items()}
              for name, by_dtype in by_variant.items()},
          tol_mhd_linear_roe={"float64": TOL_MHD_WAVES[torch.float64],
-                             "float32": TOL_MHD_WAVES[torch.float32]})
+                             "float32": TOL_MHD_WAVES[torch.float32]},
+         max_rel_err_radial_by_variant={
+             name: {k: {"sweep_axis": v[0], "final_axis": v[1]}
+                    for k, v in by_dtype.items()}
+             for name, by_dtype in radial_errs.items()})
     w_mp, n_mp, ladder = check_mpv3(device)
     emit("mpv3_checks", cases=n_mp, max_soft_rel_err=w_mp, ladder=ladder,
          ydot_grid=check_ydot_grid(device),
@@ -2648,7 +3040,9 @@ def main(argv=None):
     # B1's top-level numbers are the blast path's mix (axes 1 and 2, no
     # tracer clamp); its numbers on the H II path's mix stand under "hii"
     rows[0]["hii"] = hii_sweep
-    emit("kernels", kernels=rows, variants=variants)
+    # the radial branch of B1 and B2 at the axisymmetric blast's shape
+    radial = measure_radial(device)
+    emit("kernels", kernels=rows, variants=variants, radial=radial)
 
     rec32, counts, sim32 = main_path((128, 128, 128), "float32", steps=10,
                                      agree_tol=1.0e-4, plain_steps=3)
@@ -2710,12 +3104,22 @@ def main(argv=None):
     emit("ng_path_f64", **rec_ng64)
     del hier64
 
+    # 2D axisymmetric runs: the radial branch of B1 and B2
+    rec_cb, counts_cb, cyl_runs = cyl_blast_path()
+    emit("cyl_blast_path", **rec_cb)
+    rec_cw, counts_cw, runs_cw = cyl_wind_path()
+    emit("cyl_wind_path", **rec_cw)
+    rec_cn, counts_cn, runs_cn = cyl_ng_path()
+    emit("cyl_ng_path", **rec_cn)
+    cyl_runs.update(runs_cw, **runs_cn)
+
     # several steps in one dispatch: each path's chunked run against its
     # single steps, then both timed in this call
     rec_chunk, chunk_runs = chunk_checks(device)
     emit("chunk_checks", cases=rec_chunk)
+    chunk_runs.update(cyl_runs)
     emit("chunk_timing", **chunk_timing(chunk_runs))
-    del chunk_runs
+    del chunk_runs, cyl_runs
 
     # launches on the main paths: each kernel's count from the run of the
     # path its numbers were measured for (B1 and B2: the blast wave, and B1
@@ -2765,7 +3169,27 @@ def main(argv=None):
             row["variants"].append(entry)
     for row in rows:
         row["launches_by_path"].update(euler=counts_e[row["name"]],
-                                       euler_wind=counts_w[row["name"]])
+                                       euler_wind=counts_w[row["name"]],
+                                       cyl_blast=counts_cb[row["name"]],
+                                       cyl_wind=counts_cw[row["name"]],
+                                       cyl_ng=counts_cn[row["name"]])
+    # the radial branch: launches on the axisymmetric paths (B2 only on the
+    # pure-dynamics blast, B1 on axis 0 only on the runs with physics), the
+    # errors from ``kernel_checks``, the times from ``kernels``
+    for row in rows[:2]:
+        name = row["name"]
+        launched = {"cyl_blast": counts_cb[name], "cyl_wind": counts_cw[name],
+                    "cyl_ng": counts_cn[name]}
+        if max(launched.values()) < 1:
+            raise AssertionError(f"{name} was not launched on the "
+                                 f"axisymmetric paths")
+        row["radial"] = {"launches_by_path": launched,
+                         "max_rel_err_by_variant": {
+                             v: {k: e[0 if name == "sweep_axis" else 1]
+                                 for k, e in by_dtype.items()}
+                             for v, by_dtype in radial_errs.items()},
+                         **{v: rec[name] for v, rec in radial.items()
+                            if name in rec}}
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,9 @@ float32 it times:
   kernels (HLL, linear, Roe-CV, Roe-PV), and B1 on configuration 1's blast
   with the MHD linear and Roe-CV solvers (where the port's kernels take
   them: ``fused_sweep.supports``);
+- the radial branch: B1 (axis 0, the radial one, and axis 1) and B2 on the
+  axisymmetric blast at (R, z) = (1024, 2048) float32, configuration 1's
+  physics and Euler/HLL (where the port's kernels take a cylindrical grid);
 - B5 on the H II state's optical depths (128^3 float32), the source at the
   centre (the H II and coupled traffic: 65 shells) and in a corner (128
   shells); where the port has ``fused_trace.trace_plan``, also the plan and
@@ -146,6 +149,29 @@ def main(argv=None):
         waves[name] = rec
         del vP, vpad, vstrong
     emit("solver_variants", **waves)
+
+    # --- the radial branch: the axisymmetric blast, configuration 1's
+    # physics and Euler/HLL (where the port's kernels take a cylindrical
+    # grid: ``fused_sweep.supports``)
+    radial = {}
+    for kw in (dict(), dict(eqn="euler", solver="hll")):
+        rcfg = cs.main_cfg(cs.CYL_SHAPE, "float32",
+                           **cs.cyl_box(cs.CYL_SHAPE), **kw)
+        name = cs.variant(rcfg)
+        if not fs.supports(rcfg):
+            radial[name] = None
+            continue
+        rgeom, rP, rpad, rstrong, rdt, rch = cs.kernel_inputs(rcfg, 7, dev)
+        rb1 = cs.sweep_mix_ms(rpad, rcfg, rgeom, (0, 1), rdt, rch, rstrong)
+        rc = [fs.sweep_axis(rpad, rcfg, rgeom, 1, 2, rdt, ch=rch,
+                            strong=rstrong)]
+        rb2 = {f"order{o}": cs.time_ms(
+            lambda: fs.final_axis(rP, rpad, rc, rcfg, rgeom, o, rdt, ch=rch,
+                                  strong=rstrong), 20) for o in (1, 2)}
+        radial[name] = {"shape": list(rcfg.shape), "sweep_axis": rb1,
+                        "final_axis": rb2, "final_axis_mix_ms": mix(rb2)}
+        del rP, rpad, rstrong, rc
+    emit("radial", **radial)
 
     # --- the H II region after six steps: B1 (scma) and B3
     sim, P0 = cs.hii_run(128, 6)

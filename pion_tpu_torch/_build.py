@@ -65,10 +65,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_long
 _D = ctypes.c_double
-_SWEEP_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+_SWEEP_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                ctypes.c_ulonglong, _I, _I, _D, _D, _D, _D, _D, _D, _P]
-_FINAL_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-               _I, _I, _D, _D, _D, _D, _D, _D, _P]
+_FINAL_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+               _I, _I, _I, _D, _D, _D, _D, _D, _D, _P]
 _DP = ctypes.POINTER(ctypes.c_double)
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _MP_HEAD = [_P, _P, _P, _PP, _I, _P, _P, _P]          # cells, sources, tables

@@ -8,7 +8,9 @@ boundary strips.  The reference side is described without importing it: its
 the field as a numpy array.
 
 The chemistry and radiation set-up crosses the same way: the reference's
-``MPv3Config`` and each ``Source`` as their ``dataclasses.asdict`` dicts (a
+``MPv3Config`` or ``CoolingConfig`` (:func:`cooling_config_from_reference`,
+:func:`cooling_config_to_reference`) and each ``Source`` as their
+``dataclasses.asdict`` dicts (a
 source's evolution table as numpy arrays), from which
 :func:`physics_from_reference` builds the port's ``Physics``.  The port
 rebuilds its own rate tables; :func:`check_rate_tables` holds them against
@@ -27,6 +29,7 @@ import torch
 
 from .boundaries import BoundaryData
 from .config import SimConfig
+from .microphysics.cooling import CoolingConfig, MPOnlyCooling
 from .microphysics.mpv3 import MPv3, MPv3Config
 from .physics import Physics
 from .raytracing.tracer import Source, StarEvolution
@@ -116,6 +119,23 @@ def mpv3_config_from_reference(mpc_fields: dict) -> MPv3Config:
     return MPv3Config(**mpc_fields)
 
 
+def cooling_config_from_reference(mpc_fields: dict) -> CoolingConfig:
+    """The port's ``CoolingConfig`` from the reference's, given as its
+    ``dataclasses.asdict`` dict; a key the port does not know is rejected by
+    name."""
+    known = {f.name for f in dataclasses.fields(CoolingConfig)}
+    unknown = sorted(set(mpc_fields) - known)
+    if unknown:
+        raise ValueError(f"unknown CoolingConfig keys: {', '.join(unknown)}")
+    return CoolingConfig(**mpc_fields)
+
+
+def cooling_config_to_reference(mpc: CoolingConfig) -> dict:
+    """The way back: the fields of a ``CoolingConfig``, for the reference's
+    ``CoolingConfig(**fields)``."""
+    return dataclasses.asdict(mpc)
+
+
 def source_from_reference(src_fields: dict) -> Source:
     """The port's ``Source`` from the reference's ``dataclasses.asdict``
     dict.  ``evolution`` is None or a dict of the four table columns."""
@@ -161,11 +181,16 @@ def physics_from_reference(mpc_fields: Optional[dict],
                            sources: Sequence[dict] = (),
                            dt_limit=2,
                            wind_sources: Sequence[dict] = ()) -> Physics:
-    """The port's ``Physics`` (MPv3 chemistry, radiation sources and
-    stellar-wind sources) from the reference's set-up, so that both packages
-    compute the same thing."""
-    mp = None if mpc_fields is None else MPv3(
-        mpv3_config_from_reference(mpc_fields))
+    """The port's ``Physics`` (MPv3 chemistry or, for fields of a
+    ``CoolingConfig`` (they name a ``curve``), the cooling-only module;
+    radiation sources and stellar-wind sources) from the reference's set-up,
+    so that both packages compute the same thing."""
+    if mpc_fields is None:
+        mp = None
+    elif "curve" in mpc_fields:
+        mp = MPOnlyCooling(cooling_config_from_reference(mpc_fields))
+    else:
+        mp = MPv3(mpv3_config_from_reference(mpc_fields))
     return Physics(
         mp=mp, sources=[source_from_reference(s) for s in sources],
         dt_limit=dt_limit,

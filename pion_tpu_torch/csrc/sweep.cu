@@ -1,5 +1,5 @@
 // Fused finite-volume sweep kernels for the Euler, MHD and GLM-MHD systems on
-// Cartesian grids.
+// Cartesian grids and on 2D axisymmetric (cylindrical) grids.
 //
 // What they replace.  `sweep_axis_kernel` replaces the TPU kernel
 // `_sweep_axis_pallas` (pion_tpu/ops/pallas_sweep.py, tile math in
@@ -61,6 +61,21 @@
 // reads its sound speed), and it has no Powell or GLM sources.  The Euler
 // and the MHD linear/Roe branches are the plain port of their solvers to one
 // interface a thread, on the tiles redesigned for MHD.
+//
+// The radial axis of a 2D cylindrical grid (array axis 0, R; template
+// parameter GEO = 1, the TPU kernel's `geo` pack) runs the same tiles and
+// phases with the (6, n + 4) geometry pack of fused_sweep.radial_geo staged
+// beside the state: the one-sided differences are taken over the
+// centre-of-volume spacing and the edge states offset by del_n/del_p (as in
+// the plain version, so the two agree to the last bits of FMA use), the flux
+// divergence is div_cn F- - div_cp F+, the Powell term takes the cylindrical
+// factors, and the cell adds the radial geometric sources -- p/R (MHD (p +
+// B^2/2)/R) to the normal momentum and, for GLM, c_h psi/R to the normal
+// field, at order 2 with the slope correction from its centre of volume.
+// The GLM psi term keeps 1/dx, as the reference does.  The pack is computed
+// on the host in float64 and cast once: no radius is squared on the card
+// (R^2 leaves float32 beyond ~1.8e19 cm).  GEO = 0 compiles to the
+// Cartesian code.
 //
 // Built once per (scalar type, solver) with -DPION_REAL and -DPION_SOLVER;
 // equation system, viscosity and order are template parameters selected in the
@@ -127,14 +142,26 @@ __device__ __forceinline__ int rot(int k, int j) {
 // The cells of a tile staged in shared memory, addressed relative to the
 // cell `pos` along the sweep axis: variable v of staged row r and
 // pencil w at s[v * vstride + r * rstride + w]; `pos` = r * rstride + w.
-template <typename T>
+// GEO = 1 (the radial axis): g points at the staged geometry pack's entry of
+// the cell's row r, whose six rows of gR entries hold com, del_n, del_p, pos
+// and, for the tile's own cells, div_cn and div_cp.
+template <typename T, int GEO = 0>
 struct TileCells {
+  static constexpr bool radial = GEO != 0;
   const T* s;
   const uint8_t* m;   // staged mask, or null
   int vstride, rstride, pos;
+  const T* g;         // GEO: the staged pack at this cell's row
+  int gR;             // GEO: entries a row of the staged pack
   __device__ __forceinline__ T operator()(int v, int rel) const { return s[v * vstride + pos + rel * rstride]; }
   __device__ __forceinline__ bool has_mask() const { return m != nullptr; }
   __device__ __forceinline__ uint8_t flag(int rel) const { return m[pos + rel * rstride]; }
+  __device__ __forceinline__ T com(int rel) const { return g[rel]; }
+  __device__ __forceinline__ T del_n(int rel) const { return g[gR + rel]; }
+  __device__ __forceinline__ T del_p(int rel) const { return g[2 * gR + rel]; }
+  __device__ __forceinline__ T rpos(int rel) const { return g[3 * gR + rel]; }
+  __device__ __forceinline__ T div_cn() const { return g[4 * gR]; }
+  __device__ __forceinline__ T div_cp() const { return g[5 * gR]; }
 };
 
 // Base variables of the cell `rel` steps along the axis, rotated into the
@@ -166,6 +193,20 @@ __device__ __forceinline__ void edge_pair(T qm, T qa, T qb, T qp, const Consts<T
     pl = qa + van_albada(d0, d1) * c.half_dx;
     pr = qb - van_albada(d1, d2) * c.half_dx;
   }
+}
+
+// The same on the radial axis, as the plain version reconstructs: the
+// one-sided differences over the centre-of-volume spacing of the four cells,
+// the edges at the offsets del_p of cell a and del_n of cell b from their
+// centres of volume.  `P` is centred on cell a + ra.
+template <typename T, class Cells>
+__device__ __forceinline__ void edge_pair_radial(T qm, T qa, T qb, T qp, const Cells& P, int ra,
+                                                 T& pl, T& pr) {
+  const T d0 = (qa - qm) / (P.com(ra) - P.com(ra - 1));
+  const T d1 = (qb - qa) / (P.com(ra + 1) - P.com(ra));
+  const T d2 = (qp - qb) / (P.com(ra + 2) - P.com(ra + 1));
+  pl = qa + van_albada(d0, d1) * P.del_p(ra);
+  pr = qb + van_albada(d1, d2) * P.del_n(ra + 1);
 }
 
 // The Euler system's solve of one interface from its edge states: the
@@ -271,8 +312,13 @@ __device__ __forceinline__ void interface_flux(const Cells& P, int k, const Cons
       T qm[NB], qp[NB];
       load_cell<T, NB>(P, -1, k, qm);
       load_cell<T, NB>(P, 2, k, qp);
+      if constexpr (Cells::radial) {
 #pragma unroll
-      for (int v = 0; v < NB; ++v) edge_pair<T, ORDER>(qm[v], qa[v], qb[v], qp[v], c, Pl[v], Pr[v]);
+        for (int v = 0; v < NB; ++v) edge_pair_radial<T>(qm[v], qa[v], qb[v], qp[v], P, 0, Pl[v], Pr[v]);
+      } else {
+#pragma unroll
+        for (int v = 0; v < NB; ++v) edge_pair<T, ORDER>(qm[v], qa[v], qb[v], qp[v], c, Pl[v], Pr[v]);
+      }
     }
   }
   if constexpr (EQN == EQN_EULER) {
@@ -302,8 +348,13 @@ __device__ __forceinline__ void tracer_edges(const Cells& P, int v, const Consts
     pl[1] = q0;  pr[1] = qp1;
   } else {
     const T qm2 = P(v, -2), qp2 = P(v, 2);
-    edge_pair<T, ORDER>(qm2, qm1, q0, qp1, c, pl[0], pr[0]);
-    edge_pair<T, ORDER>(qm1, q0, qp1, qp2, c, pl[1], pr[1]);
+    if constexpr (Cells::radial) {
+      edge_pair_radial<T>(qm2, qm1, q0, qp1, P, -1, pl[0], pr[0]);
+      edge_pair_radial<T>(qm1, q0, qp1, qp2, P, 0, pl[1], pr[1]);
+    } else {
+      edge_pair<T, ORDER>(qm2, qm1, q0, qp1, c, pl[0], pr[0]);
+      edge_pair<T, ORDER>(qm1, q0, qp1, qp2, c, pl[1], pr[1]);
+    }
   }
 }
 
@@ -349,25 +400,76 @@ __device__ __forceinline__ void tracer_updates(const Cells& P, const Layout& L, 
     }
     const T f_lo = tracer_flux(fm_lo, pl[0], pr[0]);
     const T f_hi = tracer_flux(fm_hi, pl[1], pr[1]);
-    sink(v, dt * ((f_lo - f_hi) / c.dx));
+    if constexpr (Cells::radial) {
+      sink(v, dt * (P.div_cn() * f_lo - P.div_cp() * f_hi));
+    } else {
+      sink(v, dt * ((f_lo - f_hi) / c.dx));
+    }
   }
 }
 
-// Powell 8-wave and GLM advective source terms of the cell `P` is centred on,
-// added to its flux divergence `acc` (sweep frame); writes dt * dU.  The
-// Euler system has no sources.
-template <typename T, int EQN, class Cells>
+// The van Albada slope of variable v at the cell `P` is centred on, over its
+// centre-of-volume spacing (the radial axis).
+template <typename T, class Cells>
+__device__ __forceinline__ T radial_slope(const Cells& P, int v) {
+  const T q0 = P(v, 0);
+  return van_albada((q0 - P(v, -1)) / (P.com(0) - P.com(-1)),
+                    (P(v, 1) - q0) / (P.com(1) - P.com(0)));
+}
+
+// Source terms of the cell `P` is centred on, added to its flux divergence
+// `acc` (sweep frame); writes dt * dU.  On the radial axis first the
+// geometric sources (reference: solver_eqn_hydro_adi.cpp:560-707,
+// solver_eqn_mhd_adi.cpp:1001-1030,1180-1215): p/R, MHD (p + B^2/2)/R, to
+// the normal momentum and GLM c_h psi/R to the normal field, with the slope
+// correction (R - com) * slope at order 2.  Then, for MHD, the Powell
+// 8-wave and GLM advective terms.  The Euler system has no other sources.
+template <typename T, int EQN, int ORDER, class Cells>
 __device__ __forceinline__ void cell_sources(const Cells& P, int k, const Consts<T>& c, T dt,
-                                             T (&acc)[NBase<EQN>::value],
+                                             T ch, T (&acc)[NBase<EQN>::value],
                                              T (&dU)[NBase<EQN>::value]) {
   constexpr int NB = NBase<EQN>::value;
+  if constexpr (Cells::radial) {
+    // unrotated slots: the field components are summed x, y, z, as the
+    // plain version sums them
+    const T r = P.rpos(0), pg = P(PG, 0);
+    T src;
+    if constexpr (EQN == EQN_EULER) {
+      if (ORDER == 1) src = pg / r;
+      else src = (pg + (r - P.com(0)) * radial_slope<T>(P, PG)) / r;
+    } else {
+      const T bx = P(BX, 0), by = P(BY, 0), bz = P(BZ, 0);
+      const T pm = T(0.5) * (bx * bx + by * by + bz * bz);
+      if (ORDER == 1) {
+        src = (pg + pm) / r;
+      } else {
+        const T corr = radial_slope<T>(P, PG) + bx * radial_slope<T>(P, BX) +
+                       by * radial_slope<T>(P, BY) + bz * radial_slope<T>(P, BZ);
+        src = (pg + pm + (r - P.com(0)) * corr) / r;
+      }
+    }
+    acc[VX] = acc[VX] + src;
+    if constexpr (EQN == EQN_GLM) {
+      const T psi = P(SI, 0);
+      T sb;
+      if (ORDER == 1) sb = ch * psi / r;
+      else sb = ch * (psi + (r - P.com(0)) * radial_slope<T>(P, SI)) / r;
+      acc[BX] = acc[BX] + sb;
+    }
+  }
   if constexpr (EQN != EQN_EULER) {
     // Powell 8-wave source terms (reference: solver_eqn_mhd_adi.cpp:396-443)
     T Pc[NB];
     load_cell<T, NB>(P, 0, k, Pc);
     const int bn = BX + k;
     const T b_lo = P(bn, -1), b_hi = P(bn, 1);
-    const T dbm = (T(0.5) * (b_lo + Pc[BX]) - T(0.5) * (Pc[BX] + b_hi)) / c.dx;
+    T dbm;
+    if constexpr (Cells::radial) {
+      // cylindrical radial divergence factors (solver_eqn_mhd_adi.cpp:1092-1103)
+      dbm = P.div_cn() * (T(0.5) * (b_lo + Pc[BX])) - P.div_cp() * (T(0.5) * (Pc[BX] + b_hi));
+    } else {
+      dbm = (T(0.5) * (b_lo + Pc[BX]) - T(0.5) * (Pc[BX] + b_hi)) / c.dx;
+    }
     // u.B summed in the order of the unrotated slots x, y, z
     const int jx = rot(3 - k, 0);  // sweep-frame slot that holds the x component
     T ub[3];
@@ -413,20 +515,30 @@ template <typename T>
 struct Tile {
   T* s_state;        // nvar x R x rs: the staged stencil
   T* s_flux;         // NB x (T+1) x rs: the base fluxes of the tile's faces
+  T* s_geo;          // GEO: 6 x R, the geometry pack of the staged rows; or null
   uint8_t* s_mask;   // R x rs, or null
   int R, rs, fs;     // staged rows, row stride, flux rows
   int a0, w0, t3;    // first cell along, first pencil across, plane
   int nA, nW;        // cells along, pencils across
 };
 
+// The accessor of the staged cell in row r, pencil w of a tile.
+template <typename T, int GEO>
+__device__ __forceinline__ TileCells<T, GEO> tile_cells(const Tile<T>& t, int r, int w) {
+  return TileCells<T, GEO>{t.s_state, t.s_mask, t.R * t.rs, t.rs, r * t.rs + w,
+                           GEO ? t.s_geo + r : nullptr, t.R};
+}
+
 // Phases 1 and 2 of a tile: stage the stencil -- every variable of the
-// T + 2*ORDER cells of each pencil, and the fallback mask -- in shared
-// memory once, then solve each of the tile's T + 1 interfaces once and keep
-// their base fluxes in shared memory.  Ends with a block barrier.  dt and
-// ch are read from the card while the stencil's copies are in flight.
-template <typename T, int EQN, int SOLVER, int AV, int ORDER>
+// T + 2*ORDER cells of each pencil, the fallback mask and, on the radial
+// axis, the geometry pack of those rows -- in shared memory once, then solve
+// each of the tile's T + 1 interfaces once and keep their base fluxes in
+// shared memory.  Ends with a block barrier.  dt and ch are read from the
+// card while the stencil's copies are in flight.
+template <typename T, int EQN, int SOLVER, int AV, int ORDER, int GEO>
 __device__ __forceinline__ Tile<T> stage_and_solve(const T* __restrict__ P,
                                                    const uint8_t* __restrict__ mask,
+                                                   const T* __restrict__ geo,
                                                    const T* __restrict__ dt_p,
                                                    const T* __restrict__ ch_p, const Layout& L,
                                                    const Tiling& tl, const Consts<T>& c, T& dt,
@@ -440,7 +552,10 @@ __device__ __forceinline__ Tile<T> stage_and_solve(const T* __restrict__ P,
   t.fs = tl.T + 1;
   t.s_state = reinterpret_cast<T*>(smem_raw);
   t.s_flux = t.s_state + (long)L.nvar * t.R * t.rs;
-  t.s_mask = mask != nullptr ? reinterpret_cast<uint8_t*>(t.s_flux + NB * t.fs * t.rs) : nullptr;
+  t.s_geo = GEO ? t.s_flux + NB * t.fs * t.rs : nullptr;
+  t.s_mask = mask != nullptr
+                 ? reinterpret_cast<uint8_t*>(t.s_flux + NB * t.fs * t.rs + (GEO ? 6 * t.R : 0))
+                 : nullptr;
 
   // which tile
   int b = blockIdx.x;
@@ -465,6 +580,21 @@ __device__ __forceinline__ Tile<T> stage_and_solve(const T* __restrict__ P,
     for (int v = 0; v < L.nvar; ++v) cp_async(t.s_state + v * t.R * t.rs + s, P + g + v * L.vs);
     if (mask != nullptr) t.s_mask[s] = mask[g];
   }
+  if constexpr (GEO != 0) {
+    // the pack's rows of the staged cells: com, del_n, del_p, pos at padded
+    // index a0 - H + r + 2; div_cn, div_cp of the tile's own cells (interior
+    // index a0 + r - H)
+    const long npad = tl.n_along + 4;
+    for (int r = threadIdx.x; r < nR; r += THREADS) {
+      const long p = t.a0 - H + r + 2;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) t.s_geo[q * t.R + r] = geo[q * npad + p];
+      if (r >= H && r < H + t.nA) {
+        t.s_geo[4 * t.R + r] = geo[4 * npad + p - 2];
+        t.s_geo[5 * t.R + r] = geo[5 * npad + p - 2];
+      }
+    }
+  }
   dt = *dt_p;
   ch = *ch_p;
   cp_async_wait_all();
@@ -475,7 +605,7 @@ __device__ __forceinline__ Tile<T> stage_and_solve(const T* __restrict__ P,
   for (int j = threadIdx.x; j < (t.nA + 1) * t.nW; j += THREADS) {
     int f, w;
     tile_pos(j, t.nA + 1, t.nW, tl.along_fast, f, w);
-    const TileCells<T> cells{t.s_state, t.s_mask, t.R * t.rs, t.rs, (H - 1 + f) * t.rs + w};
+    const TileCells<T, GEO> cells = tile_cells<T, GEO>(t, H - 1 + f, w);
     T flux[NB];
     interface_flux<T, EQN, SOLVER, AV, ORDER>(cells, L.k, c, ch, flux);
 #pragma unroll
@@ -488,27 +618,35 @@ __device__ __forceinline__ Tile<T> stage_and_solve(const T* __restrict__ P,
 // Phase 3's start for cell (a, w) of a tile: the flux divergence from the
 // staged face fluxes, the mass flux through its two faces, and the
 // accessor of its staged stencil.
-template <typename T, int NB, int ORDER>
-__device__ __forceinline__ TileCells<T> cell_divergence(const Tile<T>& t, int a, int w,
-                                                        const Consts<T>& c, T (&acc)[NB], T& fm_lo,
-                                                        T& fm_hi) {
+template <typename T, int NB, int ORDER, int GEO>
+__device__ __forceinline__ TileCells<T, GEO> cell_divergence(const Tile<T>& t, int a, int w,
+                                                             const Consts<T>& c, T (&acc)[NB],
+                                                             T& fm_lo, T& fm_hi) {
+  const TileCells<T, GEO> cells = tile_cells<T, GEO>(t, ORDER + a, w);
+  if constexpr (GEO != 0) {
+    const T cn = cells.div_cn(), cp = cells.div_cp();
 #pragma unroll
-  for (int v = 0; v < NB; ++v)
-    acc[v] = (t.s_flux[(v * t.fs + a) * t.rs + w] - t.s_flux[(v * t.fs + a + 1) * t.rs + w]) / c.dx;
+    for (int v = 0; v < NB; ++v)
+      acc[v] = cn * t.s_flux[(v * t.fs + a) * t.rs + w] - cp * t.s_flux[(v * t.fs + a + 1) * t.rs + w];
+  } else {
+#pragma unroll
+    for (int v = 0; v < NB; ++v)
+      acc[v] = (t.s_flux[(v * t.fs + a) * t.rs + w] - t.s_flux[(v * t.fs + a + 1) * t.rs + w]) / c.dx;
+  }
   fm_lo = t.s_flux[a * t.rs + w];
   fm_hi = t.s_flux[(a + 1) * t.rs + w];
-  return TileCells<T>{t.s_state, t.s_mask, t.R * t.rs, t.rs, (ORDER + a) * t.rs + w};
+  return cells;
 }
 
-template <typename T, int EQN, int SOLVER, int AV, int ORDER>
+template <typename T, int EQN, int SOLVER, int AV, int ORDER, int GEO>
 __global__ void __launch_bounds__(THREADS)
-sweep_axis_kernel(const T* __restrict__ P, const uint8_t* __restrict__ mask, T* __restrict__ out,
-                  const T* __restrict__ dt_p, const T* __restrict__ ch_p, Layout L, Tiling tl,
-                  Consts<T> c) {
+sweep_axis_kernel(const T* __restrict__ P, const uint8_t* __restrict__ mask,
+                  const T* __restrict__ geo, T* __restrict__ out, const T* __restrict__ dt_p,
+                  const T* __restrict__ ch_p, Layout L, Tiling tl, Consts<T> c) {
   constexpr int NB = NBase<EQN>::value;
   T dt, ch;
   const Tile<T> t =
-      stage_and_solve<T, EQN, SOLVER, AV, ORDER>(P, mask, dt_p, ch_p, L, tl, c, dt, ch);
+      stage_and_solve<T, EQN, SOLVER, AV, ORDER, GEO>(P, mask, geo, dt_p, ch_p, L, tl, c, dt, ch);
 
   // 3. each cell: divergence, sources, tracers; dt*dU written once
   const long o0 = (long)t.a0 * tl.os_along + (long)t.w0 * tl.os_across + (long)t.t3 * tl.os_third;
@@ -516,9 +654,9 @@ sweep_axis_kernel(const T* __restrict__ P, const uint8_t* __restrict__ mask, T* 
     int a, w;
     tile_pos(j, t.nA, t.nW, tl.along_fast, a, w);
     T acc[NB], fm_lo, fm_hi;
-    const TileCells<T> cells = cell_divergence<T, NB, ORDER>(t, a, w, c, acc, fm_lo, fm_hi);
+    const TileCells<T, GEO> cells = cell_divergence<T, NB, ORDER, GEO>(t, a, w, c, acc, fm_lo, fm_hi);
     T dU[NB];
-    cell_sources<T, EQN>(cells, L.k, c, dt, acc, dU);
+    cell_sources<T, EQN, ORDER>(cells, L.k, c, dt, ch, acc, dU);
     const long o = o0 + (long)a * tl.os_along + (long)w * tl.os_across;
     // back out of the sweep frame while storing
     out[o + RO * L.cells] = dU[RO];
@@ -541,17 +679,19 @@ sweep_axis_kernel(const T* __restrict__ P, const uint8_t* __restrict__ mask, T* 
 // dt*dU and the other axes' contributions to U(P_int), converts back with
 // the floors, damps psi and writes the new primitive state once.  K =
 // ndim - 1 is the physical index of axis 0 and fixes the rotation at compile
-// time, so the update runs on registers in the unrotated frame.
-template <typename T, int EQN, int SOLVER, int AV, int ORDER, int K>
+// time, so the update runs on registers in the unrotated frame.  GEO = 1:
+// axis 0 is the radial axis of a 2D cylindrical grid (K = 1).
+template <typename T, int EQN, int SOLVER, int AV, int ORDER, int K, int GEO>
 __global__ void __launch_bounds__(THREADS)
 final_axis_kernel(const T* __restrict__ P, const uint8_t* __restrict__ mask,
-                  const T* __restrict__ P_int, const T* __restrict__ c0, const T* __restrict__ c1,
-                  T* __restrict__ out, const T* __restrict__ dt_p, const T* __restrict__ ch_p,
-                  Layout L, Tiling tl, Consts<T> c) {
+                  const T* __restrict__ geo, const T* __restrict__ P_int,
+                  const T* __restrict__ c0, const T* __restrict__ c1, T* __restrict__ out,
+                  const T* __restrict__ dt_p, const T* __restrict__ ch_p, Layout L, Tiling tl,
+                  Consts<T> c) {
   constexpr int NB = NBase<EQN>::value;
   T dt, ch;
   const Tile<T> t =
-      stage_and_solve<T, EQN, SOLVER, AV, ORDER>(P, mask, dt_p, ch_p, L, tl, c, dt, ch);
+      stage_and_solve<T, EQN, SOLVER, AV, ORDER, GEO>(P, mask, geo, dt_p, ch_p, L, tl, c, dt, ch);
 
   // 3. each cell, x fastest: P_int, c0, c1 and the output are read and
   // written coalesced
@@ -560,9 +700,9 @@ final_axis_kernel(const T* __restrict__ P, const uint8_t* __restrict__ mask,
     int a, w;
     tile_pos(j, t.nA, t.nW, tl.along_fast, a, w);
     T acc[NB], fm_lo, fm_hi;
-    const TileCells<T> cells = cell_divergence<T, NB, ORDER>(t, a, w, c, acc, fm_lo, fm_hi);
+    const TileCells<T, GEO> cells = cell_divergence<T, NB, ORDER, GEO>(t, a, w, c, acc, fm_lo, fm_hi);
     T dUr[NB], dU[NB];
-    cell_sources<T, EQN>(cells, K, c, dt, acc, dUr);
+    cell_sources<T, EQN, ORDER>(cells, K, c, dt, ch, acc, dUr);
     dU[RO] = dUr[RO];
     dU[PG] = dUr[PG];
 #pragma unroll
@@ -665,25 +805,27 @@ inline Tiling make_tiling(const Layout& L, int T, int W) {
 }
 
 // Shared memory of one sweep_axis block; fused_sweep.sweep_plan computes the
-// same number.
-inline size_t tile_bytes(int nvar, int nb, int order, int T, int W, bool mask, size_t esz) {
+// same number.  geo: the radial axis, whose geometry pack is staged too.
+inline size_t tile_bytes(int nvar, int nb, int order, int T, int W, bool mask, bool geo,
+                         size_t esz) {
   const size_t R = T + 2 * order, rs = W + 1;
-  return (nvar * R * rs + nb * (size_t)(T + 1) * rs) * esz + (mask ? R * rs : 0);
+  return (nvar * R * rs + nb * (size_t)(T + 1) * rs + (geo ? 6 * R : 0)) * esz +
+         (mask ? R * rs : 0);
 }
 
 // Opt a tile kernel in to `bytes` of dynamic shared memory once it needs
 // more than the default (once per instantiation and size).  K < 0:
-// sweep_axis_kernel<E, S, A, O>; else final_axis_kernel<E, S, A, O, K>.
-template <typename T, int E, int S, int A, int O, int K>
+// sweep_axis_kernel<E, S, A, O, G>; else final_axis_kernel<E, S, A, O, K, G>.
+template <typename T, int E, int S, int A, int O, int K, int G>
 cudaError_t allow_tile_smem(size_t bytes) {
   static size_t allowed = SMEM_DEFAULT;
   if (bytes <= allowed) return cudaSuccess;
   cudaError_t e;
   if constexpr (K < 0) {
-    e = cudaFuncSetAttribute(sweep_axis_kernel<T, E, S, A, O>,
+    e = cudaFuncSetAttribute(sweep_axis_kernel<T, E, S, A, O, G>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   } else {
-    e = cudaFuncSetAttribute(final_axis_kernel<T, E, S, A, O, K>,
+    e = cudaFuncSetAttribute(final_axis_kernel<T, E, S, A, O, K, G>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   }
   if (e == cudaSuccess) allowed = bytes;
@@ -729,76 +871,93 @@ inline bool holds(int eqn) {
   PION_CASE_EULER(KERNEL_CALL) PION_CASE_MHD(KERNEL_CALL) { return (int)cudaErrorInvalidValue; }
 
 // One axis's dt*dU.  P: padded state (nvar, [nz+4,] ny+4, nx+4); mask: padded
-// per-cell flags as bytes, or null; out: (nvar, [nz,] ny, nx).  eqn: 0 MHD,
-// 1 GLM, 2 Euler.  tile_t, tile_w: cells along and pencils across a block's tile
+// per-cell flags as bytes, or null; geo: the (6, ny + 4) geometry pack of the
+// radial axis (2D cylindrical, axis 0 only), or null; out: (nvar, [nz,] ny,
+// nx).  eqn: 0 MHD, 1 GLM, 2 Euler.  tile_t, tile_w: cells along and pencils across a block's tile
 // (fused_sweep.sweep_plan).  Returns cudaGetLastError() of the launch, or
 // cudaErrorInvalidValue for arguments no instantiation covers and tiles
 // whose shared memory exceeds what a block can have.
-extern "C" int pion_sweep_axis(const void* P, const void* mask, void* out, const void* dt,
-                               const void* ch, int ndim, int nz, int ny, int nx, int axis,
+extern "C" int pion_sweep_axis(const void* P, const void* mask, const void* geo, void* out,
+                               const void* dt, const void* ch, int ndim, int nz, int ny, int nx,
+                               int axis,
                                int nvar, int eqn, int av, int order, int scma,
                                unsigned long long el_mask, int tile_t, int tile_w, double dx,
                                double gamma, double etav, double rho_floor, double p_floor,
                                double cr, void* stream) {
   if ((ndim != 2 && ndim != 3) || axis < 0 || axis >= ndim || (order != 1 && order != 2) ||
-      !holds(eqn) || nvar < nbase_of(eqn) || nvar > 64 || tile_t < 1 || tile_w < 1) {
+      !holds(eqn) || nvar < nbase_of(eqn) || nvar > 64 || tile_t < 1 || tile_w < 1 ||
+      (geo != nullptr && (ndim != 2 || axis != 0))) {
     return (int)cudaErrorInvalidValue;
   }
   const Layout L = make_layout(ndim, nz, ny, nx, axis, nvar, scma, el_mask);
   const Tiling tl = make_tiling(L, tile_t, tile_w);
   const size_t smem = tile_bytes(nvar, nbase_of(eqn), order, tile_t, tile_w,
-                                 mask != nullptr, sizeof(real));
+                                 mask != nullptr, geo != nullptr, sizeof(real));
   const long nblocks = (long)tl.n_ta * tl.n_tw * tl.n_third;
   if (smem > SMEM_MAX || nblocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
   const Consts<real> c = make_consts<real>(dx, gamma, etav, rho_floor, p_floor, cr);
   cudaStream_t s = (cudaStream_t)stream;
-#define PION_SWEEP_CALL(E, A, O)                                                       \
-  {                                                                                    \
-    const cudaError_t e = allow_tile_smem<real, E, PION_SOLVER, A, O, -1>(smem);           \
-    if (e != cudaSuccess) return (int)e;                                               \
-    sweep_axis_kernel<real, E, PION_SOLVER, A, O><<<(unsigned)nblocks, THREADS, smem, s>>>( \
-        (const real*)P, (const uint8_t*)mask, (real*)out, (const real*)dt,             \
-        (const real*)ch, L, tl, c);                                                    \
+#define PION_SWEEP_LAUNCH(E, A, O, G)                                                       \
+  {                                                                                         \
+    const cudaError_t e = allow_tile_smem<real, E, PION_SOLVER, A, O, -1, G>(smem);         \
+    if (e != cudaSuccess) return (int)e;                                                    \
+    sweep_axis_kernel<real, E, PION_SOLVER, A, O, G><<<(unsigned)nblocks, THREADS, smem, s>>>( \
+        (const real*)P, (const uint8_t*)mask, (const real*)geo, (real*)out, (const real*)dt, \
+        (const real*)ch, L, tl, c);                                                         \
+  }
+#define PION_SWEEP_CALL(E, A, O)       \
+  if (geo != nullptr) {                \
+    PION_SWEEP_LAUNCH(E, A, O, 1)      \
+  } else {                             \
+    PION_SWEEP_LAUNCH(E, A, O, 0)      \
   }
   PION_DISPATCH(PION_SWEEP_CALL)
 #undef PION_SWEEP_CALL
+#undef PION_SWEEP_LAUNCH
   return (int)cudaGetLastError();
 }
 
 // The axis-0 sweep fused with the conserved update: writes the new primitive
 // state.  P_int: base state (nvar, [nz,] ny, nx); c0, c1: the other axes'
-// dt*dU of the same shape, or null.  tile_t, tile_w: the tiles along axis 0
-// (fused_sweep.sweep_plan).  Returns as pion_sweep_axis.
-extern "C" int pion_final_axis(const void* P, const void* mask, const void* P_int, const void* c0,
-                               const void* c1, void* out, const void* dt, const void* ch, int ndim,
+// dt*dU of the same shape, or null; geo: as pion_sweep_axis's (2D only).
+// tile_t, tile_w: the tiles along axis 0 (fused_sweep.sweep_plan).  Returns
+// as pion_sweep_axis.
+extern "C" int pion_final_axis(const void* P, const void* mask, const void* geo,
+                               const void* P_int, const void* c0, const void* c1, void* out,
+                               const void* dt, const void* ch, int ndim,
                                int nz, int ny, int nx, int nvar, int eqn, int av, int order,
                                int tile_t, int tile_w, double dx, double gamma, double etav,
                                double rho_floor, double p_floor, double cr, void* stream) {
   if ((ndim != 2 && ndim != 3) || (order != 1 && order != 2) || !holds(eqn) ||
-      nvar < nbase_of(eqn) || nvar > 64 || tile_t < 1 || tile_w < 1) {
+      nvar < nbase_of(eqn) || nvar > 64 || tile_t < 1 || tile_w < 1 ||
+      (geo != nullptr && ndim != 2)) {
     return (int)cudaErrorInvalidValue;
   }
   const Layout L = make_layout(ndim, nz, ny, nx, 0, nvar, 0, 0ull);
   const Tiling tl = make_tiling(L, tile_t, tile_w);
   const size_t smem = tile_bytes(nvar, nbase_of(eqn), order, tile_t, tile_w,
-                                 mask != nullptr, sizeof(real));
+                                 mask != nullptr, geo != nullptr, sizeof(real));
   const long nblocks = (long)tl.n_ta * tl.n_tw * tl.n_third;
   if (smem > SMEM_MAX || nblocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
   const Consts<real> c = make_consts<real>(dx, gamma, etav, rho_floor, p_floor, cr);
   cudaStream_t s = (cudaStream_t)stream;
-#define PION_FINAL_LAUNCH(E, A, O, K)                                                       \
+#define PION_FINAL_LAUNCH(E, A, O, K, G)                                                    \
   {                                                                                         \
-    const cudaError_t e = allow_tile_smem<real, E, PION_SOLVER, A, O, K>(smem);             \
+    const cudaError_t e = allow_tile_smem<real, E, PION_SOLVER, A, O, K, G>(smem);          \
     if (e != cudaSuccess) return (int)e;                                                    \
-    final_axis_kernel<real, E, PION_SOLVER, A, O, K><<<(unsigned)nblocks, THREADS, smem, s>>>( \
-        (const real*)P, (const uint8_t*)mask, (const real*)P_int, (const real*)c0,          \
-        (const real*)c1, (real*)out, (const real*)dt, (const real*)ch, L, tl, c);           \
+    final_axis_kernel<real, E, PION_SOLVER, A, O, K, G>                                     \
+        <<<(unsigned)nblocks, THREADS, smem, s>>>(                                          \
+            (const real*)P, (const uint8_t*)mask, (const real*)geo, (const real*)P_int,     \
+            (const real*)c0, (const real*)c1, (real*)out, (const real*)dt, (const real*)ch, \
+            L, tl, c);                                                                      \
   }
-#define PION_FINAL_CALL(E, A, O)       \
-  if (ndim == 3) {                     \
-    PION_FINAL_LAUNCH(E, A, O, 2)      \
-  } else {                             \
-    PION_FINAL_LAUNCH(E, A, O, 1)      \
+#define PION_FINAL_CALL(E, A, O)        \
+  if (ndim == 3) {                      \
+    PION_FINAL_LAUNCH(E, A, O, 2, 0)    \
+  } else if (geo != nullptr) {          \
+    PION_FINAL_LAUNCH(E, A, O, 1, 1)    \
+  } else {                              \
+    PION_FINAL_LAUNCH(E, A, O, 1, 0)    \
   }
   PION_DISPATCH(PION_FINAL_CALL)
 #undef PION_FINAL_CALL

@@ -2,14 +2,16 @@
 
 Module registry mirrors the reference dispatch
 (reference: source/grid/setup_fixed_grid.cpp:270-410 setup_microphysics).
-Ported so far: MPv3.  The other modules of the JAX package are queued in
-ROADMAP.md, item A18; asking for one of them says so.
+Ported so far: MPv3 and the cooling-only module.  The other modules of the
+JAX package are queued in ROADMAP.md, item A18; asking for one of them says
+so.
 """
+from .cooling import CoolingConfig, MPOnlyCooling  # noqa: F401
 from .mpv3 import MPv3, MPv3Config  # noqa: F401
 
-_NOT_PORTED = ("MPOnlyCooling", "MPv5", "MPv6", "MPv7", "MPv8")
+_NOT_PORTED = ("MPv5", "MPv6", "MPv7", "MPv8")
 
-__all__ = ["MPv3", "MPv3Config"]
+__all__ = ["CoolingConfig", "MPOnlyCooling", "MPv3", "MPv3Config"]
 
 
 def __getattr__(name):

@@ -22,14 +22,19 @@ the plain version only because the tensor it was given lies on the CPU; for a
 CUDA tensor it launches the kernel or raises.  Each wrapper counts its
 launches in its ``launches`` attribute.
 
-The reconstruction differs in the last bit between the two: the plain sweep
-divides the one-sided differences by the centre-of-volume spacing and
-multiplies the slopes by ``del_n``/``del_p``; the kernels divide by the
-constant ``dx`` and use ``+-dx/2``.  Tests hold them at ``rtol=1e-10`` in
-float64.
+On a Cartesian axis the reconstruction differs in the last bit between the
+two: the plain sweep divides the one-sided differences by the
+centre-of-volume spacing and multiplies the slopes by ``del_n``/``del_p``;
+the kernels divide by the constant ``dx`` and use ``+-dx/2``.  Tests hold
+them at ``rtol=1e-10`` in float64.  On the radial axis of a cylindrical grid
+the kernels read the spacing and the offsets from the geometry pack
+(:func:`radial_geo`), as the plain sweep does.
 
-Scope (:func:`supports`, the Cartesian scope of the Pallas gate
-``pallas_sweep.supports``): Cartesian 2D and 3D; the Euler system with the
+Scope (:func:`supports`, the scope of the Pallas gate
+``pallas_sweep.supports``): Cartesian 2D and 3D, and 2D axisymmetric
+(cylindrical (R, z), R on array axis 0: the kernels take the geometry pack
+on that axis, for the metric divergence, the centre-of-volume slopes and the
+radial geometric sources); the Euler system with the
 HLL, linear (``linear_pv``), Roe conserved-variable and Roe-mean
 primitive-variable solvers; MHD and GLM-MHD with HLL, HLLD (with or without
 the fallback mask), linear and Roe conserved-variable (``roe_pv`` runs the
@@ -45,6 +50,7 @@ import functools
 from types import MappingProxyType
 from typing import Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..config import SimConfig
@@ -61,13 +67,15 @@ SMEM_MAX = 232448              # shared memory a block can opt in to (H100)
 # main path's 10 variables, five) float32 blocks or two float64 blocks fit an
 # SM's 228 KB
 TILE_SMEM_BUDGET = {4: 48 * 1024, 8: 100 * 1024}
+GEO_ROWS = 6   # rows of the radial geometry pack (radial_geo)
 
 
 def supports(cfg: SimConfig) -> bool:
     """Whether the CUDA kernels cover this configuration (everything else
     takes the plain torch sweep)."""
     return (
-        cfg.coords is Coord.CARTESIAN
+        (cfg.coords is Coord.CARTESIAN
+         or (cfg.coords is Coord.CYLINDRICAL and cfg.ndim == 2))
         and cfg.ndim in (2, 3)
         and (cfg.solver in (Solver.HLL, Solver.LINEAR, Solver.RCV,
                             Solver.RPV)
@@ -130,12 +138,53 @@ _SOLVE_FLOPS = {
 }
 
 
-def flops_per_interface(cfg: SimConfig, order: int) -> int:
+def radial_geo(cfg: SimConfig, geom: Geometry, dtype,
+               device) -> torch.Tensor:
+    """The ``(GEO_ROWS, n0 + 4)`` geometry pack of the radial axis of a 2D
+    cylindrical grid (the TPU kernel's ``_radial_geo``): rows ``com``,
+    ``del_n``, ``del_p``, ``pos`` over the padded cells, then ``div_cn``,
+    ``div_cp`` over the interior cells, padded with ``1/dx``.  The geometry's
+    arrays were computed in float64 and cast once to the config's dtype
+    (:func:`..grid.make_geometry`); they are stacked here in float64 and cast
+    to ``dtype`` once, so the kernels read the values the plain sweep reads
+    and no radius is squared on the card.  Kept per geometry, dtype and
+    device: the tensor outlives any CUDA graph that records its pointer."""
+    key = ("radial_geo", dtype, str(device))
+    kept = geom._tensors.get(key)
+    if kept is None:
+        g = geom.axes[0]
+        n = cfg.shape[0]
+        pack = np.full((GEO_ROWS, n + 2 * cfg.ng), 1.0 / float(geom.dx),
+                       dtype=np.float64)
+        for row, name in enumerate(("com", "del_n", "del_p", "pos")):
+            pack[row] = getattr(g, name)
+        pack[4, :n] = g.div_cn
+        pack[5, :n] = g.div_cp
+        kept = torch.as_tensor(pack).to(dtype=dtype, device=device)
+        geom._tensors[key] = kept
+    return kept
+
+
+# Operations of a radial cell's geometric sources, by (system, order): a
+# slope over the centre-of-volume spacing is 7; Euler p/R is 1, and 4 more
+# with its slope term; MHD adds B^2/2 (6) and the B.dB term (4 slopes and
+# 7); GLM adds c_h psi/R (3, or 5 and a slope)
+_RADIAL_SOURCE_FLOPS = {
+    (Eqn.EULER, 1): 1, (Eqn.EULER, 2): 1 * 7 + 4,
+    (Eqn.MHD, 1): 8, (Eqn.MHD, 2): 4 * 7 + 17,
+    (Eqn.GLM, 1): 8 + 3, (Eqn.GLM, 2): 5 * 7 + 17 + 5,
+}
+
+
+def flops_per_interface(cfg: SimConfig, order: int,
+                        radial: bool = False) -> int:
     """Floating-point operations of one interface solve and its share of
     the cell update, counted by hand from the formulas of the plain version
     (an add, multiply, divide, square root, compare-and-select each count
     one); distinct for each (equation system, solver) the kernels run.
-    Used for the operations side of the kernels' roofline bound."""
+    ``radial``: on the radial axis of a cylindrical grid, with the metric
+    divergence and the geometric sources.  Used for the operations side of
+    the kernels' roofline bound."""
     nb = cfg.eqn.nbase
     euler = cfg.eqn is Eqn.EULER
     n = 0
@@ -153,23 +202,35 @@ def flops_per_interface(cfg: SimConfig, order: int) -> int:
     n += cfg.ntracer * 6
     # divergence and dt; MHD also the Powell and GLM sources
     n += nb * 3 + (5 if euler else 24)
+    if radial:
+        # the metric divergence takes one more a variable, an interface at
+        # order 2 its three centre-of-volume spacings, the Powell term its
+        # two factors
+        n += nb + cfg.ntracer + _RADIAL_SOURCE_FLOPS[(cfg.eqn, order)]
+        if order == 2:
+            n += 3
+        if cfg.eqn.is_mhd:
+            n += 1
     return n
 
 
 def tile_bytes(nvar: int, nbase: int, order: int, T: int, W: int,
-               mask: bool, itemsize: int) -> int:
+               mask: bool, itemsize: int, geo: bool = False) -> int:
     """Shared memory of one ``sweep_axis_kernel`` block (``tile_bytes`` of
     ``csrc/sweep.cu``): the staged stencil, ``nvar`` variables of ``T +
     2*order`` rows of ``W + 1`` (a padded row), the ``T + 1`` face fluxes of
-    the base variables, and the mask's bytes."""
+    the base variables, on the radial axis (``geo``) the geometry pack's
+    ``GEO_ROWS`` rows of the staged cells, and the mask's bytes."""
     rows, rs = T + 2 * order, W + 1
-    return ((nvar * rows * rs + nbase * (T + 1) * rs) * itemsize
+    return ((nvar * rows * rs + nbase * (T + 1) * rs
+             + (GEO_ROWS * rows if geo else 0)) * itemsize
             + (rows * rs if mask else 0))
 
 
 @functools.lru_cache(maxsize=None)
 def sweep_plan(shape: Tuple[int, ...], axis: int, nvar: int, nbase: int,
-               itemsize: int, order: int, mask: bool) -> Mapping[str, int]:
+               itemsize: int, order: int, mask: bool,
+               geo: bool = False) -> Mapping[str, int]:
     """How ``sweep_axis_kernel`` (and, along axis 0, ``final_axis_kernel``)
     cuts the interior of ``shape`` for a sweep along ``axis``: tiles of
     ``T`` cells along the axis by ``W`` pencils across it (across x for the
@@ -178,7 +239,9 @@ def sweep_plan(shape: Tuple[int, ...], axis: int, nvar: int, nbase: int,
     15 and ``W`` at 32, so that the tile's 16 x 32 faces are exactly four
     rounds of the block's 128 threads; while the tile's shared memory
     exceeds ``TILE_SMEM_BUDGET``, ``T + 1`` is halved (down to ``T = 3``),
-    then ``W``.  The keys ``n_along``/``n_across``/``n_third`` and
+    then ``W``.  ``geo``: the radial axis of a 2D cylindrical grid, whose
+    geometry pack is staged with the tile (axis 0 of a 2D shape only).  The
+    keys ``n_along``/``n_across``/``n_third`` and
     ``n_ta``/``n_tw`` mirror the kernel's ``Tiling``; blocks are numbered
     across fastest, then along, then third.  Cached: it runs on every
     launch."""
@@ -186,19 +249,21 @@ def sweep_plan(shape: Tuple[int, ...], axis: int, nvar: int, nbase: int,
     if ndim not in (2, 3) or not 0 <= axis < ndim or order not in (1, 2):
         raise ValueError(f"bad shape {tuple(shape)}, axis {axis} or "
                          f"order {order}")
+    if geo and (ndim != 2 or axis != 0):
+        raise ValueError("the geometry pack is for axis 0 of a 2D grid")
     nz, ny, nx = ((1,) + tuple(shape))[-3:]
     k = ndim - 1 - axis
     along, across, third = ((nx, ny, nz), (ny, nx, nz), (nz, nx, ny))[k]
     T, W = 15, 32
     budget = TILE_SMEM_BUDGET[itemsize]
-    while tile_bytes(nvar, nbase, order, T, W, mask, itemsize) > budget:
+    while tile_bytes(nvar, nbase, order, T, W, mask, itemsize, geo) > budget:
         if T > 3:
             T = (T + 1) // 2 - 1
         elif W > 8:
             W //= 2
         else:
             break
-    smem = tile_bytes(nvar, nbase, order, T, W, mask, itemsize)
+    smem = tile_bytes(nvar, nbase, order, T, W, mask, itemsize, geo)
     if smem > SMEM_MAX:
         raise ValueError(f"a sweep tile of {nvar} variables needs {smem} "
                          f"bytes of shared memory")
@@ -207,7 +272,7 @@ def sweep_plan(shape: Tuple[int, ...], axis: int, nvar: int, nbase: int,
         "T": T, "W": W, "n_along": along, "n_across": across,
         "n_third": third, "n_ta": n_ta, "n_tw": n_tw,
         "blocks": n_ta * n_tw * third, "threads": SWEEP_THREADS,
-        "smem": smem})
+        "smem": smem, "geo": bool(geo)})
 
 
 def _el_mask(cfg: SimConfig, scma) -> tuple:
@@ -308,12 +373,17 @@ def sweep_axis(Ph_pad: torch.Tensor, cfg: SimConfig, geom: Geometry,
         ch = cfg.cfl * geom.dx / dt_t
     ch_t = _scalar(ch, Ph_pad)
     clamp, bits = _el_mask(cfg, scma)
+    geo = (radial_geo(cfg, geom, Ph_pad.dtype, Ph_pad.device)
+           if cfg.coords is Coord.CYLINDRICAL and axis == 0 else None)
     plan = sweep_plan(tuple(cfg.shape), axis, cfg.nvar, cfg.eqn.nbase,
-                      Ph_pad.element_size(), order, mask_ptr is not None)
+                      Ph_pad.element_size(), order, mask_ptr is not None,
+                      geo is not None)
     out = torch.empty((cfg.nvar,) + tuple(cfg.shape), dtype=Ph_pad.dtype,
                       device=Ph_pad.device)
     err = lib.pion_sweep_axis(
-        Ph_pad.data_ptr(), mask_ptr, out.data_ptr(), dt_t.data_ptr(),
+        Ph_pad.data_ptr(), mask_ptr,
+        None if geo is None else geo.data_ptr(), out.data_ptr(),
+        dt_t.data_ptr(),
         ch_t.data_ptr(), cfg.ndim, nz, ny, nx, axis, cfg.nvar,
         _EQN_CODE[cfg.eqn], 1 if cfg.av is AV.FALLE else 0,
         order, clamp, bits, plan["T"], plan["W"], *consts,
@@ -364,11 +434,16 @@ def final_axis(P: torch.Tensor, Ph_pad: torch.Tensor,
         ch = cfg.cfl * geom.dx / dt_t
     ch_t = _scalar(ch, Ph_pad)
     cptr = [c.data_ptr() for c in contribs] + [None, None]
+    geo = (radial_geo(cfg, geom, Ph_pad.dtype, Ph_pad.device)
+           if cfg.coords is Coord.CYLINDRICAL else None)
     plan = sweep_plan(tuple(cfg.shape), 0, cfg.nvar, cfg.eqn.nbase,
-                      Ph_pad.element_size(), order, mask_ptr is not None)
+                      Ph_pad.element_size(), order, mask_ptr is not None,
+                      geo is not None)
     out = torch.empty(interior, dtype=Ph_pad.dtype, device=Ph_pad.device)
     err = lib.pion_final_axis(
-        Ph_pad.data_ptr(), mask_ptr, P.data_ptr(), cptr[0], cptr[1],
+        Ph_pad.data_ptr(), mask_ptr,
+        None if geo is None else geo.data_ptr(), P.data_ptr(), cptr[0],
+        cptr[1],
         out.data_ptr(), dt_t.data_ptr(), ch_t.data_ptr(), cfg.ndim, nz, ny,
         nx, cfg.nvar, _EQN_CODE[cfg.eqn],
         1 if cfg.av is AV.FALLE else 0, order, plan["T"], plan["W"], *consts,

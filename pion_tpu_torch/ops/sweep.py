@@ -22,9 +22,10 @@ sweep axis in its natural position (length n+1 there).
 ``interface_flux`` and ``interface_flux_pair`` give single interface planes
 of those face fluxes from 4-cell slabs, for the nested-grid hierarchy.
 
-Ported: Cartesian grids, the Euler, MHD and GLM-MHD systems with every
-solver of the reference's menu, Falle artificial viscosity.  Curvilinear
-metrics and the H-correction raise ``NotImplementedError``.
+Ported: Cartesian, 2D axisymmetric (cylindrical) and 1D spherical grids
+(the metric divergence and the radial geometric sources), the Euler, MHD and
+GLM-MHD systems with every solver of the reference's menu, Falle artificial
+viscosity.  The H-correction raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -105,9 +106,10 @@ def _reconstruct(Pt, cfg: SimConfig, geom: Geometry, axis: int, order: int):
 
     ``Pt`` is padded along the sweep axis only.  Returns (Pl, Pr, slope_c).
     The one-sided differences are divided by the centre-of-volume spacing
-    and the slopes multiplied by the face offsets ``del_n``/``del_p`` (the
-    fused kernels divide by the constant ``dx`` and use ``+-dx/2``, which
-    differs in the last bit).
+    and the slopes multiplied by the face offsets ``del_n``/``del_p``.  On a
+    Cartesian axis the fused kernels divide by the constant ``dx`` and use
+    ``+-dx/2``, which differs in the last bit; on the radial axis they read
+    the same spacing and offsets from the geometry pack.
     """
     ng = cfg.ng
     n = cfg.shape[axis]
@@ -281,10 +283,6 @@ def dynamics_dU(
     returned dU is only the selected axes' contribution.  ``dt`` and ``ch``
     may be Python numbers or 0-d tensors on the state's device.
     """
-    if cfg.coords is not Coord.CARTESIAN:
-        raise NotImplementedError(
-            "cylindrical/spherical metric and geometric source terms are "
-            "not ported yet")
     if cfg.av in (AV.HCORR, AV.HCORR_FALLE):
         raise NotImplementedError("the H-correction is not ported yet")
     ng = cfg.ng
@@ -388,17 +386,76 @@ def dynamics_dU(
         dudt = cn * _slab(flux, ax, 0, -1) - cp * _slab(flux, ax, 1, None)
 
         face_fluxes.append(flux)
+        radial = geom.axes[axis].is_radial
+        if radial:
+            dudt = _radial_sources(dudt, Pt, slope_c, cfg, geom, axis,
+                                   order, ch)
         if cfg.eqn.is_mhd:
-            dudt = _mhd_sources(dudt, Pt, cfg, axis, dx, glm)
+            cyl = radial and cfg.coords is Coord.CYLINDRICAL
+            dudt = _mhd_sources(dudt, Pt, cfg, axis, dx, glm,
+                                (cn, cp) if cyl else None)
         contrib = dt * dudt
         dU = contrib if dU is None else dU + contrib
 
     return dU, face_fluxes
 
 
-def _mhd_sources(dudt, Pt, cfg: SimConfig, axis: int, dx: float, glm: bool):
+def _radial_sources(dudt, Pt, slope_c, cfg: SimConfig, geom: Geometry,
+                    axis: int, order: int, ch):
+    """``dudt`` of the radial axis with the geometric sources added to the
+    normal momentum (and, for GLM-MHD on a cylindrical grid, the radial
+    field): cylindrical ``p/R`` (MHD ``(p + B^2/2)/R``) and GLM ``c_h
+    psi/R``, at order 2 with the slope correction from the cell's centre of
+    volume; spherical ``2p/R3``, ``R3 = r + dr^2/(12 r)`` (reference:
+    solver_eqn_hydro_adi.cpp:560-707, solver_eqn_mhd_adi.cpp:1001-1030,
+    1180-1215)."""
+    ng = cfg.ng
+    n = cfg.shape[axis]
+    ax = 1 + axis
+    nd = cfg.ndim
+    Pc = _slab(Pt, ax, ng, ng + n)
+    g = geom.axis_tensors(axis, Pt.dtype, Pt.device)
+    pos_c = _bcast(g["pos"][ng:ng + n], axis, nd)[0]
+    com_c = _bcast(g["com"][ng:ng + n], axis, nd)[0]
+    k_norm = VX + (nd - 1 - axis)
+    upd = {}
+    if cfg.coords is Coord.CYLINDRICAL:
+        if cfg.eqn.is_mhd:
+            pm = 0.5 * (Pc[BX] ** 2 + Pc[BY] ** 2 + Pc[BZ] ** 2)
+            if order == 1:
+                src = (Pc[PG] + pm) / pos_c
+            else:
+                corr = (slope_c[PG] + Pc[BX] * slope_c[BX]
+                        + Pc[BY] * slope_c[BY] + Pc[BZ] * slope_c[BZ])
+                src = (Pc[PG] + pm + (pos_c - com_c) * corr) / pos_c
+        elif order == 1:
+            src = Pc[PG] / pos_c
+        else:
+            src = (Pc[PG] + (pos_c - com_c) * slope_c[PG]) / pos_c
+    else:
+        r3 = pos_c + geom.dx * geom.dx / 12.0 / pos_c
+        if order == 1:
+            src = 2.0 * Pc[PG] / r3
+        else:
+            src = 2.0 * ((Pc[PG] - slope_c[PG] * com_c) / r3 + slope_c[PG])
+    upd[k_norm] = dudt[k_norm] + src
+    if cfg.eqn is Eqn.GLM and cfg.coords is Coord.CYLINDRICAL:
+        kb = BX + (nd - 1 - axis)
+        if order == 1:
+            sb = ch * Pc[SI] / pos_c
+        else:
+            sb = ch * (Pc[SI] + (pos_c - com_c) * slope_c[SI]) / pos_c
+        upd[kb] = dudt[kb] + sb
+    return _replace(dudt, upd)
+
+
+def _mhd_sources(dudt, Pt, cfg: SimConfig, axis: int, dx: float, glm: bool,
+                 radial=None):
     """``dudt`` of one axis with the Powell 8-wave and GLM advective source
-    terms added (``Pt`` padded along ``axis`` only)."""
+    terms added (``Pt`` padded along ``axis`` only).  ``radial``: the
+    divergence coefficients ``(cn, cp)`` of a cylindrical radial axis, which
+    the Powell term takes in place of ``1/dx``; the GLM psi term keeps
+    ``1/dx`` on every axis, as the reference does."""
     ng = cfg.ng
     n = cfg.shape[axis]
     ax = 1 + axis
@@ -411,8 +468,15 @@ def _mhd_sources(dudt, Pt, cfg: SimConfig, axis: int, dx: float, glm: bool):
     bn = Pt[BX + k:BX + k + 1]  # padded along the sweep axis
     bm = 0.5 * (_slab(bn, ax, ng - 1, ng + n)[0]
                 + _slab(bn, ax, ng, ng + n + 1)[0])
-    dbm = (_slab(bm[None], ax, 0, -1)[0]
-           - _slab(bm[None], ax, 1, None)[0]) / dx
+    if radial is not None:
+        # cylindrical radial divergence factors 2 r_face/(rp^2-rn^2)
+        # (reference: solver_eqn_mhd_adi.cpp:1092-1103)
+        cn, cp = radial
+        dbm = (cn[0] * _slab(bm[None], ax, 0, -1)[0]
+               - cp[0] * _slab(bm[None], ax, 1, None)[0])
+    else:
+        dbm = (_slab(bm[None], ax, 0, -1)[0]
+               - _slab(bm[None], ax, 1, None)[0]) / dx
     udotb = Pc[VX] * Pc[BX] + Pc[VY] * Pc[BY] + Pc[VZ] * Pc[BZ]
     upd = {
         VX: dudt[VX] + dbm * Pc[BX],

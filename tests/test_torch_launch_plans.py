@@ -141,6 +141,31 @@ def test_sweep_plan_euler_base(itemsize):
                     assert (cells == 1).all() and faces.min() == 1
 
 
+@pytest.mark.parametrize("shape", [s for s in SHAPES if len(s) == 2])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_radial_sweep_plan_stages_the_pack(shape, itemsize):
+    """The radial axis (axis 0 of a 2D cylindrical grid, B1 and B2): the
+    tiles of the Cartesian plan, every cell and face covered as there, and
+    the geometry pack's six rows of the staged cells on top of the tile's
+    shared memory, within the per-dtype budget."""
+    for nbase, nvar in NVARS + [(5, 6)]:
+        for order in (1, 2):
+            cart = fs.sweep_plan(shape, 0, nvar, nbase, itemsize, order,
+                                 nbase > 5)
+            rad = fs.sweep_plan(shape, 0, nvar, nbase, itemsize, order,
+                                nbase > 5, geo=True)
+            rows = rad["T"] + 2 * order
+            assert rad["smem"] == fs.tile_bytes(
+                nvar, nbase, order, rad["T"], rad["W"], nbase > 5, itemsize,
+                geo=True)
+            assert rad["smem"] <= fs.TILE_SMEM_BUDGET[itemsize]
+            if (rad["T"], rad["W"]) == (cart["T"], cart["W"]):
+                assert rad["smem"] == cart["smem"] + \
+                    fs.GEO_ROWS * rows * itemsize
+            cells, faces = _cells_and_faces(shape, 0, rad)
+            assert (cells == 1).all() and faces.min() == 1
+
+
 def test_flops_per_interface_distinct_by_system_and_solver():
     """The operations side of B1/B2's bound counts each (equation system,
     solver) the kernels run: ten distinct counts at both orders, with MHD's

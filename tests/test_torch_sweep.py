@@ -179,11 +179,12 @@ def test_float32_state_stays_float32():
 
 
 def test_supports_and_unported_configs():
-    """The kernels' scope is the Cartesian scope of the Pallas gate: Euler
-    with HLL/linear/Roe-CV/Roe-PV, MHD and GLM with those and HLLD; the
-    other solvers, cylindrical grids, the H-correction and 1D stay out.
-    Cylindrical grids and the H-correction still raise in the plain sweep;
-    Euler with HLLD raises the reference's ``ValueError``."""
+    """The kernels' scope is the scope of the Pallas gate: Euler with
+    HLL/linear/Roe-CV/Roe-PV, MHD and GLM with those and HLLD, on Cartesian
+    and 2D cylindrical grids; the other solvers, the H-correction and 1D
+    stay out.  The H-correction still raises in the plain sweep, which runs
+    cylindrical grids; Euler with HLLD raises the reference's
+    ``ValueError``."""
     cfg = to_port(*(lambda r: (r, noisy_state(r, 0)))(ref_config("glm3d")))[0]
     assert fused_sweep.supports(cfg)
     S = pion_tpu_torch.SimConfig
@@ -204,8 +205,8 @@ def test_supports_and_unported_configs():
         is pion_tpu_torch.Solver.LINEAR
     assert fused_sweep.kernel_solver(S(eqn="euler", solver="roe_pv",
                                        **box2)) is pion_tpu_torch.Solver.RPV
-    assert not fused_sweep.supports(S(eqn="mhd", solver="hll",
-                                      coords="cylindrical", **box2))
+    assert fused_sweep.supports(S(eqn="mhd", solver="hll",
+                                  coords="cylindrical", **box2))
     assert not fused_sweep.supports(S(eqn="euler", solver="hll", av="hcorr",
                                       **box2))
     assert not fused_sweep.supports(
@@ -217,9 +218,9 @@ def test_supports_and_unported_configs():
                           euler_hlld, pion_tpu_torch.make_geometry(euler_hlld),
                           DT, 1)
     cyl = S(eqn="mhd", solver="hll", coords="cylindrical", **box2)
-    with pytest.raises(NotImplementedError):
-        sweep.dynamics_dU(torch.ones((8, 12, 12), dtype=torch.float64), cyl,
-                          pion_tpu_torch.make_geometry(cyl), DT, 1)
+    dU, _ = sweep.dynamics_dU(torch.ones((8, 12, 12), dtype=torch.float64),
+                              cyl, pion_tpu_torch.make_geometry(cyl), DT, 1)
+    assert tuple(dU.shape) == (8, 8, 8) and bool(torch.isfinite(dU).all())
     hc = S(eqn="euler", solver="roe", av="hcorr", **box2)
     with pytest.raises(NotImplementedError):
         sweep.dynamics_dU(torch.ones((5, 12, 12), dtype=torch.float64), hc,
