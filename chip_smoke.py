@@ -25,7 +25,13 @@ script writes into a temporary directory: the double Mach reflection at
 1920 x 480 (the moving DMACH ghosts), an axisymmetric MHD jet at (R, z) =
 (512, 2048) (the JET face) and a StarBench-like D-type expansion at 128^3 (MPv6
 chemistry equilibrated by icgen, a point source, a restart that rebuilds
-them from the snapshot's header).  Then each path again through
+them from the snapshot's header).  Then the H-correction (the Euler blast
+with Roe-CV, on the plain sweep as in the JAX package), thermal conduction
+(a hot bubble without physics, and the photoionised wind bubble with it),
+MPv8 (the StarBench set-up) and MPv7 (Iliev et al.'s test 5) through
+``cli.main`` at 128^3, and the analysis and I/O tools (projections,
+FITS, snapshot comparison, exports, the cell inspector) on their states,
+the card against a CPU copy.  Then each path again through
 ``run(chunk=k)``, k steps as one CUDA graph replay: bit for bit the run of k
 single steps, and timed beside it.
 Every phase prints one JSON line; any failed
@@ -2379,19 +2385,20 @@ def chunk_timing(runs, rounds: int = 4) -> dict:
 
 
 def main_path(shape, dtype, steps: int, agree_tol: float, plain_steps: int,
-              launches=None, B0=(0.1, 0.05, 0.0), **cfg_kw):
+              launches=None, B0=(0.1, 0.05, 0.0), P0=None, **cfg_kw):
     """The library's main path as a user calls it: ``Simulation(cfg,
     P0).run(max_steps=N)`` on the blast wave (configuration 1, or with
     ``cfg_kw`` another system, solver or grid: the Euler path, the
-    axisymmetric blast), ``launches`` a step by wrapper (BLAST_LAUNCHES by
-    default).  Returns the phase record, the launch counts of the counted
-    run and the run."""
+    axisymmetric blast) or on the state ``P0`` (the hot bubble),
+    ``launches`` a step by wrapper (BLAST_LAUNCHES by default).  Returns the
+    phase record, the launch counts of the counted run and the run."""
     from pion_tpu_torch import Simulation
     from pion_tpu_torch.ics import blast_wave
     from pion_tpu_torch.utils import conservation_totals
 
     cfg = main_cfg(shape, dtype, **cfg_kw)
-    P0 = blast_wave(cfg, B0=B0)
+    if P0 is None:
+        P0 = blast_wave(cfg, B0=B0)
     cells = int(np.prod(shape))
     launches = BLAST_LAUNCHES if launches is None else launches
 
@@ -2488,13 +2495,14 @@ def solver_agreement(sim, solvers, agree_tol: float) -> dict:
 # the photoionised Euler wind bubble
 # ---------------------------------------------------------------------------
 
-def euler_wind_problem(n: int, dtype: str, kernels: str = "auto"):
+def euler_wind_problem(n: int, dtype: str, kernels: str = "auto", **cfg_kw):
     """The reference's sharded smoke step (``__graft_entry__.py:176-205``) at
     n^3: Euler + HLL (configuration 1's other settings), a 3e18 cm box, MPv3
     monochromatic photoionisation (1e48 s^-1) from a point source at the
     centre, a stellar wind from the same place (radius 2.5 cells, 1e-7
     Msun/yr, 2000 km/s, 3e4 K, tracer 1), nH = 10 at 100 K, x = 1e-6, the
-    chemistry dt limit on.  Returns (cfg, P0, make_physics);
+    chemistry dt limit on; ``cfg_kw`` overrides fields of the config (the
+    conduction path).  Returns (cfg, P0, make_physics);
     ``make_physics(mp_cls)`` builds the chemistry from ``mp_cls`` (MPv3 by
     default)."""
     from pion_tpu_torch.constants import K_B, MSUN, PG, RO, YEAR
@@ -2506,7 +2514,7 @@ def euler_wind_problem(n: int, dtype: str, kernels: str = "auto"):
     L = 3.0e18
     cfg = main_cfg((n,) * 3, dtype, eqn="euler", solver="hll",
                    xmax=(L,) * 3, min_temperature=50.0, tmax=1.0e16,
-                   kernels=kernels)
+                   kernels=kernels, **cfg_kw)
     mpc = MPv3Config(tracer_slot=cfg.eqn.nbase, ion_src="mono",
                      n_idot=1.0e48, min_temperature=50.0)
     ctr = (0.5 * L,) * 3
@@ -2585,15 +2593,16 @@ def check_euler_wind(sim, what: str) -> dict:
             "wind_cells": int(m.sum())}
 
 
-def euler_wind_path(device, n: int, steps: int):
+def euler_wind_path(device, n: int, steps: int, **cfg_kw):
     """The photoionised Euler wind bubble as a user runs it:
     ``Simulation(cfg, P0, physics=Physics(mp, sources, wind_sources,
-    dt_limit=True)).run(max_steps=N)``.  Returns the phase record and the
-    launch counts of the counted run."""
+    dt_limit=True)).run(max_steps=N)``; ``cfg_kw`` overrides fields of its
+    config (``conduction_wind_path``).  Returns the phase record and the
+    launch counts of the counted run and the run."""
     from pion_tpu_torch import Simulation
     from pion_tpu_torch.constants import PG, RO, VX
 
-    cfg, P0, make_physics = euler_wind_problem(n, "float32")
+    cfg, P0, make_physics = euler_wind_problem(n, "float32", **cfg_kw)
     cells = n ** 3
     xs = cfg.eqn.nbase
     Simulation(cfg, P0, physics=make_physics()).run(max_steps=2)   # warm-up
@@ -2664,7 +2673,7 @@ def euler_wind_path(device, n: int, steps: int):
         "plain_cell_updates_per_s": cells * 2 / sec_off,
         "plain_peak_mem_bytes": peak_off, "step_parts": parts,
     }
-    return rec, counts
+    return rec, counts, sim
 
 
 # ---------------------------------------------------------------------------
@@ -2712,7 +2721,8 @@ def cyl_wind_problem(dtype: str = "float32", kernels: str = "auto"):
     with HLL and Falle viscosity.  Returns (cfg, P0, make_physics)."""
     from pion_tpu_torch import SimConfig
     from pion_tpu_torch.constants import BX, K_B, M_P, MSUN, PG, RO, YEAR
-    from pion_tpu_torch.microphysics import CoolingConfig, MPOnlyCooling
+    from pion_tpu_torch.microphysics.cooling import (CoolingConfig,
+                                                     MPOnlyCooling)
     from pion_tpu_torch.physics import Physics
     from pion_tpu_torch.winds import WindSource
 
@@ -3239,14 +3249,14 @@ def starbench_params(n: int) -> dict:
     return p
 
 
-def check_starbench(sim, P_ic, what: str) -> dict:
-    """Finite, x in [0, 1], T in [10, 1e9], mass held to 1e-5, and the
-    cells beside the source ionising: the largest x at least twice the
-    equilibrated IC's.  (Ten steps under the chemistry dt limit last a few
-    hundred seconds, in which the source's photons ionise a hundredth of a
-    cell's atoms: the front has not left the source's cells, and the sum of
-    x over the grid moves by less than the drift of the equilibrium x
-    elsewhere.)"""
+def check_starbench(sim, P_ic, what: str, T_range=(10.0, 1.0e9)) -> dict:
+    """Finite, x in [0, 1], T in ``T_range`` (by default [10, 1e9]), mass
+    held to 1e-5, and the cells beside the source ionising: the largest x at
+    least twice the equilibrated IC's.  (Ten steps under the chemistry dt
+    limit last a few hundred seconds, in which the source's photons ionise
+    a hundredth of a cell's atoms: the front has not left the source's
+    cells, and the sum of x over the grid moves by less than the drift of
+    the equilibrium x elsewhere.)"""
     from pion_tpu_torch.utils import conservation_totals
 
     P, cfg = sim.P, sim.cfg
@@ -3257,7 +3267,8 @@ def check_starbench(sim, P_ic, what: str) -> dict:
     xr, Tr = (float(x.min()), float(x.max())), (float(T.min()),
                                                  float(T.max()))
     if not (0.0 <= xr[0] and xr[1] <= 1.0
-            and 10.0 * (1 - 1e-5) <= Tr[0] and Tr[1] <= 1.0e9 * (1 + 1e-5)):
+            and T_range[0] * (1 - 1e-5) <= Tr[0]
+            and Tr[1] <= T_range[1] * (1 + 1e-5)):
         raise AssertionError(f"{what}: x {xr} or T {Tr} out of range")
     P0 = torch.as_tensor(P_ic, device=P.device)
     m0 = conservation_totals(P0, cfg, sim.geom)["mass"]
@@ -3439,6 +3450,524 @@ def check_mpv6(device, shape=(7, 33, 41)) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the H-correction, thermal conduction, MPv7 / MPv8 and the analysis tools
+# ---------------------------------------------------------------------------
+
+# launches a step.  The H-correction stays on the plain sweep on the card,
+# as the Pallas gate keeps it in the JAX package (NO_LAUNCHES); conduction
+# without physics composes the update from B1's dU on every axis at both
+# partial steps (no B2: the fused update has no place for the conduction
+# term); MPv7 and MPv8 are not MPv3, so B1 and the trace (once for the dt
+# limit and the predictor, once for the corrector), neither B3 nor B4
+CONDUCTION_LAUNCHES = dict(NO_LAUNCHES, sweep_axis=6)
+MP78_LAUNCHES = dict(NO_LAUNCHES, sweep_axis=6, octant_trace=2)
+# the Euler blast with Roe-CV and the H-correction with Falle viscosity
+HCORR_KW = dict(eqn="euler", solver="roe", av="hcorr_falle", etav=0.15)
+# the hot bubble: 1e7 K at its centre in 1e4 K gas, nH = 1 cm^-3 (rho = m_p,
+# p = nH k T), at rest, a Gaussian of 0.1 L on a cube of L = 3e19 cm (9.7
+# pc; 13 cells at 128^3), far from the faces.  Over its hot half the flux
+# is the saturated one (Slavin & Cox 1992: the classical flux up to 6.4
+# times larger at 128^3, 32 faces of a diameter's 127), and the conduction
+# limit, not the CFL's, sets dt (on the CPU at 32^3 and 64^3: 1.1e9 and
+# 5.8e8 s against 7.9e9 and 3.8e9 s)
+BUBBLE_L = 3.0e19
+BUBBLE_KW = dict(eqn="euler", solver="hll", ntracer=0,
+                 xmax=(BUBBLE_L,) * 3, conduction=True, p_ref=1.0e-12,
+                 tmax=1.0e20)
+# Iliev et al. (2009, MNRAS 400, 1283) test 5, the expansion of an H II
+# region in a uniform medium: nH = 1e-3 cm^-3 at 100 K with x = 1.2e-3, one
+# source of 5e48 ionizing photons a second, here at the centre of a 15 kpc
+# cube; MPv7's two temperatures T_lo = 100 K, T_hi = 1e4 K
+ILIEV_NH = 1.0e-3
+ILIEV_Q = 5.0e48
+ILIEV_L = 15.0 * 3.0857e21
+ILIEV_X0 = 1.2e-3
+ILIEV_T = (100.0, 1.0e4)
+# the helium mass fraction MPv7 and MPv8 take by default, and their neutral
+# particles a hydrogen atom: n_tot = (1 + 0.25 Y / X + x) nH
+HELIUM = 0.2703
+# the tools on the card against the same functions on a CPU copy (float32:
+# other reduction orders and 1-ulp differences of exp, log and pow)
+TOOLS_TOL = 1.0e-5
+
+
+def card_vs_cpu(cfg, P0, steps: int, tol: float, what: str) -> dict:
+    """``steps`` steps of ``Simulation(cfg, P0)`` on the card and on the
+    CPU (the same plain PyTorch code, where no kernel takes the
+    configuration): every variable within ``tol`` of its own range, the
+    same step count, the clocks within 1e-12."""
+    from pion_tpu_torch import Simulation
+
+    a = Simulation(cfg, P0).run(max_steps=steps)
+    b = Simulation(cfg, P0, device="cpu").run(max_steps=steps)
+    rel, diff = scaled_err(a.P.cpu(), b.P)
+    if not (rel <= tol and a.step_count == b.step_count == steps
+            and abs(a.t - b.t) <= 1.0e-12 * abs(b.t)):
+        raise AssertionError(f"{what}: the card and the CPU disagree after "
+                             f"{steps} steps: {rel:.3e} > {tol:.1e} (t "
+                             f"{a.t!r} vs {b.t!r})")
+    return {"shape": list(cfg.shape), "dtype": cfg.dtype, "steps": steps,
+            "max_rel_err": rel, "max_abs_err": diff, "tol": tol}
+
+
+def hcorr_path(n: int = 128, n_cpu: int = 32, n_glm: int = 64):
+    """The H-correction as a user runs it, ``Simulation(cfg, P0).run``: the
+    Euler blast of ``euler_path`` (n^3 float32) with Roe-CV and
+    ``hcorr_falle`` (etav 0.15, order 2), 10 steps.  The plain sweep runs on
+    the card (no B1, no B2); mass to 1e-5; ``kernels="auto"`` equal to
+    ``kernels="off"`` bit for bit (the same code); two more steps differ
+    from the same two with ``av="falle"`` (the eta is active).  Then the
+    card against the port on the CPU in float64, 2 steps each to 1e-12: the
+    noisy Euler blast at n_cpu^3, and a noisy GLM-MHD blast with Roe-CV and
+    ``hcorr`` at n_glm^3 (in float32 the MHD Roe solver is ill-conditioned,
+    ROADMAP C13).  Then 10 steps chunked (k = 5) against single steps, bit
+    for bit.  Returns (record, launch counts, the chunked runs)."""
+    from pion_tpu_torch import Simulation
+    from pion_tpu_torch.ics import blast_wave
+
+    rec, counts, sim = main_path((n,) * 3, "float32", steps=10,
+                                 agree_tol=0.0, plain_steps=2,
+                                 launches=NO_LAUNCHES, **HCORR_KW)
+    clock = dict(t=sim.t, step_count=sim.step_count, last_dt=sim.last_dt)
+    a = Simulation(sim.cfg, sim.P, **clock).run(max_steps=sim.step_count + 2)
+    b = Simulation(dataclasses.replace(sim.cfg, av="falle"), sim.P,
+                   **clock).run(max_steps=sim.step_count + 2)
+    rec["vs_falle_2_steps"] = scaled_err(a.P, b.P)[0]
+    if not rec["vs_falle_2_steps"] > 0.0:
+        raise AssertionError("hcorr_falle gives the state of falle: the "
+                             "H-correction's eta is not active")
+    del sim, a, b
+    small = main_cfg((n_cpu,) * 3, "float64", **HCORR_KW)
+    rec["card_vs_cpu_float64"] = card_vs_cpu(
+        small, noisy_state(small, 31), 2, 1.0e-12,
+        "Euler Roe-CV + hcorr_falle float64")
+    glm = main_cfg((n_glm,) * 3, "float64", solver="roe", av="hcorr",
+                   etav=0.15)
+    rec["glm_card_vs_cpu_float64"] = card_vs_cpu(
+        glm, noisy_state(glm, 32), 2, 1.0e-12,
+        "GLM-MHD Roe-CV + hcorr float64")
+    cfg = main_cfg((n,) * 3, "float32", **HCORR_KW)
+    P0 = blast_wave(cfg)
+    rec["chunked"], ca, cb = chunk_case(lambda: Simulation(cfg, P0),
+                                        "hcorr float32", NO_LAUNCHES,
+                                        max_steps=10, chunk=5)
+    return rec, counts, {"hcorr": (ca, cb, 5, NO_LAUNCHES)}
+
+
+def bubble_state(cfg) -> np.ndarray:
+    """The hot bubble on ``cfg``'s grid (see BUBBLE_L), float64 numpy."""
+    from pion_tpu_torch.constants import K_B, M_P, PG, RO
+
+    x = cfg.cell_centers(0).astype(np.float64)
+    d2 = ((x - 0.5 * BUBBLE_L) / BUBBLE_L) ** 2
+    r2 = d2[:, None, None] + d2[None, :, None] + d2[None, None, :]
+    P0 = np.zeros((cfg.nvar,) + cfg.shape)
+    P0[RO] = M_P
+    P0[PG] = K_B * (1.0e4 + (1.0e7 - 1.0e4) * np.exp(-r2 / 0.1 ** 2))
+    return P0
+
+
+def dt_parts(sim) -> dict:
+    """What sets dt at ``sim``'s state, read back: the CFL limit (wind
+    cells excluded), the chemistry limit (with physics and its dt limit)
+    and the conduction limit (with ``conduction``), and the least of them."""
+    from pion_tpu_torch.boundaries import apply_bcs
+    from pion_tpu_torch.ops.conduction import conduction_Edot, conduction_dt
+    from pion_tpu_torch.ops.timestep import dynamics_dt
+    from pion_tpu_torch.stepper import _temperature
+
+    P, cfg, phys = sim.P, sim.cfg, sim.physics
+    excl = (phys.wind_exclude_mask(P)
+            if phys is not None and phys.winds else None)
+    out = {"cfl": float(dynamics_dt(P, cfg, sim.geom, exclude=excl))}
+    if phys is not None and phys.dt_limit and phys.mp is not None:
+        out["chemistry"] = float(phys.timescale(P, cfg))
+    if cfg.conduction:
+        Ppad = apply_bcs(P, cfg, sim.bdata)
+        edot = conduction_Edot(Ppad, _temperature(Ppad, cfg, phys), cfg,
+                               sim.geom)
+        out["conduction"] = float(conduction_dt(P, edot, cfg))
+    out["sets_dt"] = min(out, key=out.get)
+    return out
+
+
+def peak_temperature(sim) -> float:
+    from pion_tpu_torch.constants import K_B, M_P, PG, RO
+
+    return float((sim.P[PG] / sim.P[RO]).max()) * (M_P / K_B)
+
+
+def conduction_path(n: int = 128, n64: int = 64):
+    """Thermal conduction without physics as a user runs it,
+    ``Simulation(cfg, P0).run``: the hot bubble (BUBBLE_L; n^3 float32,
+    Euler + HLL + Falle, ``conduction=True``, the limit live with ``p_ref``
+    1e-12), 10 steps.  The update is composed: B1 on every axis at both
+    partial steps and no B2 (CONDUCTION_LAUNCHES).  Mass and total energy to
+    1e-5 (the bubble is at rest, far from the faces, whose outflow ghosts
+    copy the edge temperature: nothing crosses them); the peak temperature
+    falls; kernels against ``kernels="off"`` after 2 more steps to 1e-5;
+    what sets dt at the start and at the end.  Then n64^3 float64, 3 steps,
+    kernels against ``off`` to 1e-10, and the conduction rate Edot of that
+    run's state on the card against the same on a CPU copy to 1e-12.  Then
+    10 steps chunked (k = 5) against single steps, bit for bit.  Returns
+    (record, launch counts, the chunked runs)."""
+    from pion_tpu_torch import Simulation
+    from pion_tpu_torch.boundaries import apply_bcs
+    from pion_tpu_torch.constants import K_B, M_P, PG, RO
+    from pion_tpu_torch.ops.conduction import conduction_Edot
+    from pion_tpu_torch.utils import conservation_totals
+
+    cfg = main_cfg((n,) * 3, "float32", **BUBBLE_KW)
+    P0 = bubble_state(cfg)
+    rec, counts, sim = main_path((n,) * 3, "float32", steps=10,
+                                 agree_tol=1.0e-5, plain_steps=2,
+                                 launches=CONDUCTION_LAUNCHES, P0=P0,
+                                 **BUBBLE_KW)
+    start = Simulation(cfg, P0)
+    e0, e1 = (conservation_totals(r.P, cfg, r.geom)["energy"]
+              for r in (start, sim))
+    energy_err = abs(e1 - e0) / abs(e0)
+    t_peak = [peak_temperature(start), peak_temperature(sim)]
+    if not (energy_err <= 1.0e-5 and t_peak[1] < t_peak[0]):
+        raise AssertionError(f"conduction: energy change {energy_err:.3e}, "
+                             f"peak temperature {t_peak}")
+    rec.update(extent_cm=BUBBLE_L, nH=1.0, energy_rel_change=energy_err,
+               peak_temperature=t_peak, dt_at_start=dt_parts(start),
+               dt_at_end=dt_parts(sim))
+    del start, sim
+    cfg64 = main_cfg((n64,) * 3, "float64", **BUBBLE_KW)
+    rec64, _, sim64 = main_path((n64,) * 3, "float64", steps=3,
+                                agree_tol=1.0e-10, plain_steps=2,
+                                launches=CONDUCTION_LAUNCHES,
+                                P0=bubble_state(cfg64), **BUBBLE_KW)
+
+    def edot(P):
+        Ppad = apply_bcs(P, cfg64, sim64.bdata)
+        T = Ppad[PG] / Ppad[RO] * (M_P / K_B)
+        return conduction_Edot(Ppad, T, cfg64, sim64.geom)
+
+    card, cpu = edot(sim64.P).cpu(), edot(sim64.P.cpu())
+    rel = float((card - cpu).abs().max() / cpu.abs().max())
+    if not rel <= 1.0e-12:
+        raise AssertionError(f"conduction Edot: the card and the CPU "
+                             f"disagree: {rel:.3e} > 1e-12")
+    rec64["edot_card_vs_cpu"] = rel
+    rec["float64"] = rec64
+    del sim64
+    rec["chunked"], ca, cb = chunk_case(lambda: Simulation(cfg, P0),
+                                        "conduction float32",
+                                        CONDUCTION_LAUNCHES, max_steps=10,
+                                        chunk=5)
+    return rec, counts, {"conduction": (ca, cb, 5, CONDUCTION_LAUNCHES)}
+
+
+def conduction_wind_path(device, n: int = 128, steps: int = 10):
+    """``euler_wind_path`` with ``conduction=True``: the photoionised Euler
+    wind bubble (MPv3 ``mono``, a point source and a wind) with thermal
+    conduction, the temperature the chemistry's
+    (``physics.mp.temperature``), the conduction limit live (``p_ref`` the
+    ambient pressure, 1.5e-13: cells above 1e-3 of it count).  Launches as
+    the H II region's (HII_LAUNCHES); the checks and tolerances
+    ``euler_wind_path``'s (ROADMAP C8); what sets dt at the start and at
+    the end (on the CPU at 16^3 and 24^3 the chemistry, 8e2-4e3 s, against
+    the conduction limit's 7e18-4e19 s and the CFL's 3e11-5e11 s: the
+    conduction limit does not collapse beside the wind, C7).  Then 11 steps
+    chunked (the first alone) against single steps, bit for bit.  Returns
+    (record, launch counts, the chunked runs)."""
+    from pion_tpu_torch import Simulation
+    from pion_tpu_torch.constants import K_B
+
+    p_amb = 1.1 * 10.0 * K_B * 100.0
+    kw = dict(conduction=True, p_ref=p_amb)
+    rec, counts, sim = euler_wind_path(device, n, steps, **kw)
+    cfg, P0, make_physics = euler_wind_problem(n, "float32", **kw)
+    start = Simulation(cfg, P0, physics=make_physics())
+    rec.update(p_ref=p_amb, dt_at_start=dt_parts(start),
+               dt_at_end=dt_parts(sim))
+    del start, sim
+    rec["chunked"], ca, cb = chunk_case(
+        lambda: Simulation(cfg, P0, physics=make_physics()),
+        "conduction wind float32", HII_LAUNCHES, first=1, max_steps=11,
+        chunk=5)
+    rec["chunked"]["state"] = check_euler_wind(ca, "conduction wind, chunked")
+    return rec, counts, {"conduction_wind": (ca, cb, 5, HII_LAUNCHES)}
+
+
+def mpv8_params(n: int) -> dict:
+    """``starbench_params`` with ``chem_code MPv8`` (the StarBench module,
+    reference MPv8.cpp): the same medium as MPv8 counts it, with helium
+    (rho = nH m_p / X, p = n_tot k 100 K), equilibrated by icgen on MPv8."""
+    from pion_tpu_torch.constants import K_B, M_P
+
+    x_frac = 1.0 - HELIUM
+    p = starbench_params(n)
+    p.update(chem_code="MPv8",
+             UNIFORM_ambRO=STARBENCH_NH * M_P / x_frac,
+             UNIFORM_ambPG=(1.0 + 0.25 * HELIUM / x_frac) * STARBENCH_NH
+             * K_B * 100.0)
+    return p
+
+
+def mpv7_params(n: int) -> dict:
+    """Iliev et al.'s test 5 (ILIEV_*) on ``n``^3 cells with ``chem_code
+    MPv7`` (``EP_Min_Temperature`` its T_lo, ``MPv7_Thi`` its T_hi), float32,
+    the ICs as given (``InitIons NO``: x = 1.2e-3, the pressure that of
+    T(x)); otherwise ``starbench_params``' run."""
+    from pion_tpu_torch.constants import K_B, M_P
+
+    x_frac = 1.0 - HELIUM
+    t_x = ILIEV_T[0] + ILIEV_X0 * (ILIEV_T[1] - ILIEV_T[0])
+    n_tot = (1.0 + 0.25 * HELIUM / x_frac + ILIEV_X0) * ILIEV_NH
+    p = starbench_params(n)
+    p.update(chem_code="MPv7", InitIons="NO", MPv7_Thi=ILIEV_T[1],
+             EP_Min_Temperature=ILIEV_T[0],
+             UNIFORM_ambRO=ILIEV_NH * M_P / x_frac,
+             UNIFORM_ambPG=n_tot * K_B * t_x, UNIFORM_ambTR0=ILIEV_X0,
+             RT_strength_0=ILIEV_Q, FinishTime=1.0e20)
+    for i, a in enumerate("XYZ"):
+        p.update({f"{a}max": ILIEV_L, f"RT_position_0_{i}": 0.5 * ILIEV_L})
+    return p
+
+
+def cli_mp78_path(d: str, name: str, params, T_range, n: int = 128,
+                  n_small: int = 32, steps: int = 10):
+    """One of MPv7 / MPv8 (``name``) through the parameter-file workflow:
+    ``cli.main(["icgen", file])`` (no kernel: MPv8's equilibration is its
+    own plain update), ``cli.run_main([<IC>, "max_steps=10"])``
+    (MP78_LAUNCHES a step: B1 and B5, neither B3 nor B4), a snapshot at
+    step 5 restarted by ``cli.main(["run", ...])`` whose steps 6-10 equal
+    bit for bit those of ``Simulation.restart`` with the run's Physics; the
+    state: x in [0, 1], T in ``T_range``, mass to 1e-5, the source's cells
+    ionising; on an ``n_small``^3 copy the kernels within 1e-5 of
+    ``kernels="off"`` after 2 steps; then 10 steps chunked (k = 5) against
+    single steps, bit for bit.  Returns (record, launch counts, the run,
+    the step-10 snapshots of the run, of its restart and of the
+    continuation, the small copy's IC snapshot, the chunked runs)."""
+    from pion_tpu_torch import Simulation, cli
+    from pion_tpu_torch.io.snapshot import load_snapshot_raw
+
+    pf = write_params(d, name.lower(), params(n))
+    _, _, ic_s = counted(lambda: cli_main("icgen", pf), NO_LAUNCHES,
+                         f"{name} icgen")
+    ic = snap_path(pf, 0)
+    cfg, P_ic, *_ = load_snapshot_raw(ic)
+    sim, counts, sec = counted(
+        lambda: cli.run_main([ic, f"max_steps={steps}"]),
+        times(MP78_LAUNCHES, steps), f"{name} run")
+    if type(sim.physics.mp).__name__ != name:
+        raise AssertionError(f"{name}: the run built "
+                             f"{type(sim.physics.mp).__name__}")
+    state = check_starbench(sim, P_ic, name, T_range)
+    half = steps // 2
+    _, rcounts, rsec = counted(
+        lambda: cli_main("run", snap_path(pf, half), f"max_steps={steps}",
+                         f"OutputFile={name.lower()}_restarted"),
+        times(MP78_LAUNCHES, steps - half), f"{name} restart")
+    restarted = snap_path(pf, steps, f"{name.lower()}_restarted")
+    _, P_r, t_r, step_r, _ = load_snapshot_raw(restarted)
+    ref = Simulation.restart(snap_path(pf, half), physics=sim.physics)
+    ref.run(max_steps=steps)
+    ref_P = ref.P.cpu().numpy()
+    if not (np.array_equal(P_r, ref_P) and t_r == ref.t and step_r == steps):
+        raise AssertionError(
+            f"{name} restart: steps {half + 1}-{steps} differ from the "
+            f"continuation with the run's Physics: max |diff| "
+            f"{np.abs(P_r - ref_P).max():.3e}, t {t_r!r} vs {ref.t!r}")
+    continued = ref.save(os.path.join(d, f"{name.lower()}_continued"))
+    del ref
+    pf_small = write_params(d, f"{name.lower()}_small", params(n_small))
+    counted(lambda: cli_main("icgen", pf_small), NO_LAUNCHES,
+            f"{name} {n_small}^3 icgen")
+    small_ic = snap_path(pf_small, 0)
+    vs_plain, _ = kernels_vs_plain(small_ic, 2, 1.0e-5,
+                                   f"{name} {n_small}^3")
+    rec = {"shape": list(cfg.shape), "dtype": cfg.dtype, "steps": steps,
+           "t": sim.t, "last_dt": sim.last_dt, "launches": counts,
+           "icgen_s": ic_s, "run_s": sec,
+           "host_ms_per_step": sec / steps * 1.0e3, **state,
+           "restart": {"steps": steps - half, "launches": rcounts,
+                       "run_s": rsec, "t": t_r, "bitwise": True},
+           f"kernels_vs_plain_{n_small}": vs_plain}
+    rec["chunked"], a, b = chunk_case(
+        lambda: Simulation.restart(ic), f"{name} float32", MP78_LAUNCHES,
+        max_steps=10, chunk=5)
+    check_starbench(a, P_ic, f"{name}, chunked", T_range)
+    snaps = (snap_path(pf, steps), restarted, continued)
+    return (rec, counts, sim, snaps, small_ic,
+            {f"cli_{name.lower()}": (a, b, 5, MP78_LAUNCHES)})
+
+
+def cli_mpv8_path(d: str, n: int = 128, n_small: int = 32):
+    """The StarBench-like D-type expansion of ``cli_starbench_path`` with
+    ``chem_code MPv8`` (``mpv8_params``; ``cli_mp78_path``): T between
+    MPv8's floor (10 K) and 1.5 times its ceiling (1e4 K), where its update
+    clamps it."""
+    return cli_mp78_path(d, "MPv8", mpv8_params, (10.0, 1.5e4), n, n_small)
+
+
+def cli_mpv7_path(d: str, n: int = 128, n_small: int = 32):
+    """Iliev et al.'s test 5 with ``chem_code MPv7`` (``mpv7_params``;
+    ``cli_mp78_path``): T = T_lo + x (T_hi - T_lo) in [T_lo, T_hi].  And
+    the pressure slaved to T(x): MPv7's update of the run's last state
+    (the run's columns and dt) gives p = n_tot k T(x) in every cell to
+    float32 rounding (4e-7 of a float64 recomputation from its own rho and
+    x).  The run's own state holds that only where the dynamics add nothing
+    (the step sums the dynamics' increment with the chemistry's); its
+    largest relative departure is recorded."""
+    from pion_tpu_torch.constants import K_B, PG, RO
+
+    out = cli_mp78_path(d, "MPv7", mpv7_params, ILIEV_T, n, n_small)
+    rec, sim = out[0], out[2]
+    mp, cfg = sim.physics.mp, sim.cfg
+
+    def departure(P) -> float:
+        P64 = P.double()
+        x = P64[mp.mpc.tracer_slot]
+        want = mp.n_tot(mp.n_H(P64[RO]), x) * K_B * mp.t_of_x(x)
+        return float(((P64[PG] - want).abs() / want).max())
+
+    dt = torch.full((), sim.last_dt, dtype=sim.P.dtype, device=sim.P.device)
+    updated = mp.update(sim.P, dt, cfg, sim.physics.raytrace(sim.P))
+    slaved = departure(updated)
+    if not slaved <= 4.0e-7:
+        raise AssertionError(f"MPv7: the update's pressure departs from "
+                             f"n_tot k T(x) by {slaved:.3e} > 4e-7")
+    rec["pressure_slaved_after_update"] = slaved
+    rec["pressure_departure_of_run_state"] = departure(sim.P)
+    return out
+
+
+def image_err(card: torch.Tensor, cpu: torch.Tensor):
+    """(max |card - cpu| over max |cpu| on the pixels where both are finite,
+    exact where both are 0; the pixels not finite in both).  Any pixel
+    finite in one and not in the other gives an error of inf.  (A tilted
+    line of sight through a float32 state gives NaN where it leaves the
+    box, in both packages: the temperature there is 0/0.)"""
+    card, cpu = card.cpu().double(), cpu.double()
+    fin = torch.isfinite(cpu)
+    if not torch.equal(fin, torch.isfinite(card)):
+        return float("inf"), int((~fin).sum())
+    if not bool(fin.any()):
+        return 0.0, int((~fin).sum())
+    diff = float((card - cpu)[fin].abs().max())
+    scale = float(cpu[fin].abs().max())
+    err = diff / scale if scale > 0.0 else (0.0 if diff == 0.0 else
+                                            float("inf"))
+    return err, int((~fin).sum())
+
+
+def held_images(card: dict, cpu: dict, what: str) -> dict:
+    errs = {k: image_err(card[k], cpu[k]) for k in cpu}
+    bad = {k: e for k, (e, _) in errs.items() if not e <= TOOLS_TOL}
+    if bad or sorted(card) != sorted(cpu):
+        raise AssertionError(f"{what}: the card and the CPU disagree: {bad} "
+                             f"> {TOOLS_TOL:.0e}")
+    worst = max(errs, key=lambda k: errs[k][0])
+    return {"max_rel_err": errs[worst][0], "worst": worst,
+            "pixels_not_finite": {k: n for k, (_, n) in errs.items() if n}}
+
+
+def tools_checks(d: str, run3d, cyl_run, snaps, small_ic,
+                 blast_shape=(128, 128, 128)) -> dict:
+    """The analysis and I/O tools on the card.  On the final state of the
+    MPv8 run (``run3d``, 3D float32, its gas read through MPv8): project_3d
+    with every quantity of an Euler state along each axis,
+    project_3d_los at 30 degrees, emissivity_cube; on the state of the
+    cooling GLM wind (``cyl_run``, axisymmetric): project_axisymmetric; on
+    configuration 1's blast wave (``blast_shape``): the magnetic quantities
+    of project_3d.  Each against the same function on a CPU copy of the
+    state, to TOOLS_TOL of each image's largest magnitude.  Then
+    write_fits/read_fits bit for bit, compare_snapshots of the restart and
+    the continuation (``snaps``) at zero (and of the run and the restart,
+    recorded), to_vtk/to_ascii of the small copy's IC
+    (``small_ic``) written and read back, and the cell inspector at the
+    source's cell."""
+    from pion_tpu_torch.analysis import export, projection
+    from pion_tpu_torch.debug import CellInspector
+    from pion_tpu_torch.ics import blast_wave
+    from pion_tpu_torch.io import compare, fits
+    from pion_tpu_torch.io.snapshot import load_snapshot
+
+    t0 = time.perf_counter()
+    P, cfg, mp = run3d.P, run3d.cfg, run3d.physics.mp
+    Pc = P.cpu()
+    nonmag = ("em", "halpha", "nii", "xray", "density", "neutral",
+              "ionized", "brems6ghz")
+    rec = {"project_3d": {}}
+    for axis in range(3):
+        rec["project_3d"][str(axis)] = held_images(
+            projection.project_3d(P, cfg, axis, mp, nonmag),
+            projection.project_3d(Pc, cfg, axis, mp, nonmag),
+            f"project_3d axis {axis}")
+    theta = np.deg2rad(30.0)
+    rec["project_3d_los_30deg"] = held_images(
+        projection.project_3d_los(P, cfg, 0, theta, mp, nonmag),
+        projection.project_3d_los(Pc, cfg, 0, theta, mp, nonmag),
+        "project_3d_los")
+    rec["emissivity_cube"] = held_images(
+        projection.emissivity_cube(P, cfg, mp),
+        projection.emissivity_cube(Pc, cfg, mp), "emissivity_cube")
+    rec["project_axisymmetric"] = held_images(
+        projection.project_axisymmetric(cyl_run.P, cyl_run.cfg,
+                                        quantities=nonmag),
+        projection.project_axisymmetric(cyl_run.P.cpu(), cyl_run.cfg,
+                                        quantities=nonmag),
+        "project_axisymmetric")
+    bcfg = main_cfg(blast_shape, "float32")
+    B = torch.as_tensor(blast_wave(bcfg, B0=(0.1, 0.05, 0.0)),
+                        dtype=torch.float32)
+    mag = ("density", "stokes_q", "stokes_u", "bxabs", "byabs", "rm")
+    rec["project_3d_magnetic"] = held_images(
+        projection.project_3d(B.cuda(), bcfg, 1, quantities=mag),
+        projection.project_3d(B, bcfg, 1, quantities=mag),
+        "project_3d, magnetic quantities")
+    path = fits.write_fits(os.path.join(d, "final"), P, cfg, t=run3d.t)
+    Pf, cfg_f, t_f = fits.read_fits(path)
+    if not (np.array_equal(Pf, Pc.double().numpy()) and cfg_f == cfg
+            and t_f == run3d.t):
+        raise AssertionError("FITS: read_fits does not give the state back")
+    diff = compare.compare_snapshots(snaps[1], snaps[2])
+    if not (diff["all_max"] == 0.0 and diff["dt_sim"] == 0.0):
+        raise AssertionError(f"compare_snapshots of the restart and the "
+                             f"continuation: {diff['all_max']}, dt "
+                             f"{diff['dt_sim']}")
+    # the run itself against its restart: they part where the run's dt
+    # growth limit bound, since a snapshot carries no last dt
+    vs_run = compare.compare_snapshots(snaps[0], snaps[1])
+    scfg, Ps, ts, _ = load_snapshot(small_ic)
+    a = export.to_ascii(os.path.join(d, "small.txt"), Ps, scfg, t=ts)
+    cols = np.loadtxt(a)
+    v = export.to_vtk(os.path.join(d, "small"), Ps, scfg, t=ts)
+    with open(v) as f:
+        blocks = f.read().split("LOOKUP_TABLE default\n")[1:]
+    vtk = np.stack([np.array(b.split("SCALARS")[0].split(), dtype=np.float64)
+                    for b in blocks])
+    want = Ps.reshape(scfg.nvar, -1)
+    if not (np.array_equal(cols[:, scfg.ndim:].T.astype(np.float32), want)
+            and np.array_equal(vtk.astype(np.float32), want)):
+        raise AssertionError("to_ascii / to_vtk do not read back the state")
+    src = run3d.physics.sources[0].position
+    idx = tuple(min(int(p / cfg.dx), n - 1)
+                for p, n in zip(reversed(src), cfg.shape))
+    dbg = CellInspector(P, cfg, run3d.t)
+    dbg.goto(*idx)
+    cell = dbg.print_cell(out=lambda *_: None)
+    host = Pc[(slice(None),) + idx].double().numpy()
+    pos = dbg.position()
+    if not (np.array_equal(np.array(list(cell.values())), host)
+            and all(abs(p - s) <= cfg.dx for p, s in zip(pos, src))):
+        raise AssertionError(f"CellInspector at {idx}: {cell} vs {host}, "
+                             f"position {pos} vs {src}")
+    rec.update(tol=TOOLS_TOL, fits_bitwise=True, restart_diff=0.0,
+               run_vs_restart={"all_max": vs_run["all_max"],
+                               "dt_sim": vs_run["dt_sim"]},
+               exports_read_back=True, inspected_cell=list(idx),
+               inspected={k: float(v) for k, v in cell.items()},
+               seconds=time.perf_counter() - t0)
+    return rec
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -3566,7 +4095,7 @@ def main(argv=None):
     rec_e64["solvers"] = solver_agreement(sim_e64, EULER_SOLVERS[1:], 1.0e-9)
     del sim_e64
     emit("euler_path_f64", **rec_e64)
-    rec_w, counts_w = euler_wind_path(device, 128, steps=10)
+    rec_w, counts_w, _ = euler_wind_path(device, 128, steps=10)
     emit("euler_wind_path", **rec_w)
     # float32: the kernels against the plain path over two steps.  In this
     # early phase (dt ~10 s, at most a tile or two of 2048 past the Euler
@@ -3614,7 +4143,27 @@ def main(argv=None):
         emit("cli_jet_path", **rec_jet)
         rec_sb, counts_sb, mpv6, runs_sb = cli_starbench_path(d)
         emit("cli_starbench_path", **rec_sb, mpv6_kernels=mpv6)
-    cyl_runs.update(runs_dmr, **runs_jet, **runs_sb)
+        cyl_runs.update(runs_dmr, **runs_jet, **runs_sb)
+
+        # the H-correction, thermal conduction (without physics and in the
+        # photoionised wind), MPv7 and MPv8 through the workflow, and the
+        # analysis and I/O tools on their states
+        rec_hc, counts_hc, runs_hc = hcorr_path()
+        emit("hcorr_path", **rec_hc)
+        rec_cd, counts_cd, runs_cd = conduction_path()
+        emit("conduction_path", **rec_cd)
+        rec_cw2, counts_cw2, runs_cw2 = conduction_wind_path(device)
+        emit("conduction_wind_path", **rec_cw2)
+        rec_m8, counts_m8, run_m8, snaps_m8, small_m8, runs_m8 = \
+            cli_mpv8_path(d)
+        emit("cli_mpv8_path", **rec_m8)
+        rec_m7, counts_m7, run_m7, _, _, runs_m7 = cli_mpv7_path(d)
+        del run_m7
+        emit("cli_mpv7_path", **rec_m7)
+        emit("tools_checks", **tools_checks(d, run_m8, runs_cw["cyl_wind"][0],
+                                            snaps_m8, small_m8))
+        del run_m8
+        cyl_runs.update(runs_hc, **runs_cd, **runs_cw2, **runs_m8, **runs_m7)
 
     # several steps in one dispatch: each path's chunked run against its
     # single steps, then both timed in this call
@@ -3678,7 +4227,13 @@ def main(argv=None):
                                        cyl_ng=counts_cn[row["name"]],
                                        cli_dmr=counts_dmr[row["name"]],
                                        cli_jet=counts_jet[row["name"]],
-                                       cli_starbench=counts_sb[row["name"]])
+                                       cli_starbench=counts_sb[row["name"]],
+                                       hcorr=counts_hc[row["name"]],
+                                       conduction=counts_cd[row["name"]],
+                                       conduction_wind=counts_cw2[
+                                           row["name"]],
+                                       cli_mpv8=counts_m8[row["name"]],
+                                       cli_mpv7=counts_m7[row["name"]])
     # B4 and B3 on the MPv6 mix: launches from the StarBench run, the
     # numbers from ``mpv6_kernels`` (128^3, and the 32^3 copy)
     for row in rows:

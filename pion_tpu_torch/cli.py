@@ -430,10 +430,20 @@ def physics_from_params(cfg: SimConfig, params) -> Optional[object]:
             tstar=gf("RT_Tstar____0", 0.0),
             rstar_cm=gf("RT_Rstar____0", 0.0) * RSUN,
         ))
-    elif chem in ("MPv7", "MPv8"):
-        raise NotImplementedError(
-            f"chem_code {chem} is not ported yet (ROADMAP.md, queue A item "
-            "18: the other microphysics modules)")
+    elif chem == "MPv7":
+        from .microphysics.mpv7 import MPv7, MPv7Config
+
+        mp = MPv7(MPv7Config(
+            tracer_slot=slot,
+            ion_src=(ion[0].effect if ion else None),
+            n_idot=(ion[0].strength if ion else 0.0),
+            t_lo=gf("EP_Min_Temperature", 100.0) or 100.0,
+            t_hi=gf("MPv7_Thi", 1.0e4),
+        ))
+    elif chem == "MPv8":
+        from .microphysics.cooling import MPv8, MPv8Config
+
+        mp = MPv8(MPv8Config(tracer_slot=slot))
     elif chem in ("mp_only_cooling", "MPonly", "only_cooling"):
         from .microphysics.cooling import CoolingConfig, MPOnlyCooling
 

@@ -75,7 +75,9 @@ class SimConfig:
     hlld_fallback: bool = True
     # Slavin & Cox (1992) saturated thermal conduction (reference:
     # #define THERMAL_CONDUCTION, defines/functionality_flags.h:90 —
-    # off by default upstream too)
+    # off by default upstream too); Simulation and make_step_fns add it to
+    # the update and the dt limit (ops/conduction.py), NGHierarchy does not
+    # read it, as the JAX package's hierarchy does not
     conduction: bool = False
 
     # time control

@@ -7,9 +7,10 @@ boundary strips.  The reference side is described without importing it: its
 (enums as their string values — the same dict its snapshot headers carry),
 the field as a numpy array.
 
-The chemistry and radiation set-up crosses the same way: the reference's
-``MPv3Config`` or ``CoolingConfig`` (:func:`cooling_config_from_reference`,
-:func:`cooling_config_to_reference`) and each ``Source`` as their
+The chemistry and radiation set-up crosses the same way: the config of the
+reference's microphysics module (``MPv3Config``, ``CoolingConfig``,
+``MPv7Config`` or ``MPv8Config``; :func:`mp_config_from_reference`,
+:func:`mp_config_to_reference`) and each ``Source`` as their
 ``dataclasses.asdict`` dicts (a
 source's evolution table as numpy arrays), from which
 :func:`physics_from_reference` builds the port's ``Physics``.  The port
@@ -29,8 +30,11 @@ import torch
 
 from .boundaries import BoundaryData
 from .config import SimConfig
-from .microphysics.cooling import CoolingConfig, MPOnlyCooling
+from .microphysics.cooling import (CoolingConfig, MPOnlyCooling, MPv8,
+                                   MPv8Config)
 from .microphysics.mpv3 import MPv3, MPv3Config
+from .microphysics.mpv7 import MPv7, MPv7Config
+from .microphysics.variants import MPv5, MPv6
 from .physics import Physics
 from .raytracing.tracer import Source, StarEvolution
 from .winds import WindEvolution, WindSource
@@ -108,31 +112,32 @@ def to_reference(cfg: SimConfig, P: torch.Tensor,
     return config_to_reference(cfg), P.detach().cpu().numpy(), fixed
 
 
-def mpv3_config_from_reference(mpc_fields: dict) -> MPv3Config:
-    """The port's ``MPv3Config`` from the reference's, given as its
+# the reference's microphysics modules by class name: the port's module and
+# the config it takes
+MP_MODULES = {
+    "MPv3": (MPv3, MPv3Config), "MPv5": (MPv5, MPv3Config),
+    "MPv6": (MPv6, MPv3Config), "MPv7": (MPv7, MPv7Config),
+    "MPv8": (MPv8, MPv8Config), "MPOnlyCooling": (MPOnlyCooling,
+                                                  CoolingConfig),
+}
+
+
+def mp_config_from_reference(module: str, mpc_fields: dict):
+    """The port's config of the microphysics module named ``module`` (a
+    key of :data:`MP_MODULES`) from the reference's, given as its
     ``dataclasses.asdict`` dict; a key the port does not know is rejected by
     name."""
-    known = {f.name for f in dataclasses.fields(MPv3Config)}
+    cls = MP_MODULES[module][1]
+    known = {f.name for f in dataclasses.fields(cls)}
     unknown = sorted(set(mpc_fields) - known)
     if unknown:
-        raise ValueError(f"unknown MPv3Config keys: {', '.join(unknown)}")
-    return MPv3Config(**mpc_fields)
+        raise ValueError(f"unknown {cls.__name__} keys: {', '.join(unknown)}")
+    return cls(**mpc_fields)
 
 
-def cooling_config_from_reference(mpc_fields: dict) -> CoolingConfig:
-    """The port's ``CoolingConfig`` from the reference's, given as its
-    ``dataclasses.asdict`` dict; a key the port does not know is rejected by
-    name."""
-    known = {f.name for f in dataclasses.fields(CoolingConfig)}
-    unknown = sorted(set(mpc_fields) - known)
-    if unknown:
-        raise ValueError(f"unknown CoolingConfig keys: {', '.join(unknown)}")
-    return CoolingConfig(**mpc_fields)
-
-
-def cooling_config_to_reference(mpc: CoolingConfig) -> dict:
-    """The way back: the fields of a ``CoolingConfig``, for the reference's
-    ``CoolingConfig(**fields)``."""
+def mp_config_to_reference(mpc) -> dict:
+    """The way back: the fields of a module's config, for the reference's
+    config of the same name (``CoolingConfig(**fields)`` and so on)."""
     return dataclasses.asdict(mpc)
 
 
@@ -180,17 +185,20 @@ def wind_source_from_reference(fields: dict) -> WindSource:
 def physics_from_reference(mpc_fields: Optional[dict],
                            sources: Sequence[dict] = (),
                            dt_limit=2,
-                           wind_sources: Sequence[dict] = ()) -> Physics:
-    """The port's ``Physics`` (MPv3 chemistry or, for fields of a
-    ``CoolingConfig`` (they name a ``curve``), the cooling-only module;
-    radiation sources and stellar-wind sources) from the reference's set-up,
-    so that both packages compute the same thing."""
+                           wind_sources: Sequence[dict] = (),
+                           module: Optional[str] = None) -> Physics:
+    """The port's ``Physics`` (the microphysics module named ``module``, a
+    key of :data:`MP_MODULES`; without a name, MPv3, or the cooling-only
+    module for fields that name a ``curve``; radiation sources and
+    stellar-wind sources) from the reference's set-up, so that both
+    packages compute the same thing."""
     if mpc_fields is None:
         mp = None
-    elif "curve" in mpc_fields:
-        mp = MPOnlyCooling(cooling_config_from_reference(mpc_fields))
     else:
-        mp = MPv3(mpv3_config_from_reference(mpc_fields))
+        if module is None:
+            module = "MPOnlyCooling" if "curve" in mpc_fields else "MPv3"
+        mp = MP_MODULES[module][0](mp_config_from_reference(module,
+                                                            mpc_fields))
     return Physics(
         mp=mp, sources=[source_from_reference(s) for s in sources],
         dt_limit=dt_limit,

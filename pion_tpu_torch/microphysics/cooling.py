@@ -1,7 +1,14 @@
-"""Cooling-only microphysics: optically thin heating and cooling with no
-species tracking (reference: source/microphysics/mp_only_cooling.cpp; the
-curve menu includes the Sutherland & Dopita 1993 CIE curve of
-cooling_SD93_cie.cpp:87-200, published data reproduced below).
+"""Cooling-only and simplified heating/cooling chemistry modules.
+
+- :class:`MPOnlyCooling`: optically thin heating and cooling with no
+  species tracking (reference: source/microphysics/mp_only_cooling.cpp; the
+  curve menu includes the Sutherland & Dopita 1993 CIE curve of
+  cooling_SD93_cie.cpp:87-200, published data reproduced below).
+- :class:`MPv8`: the StarBench-workshop simplified prescription
+  (reference: source/microphysics/MPv8.cpp: monochromatic photoionization
+  with heating tied to two equilibrium temperatures and the analytic
+  Koyama-Inutsuka-style cooling :func:`lambda_starbench`).  Plain PyTorch;
+  not an MPv3, so the MPv3 kernels (B3/B4) never take it.
 
 :class:`MPOnlyCooling` is what the reference's 2D wind-bubble benchmarks
 run (EP_cooling 8, ``WSS09_CIE_LINE_HEAT_COOL``).  Its curves are tabulated
@@ -12,7 +19,7 @@ state's device per dtype, so a step copies nothing from the host.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -21,6 +28,7 @@ from ..config import SimConfig
 from ..constants import K_B, M_P, PG, RO
 from . import tables as TB
 from .base import MicrophysicsBase
+from .mpv3 import E_MONO, MIN_NEUTRAL, SIGMA0
 
 # Sutherland & Dopita (1993) solar-abundance CIE cooling curve
 # (reference: cooling_SD93_cie.cpp:87-200; log-spaced 10^4..10^8.5 K).
@@ -242,3 +250,133 @@ class MPOnlyCooling(MicrophysicsBase):
         big = 1.0e99 if t_cool.dtype == torch.float64 else float("inf")
         t_cool = torch.where(T >= 1.1 * mpc.min_temperature, t_cool, big)
         return torch.min(t_cool)
+
+
+@dataclasses.dataclass(frozen=True)
+class MPv8Config:
+    tracer_slot: int
+    gamma: float = 5.0 / 3.0
+    helium_mass_frac: float = 0.2703
+    metal_mass_frac: float = 0.0142     # >0.5 => neutral medium is molecular
+    min_temperature: float = 10.0
+    max_temperature: float = 1.0e4
+    ion_src: Optional[str] = "mono"
+    n_idot: float = 0.0
+
+    @property
+    def x_frac(self):
+        return 1.0 - self.helium_mass_frac
+
+    @property
+    def mean_mass_per_h(self):
+        return M_P / self.x_frac
+
+    @property
+    def mol(self):
+        return 0.5 if self.metal_mass_frac > 0.5 else 1.0
+
+
+class MPv8(MicrophysicsBase):
+    """StarBench simplified photoionization + heating/cooling
+    (reference: MPv8.cpp:228-360)."""
+
+    name = "MPv8"
+    ALPHA = 2.7e-13
+
+    def __init__(self, mpc: MPv8Config):
+        self.mpc = mpc
+        # the equilibrium heating rates at the two temperatures, numpy
+        # float64 on the host
+        T = mpc.max_temperature
+        self.eeq_hi = float(2.0e-19 * np.exp(-1.184e5 / (T + 1.0e3))
+                            + 2.8e-28 * np.sqrt(T) * np.exp(-92.0 / T))
+        T = mpc.min_temperature
+        self.eeq_lo = float(2.0e-19 * np.exp(-1.184e5 / (T + 1.0e3))
+                            + 2.8e-28 * np.sqrt(T) * np.exp(-92.0 / T))
+
+    def n_H(self, rho):
+        return rho / (M_P / self.mpc.x_frac)
+
+    def n_tot(self, nH, x):
+        c = self.mpc
+        nnt = c.mol + 0.25 * c.helium_mass_frac / c.x_frac
+        return ((1.0 - x) * c.mol + (nnt - c.mol) + x * 2.0) * nH
+
+    def temperature(self, P, cfg: SimConfig):
+        nH = self.n_H(P[RO])
+        x = P[self.mpc.tracer_slot]
+        return P[PG] / (K_B * self.n_tot(nH, x))
+
+    def set_temp(self, P, T, cfg: SimConfig):
+        nH = self.n_H(P[RO])
+        x = P[self.mpc.tracer_slot]
+        p = self.n_tot(nH, x) * K_B * T
+        return torch.cat([P[:PG], p[None], P[PG + 1:]])
+
+    def ydot(self, omx, Eint, nH, rt):
+        c = self.mpc
+        x = 1.0 - omx
+        ne = x * nH
+        T = (c.gamma - 1.0) * Eint / (K_B * self.n_tot(nH, x))
+        T = torch.clamp(T, 1.0, 1.0e9)
+        omx_dot = torch.zeros_like(omx)
+        Edot = torch.zeros_like(Eint)
+        if c.ion_src == "mono":
+            frac = float(TB.hi_xsection_fractional(E_MONO))
+            dtau = nH * rt["ds"] * omx * SIGMA0 * frac
+            nv = rt.get("nv", None)
+            if nv is None:
+                nv = rt["n_idot"] / rt["vshell"]
+            rate = nv * torch.exp(-rt["tau0"] * frac)
+            rate = rate * torch.where(dtau < 1e-4, dtau,
+                                      1.0 - torch.exp(-dtau)) / nH
+            omx_dot = omx_dot - rate
+            Edot = Edot + rate * self.eeq_hi / self.ALPHA
+        omx_dot = omx_dot + self.ALPHA * x * ne
+        Edot = Edot - nH * lambda_starbench(T)
+        Edot = Edot + nH * self.eeq_lo * c.min_temperature / T
+        Edot = Edot * nH
+        return omx_dot, Edot
+
+    def _update_impl(self, P, dt, cfg: SimConfig, rt: Dict):
+        """16 explicit substeps, bounded (x in its limits, E at least a
+        hundredth of its value), then the temperature clamps."""
+        c = self.mpc
+        nH = self.n_H(P[RO])
+        E = P[PG] / (c.gamma - 1.0)
+        omx = torch.clamp(1.0 - P[c.tracer_slot], MIN_NEUTRAL,
+                          1.0 - MIN_NEUTRAL)
+        h = dt / 16.0
+        for _ in range(16):
+            d_omx, d_E = self.ydot(omx, E, nH, rt)
+            omx = torch.clamp(omx + h * d_omx, MIN_NEUTRAL, 1.0 - MIN_NEUTRAL)
+            E = torch.maximum(E + h * d_E, 0.01 * E)
+        x = 1.0 - omx
+        T = (c.gamma - 1.0) * E / (K_B * self.n_tot(nH, x))
+        ntot = self.n_tot(nH, x)
+        E = torch.where(T > 1.5 * c.max_temperature,
+                        ntot * K_B * 1.5 * c.max_temperature / (c.gamma - 1.0),
+                        E)
+        E = torch.where(T < c.min_temperature,
+                        ntot * K_B * c.min_temperature / (c.gamma - 1.0), E)
+        out = torch.cat([P[:PG], (E * (c.gamma - 1.0))[None], P[PG + 1:]])
+        s = c.tracer_slot
+        return torch.cat([out[:s], x[None], out[s + 1:]])
+
+    def _timescales_impl(self, P, cfg: SimConfig, rt: Dict):
+        """0.25 / |d(1-x)/dt| and 0.25 E / |dE/dt|, the least over the
+        cells as a 0-d tensor."""
+        c = self.mpc
+        nH = self.n_H(P[RO])
+        E = P[PG] / (c.gamma - 1.0)
+        omx = torch.clamp(1.0 - P[c.tracer_slot], MIN_NEUTRAL,
+                          1.0 - MIN_NEUTRAL)
+        d_omx, d_E = self.ydot(omx, E, nH, rt)
+        t = 0.25 / (torch.abs(d_omx) + 1e-100)
+        t = torch.minimum(t, 0.25 * E / (torch.abs(d_E) + 1e-100))
+        return torch.min(t)
+
+    def default_rt(self, P) -> Dict:
+        z = torch.zeros_like(P[RO])
+        return {"tau0": z + 1.0e6, "ds": z, "vshell": z + 1.0e30,
+                "n_idot": self.mpc.n_idot, "nv": z, "sv": z}

@@ -51,7 +51,7 @@ from .ops.eqns import cons_to_prim, prim_to_cons
 from .ops.recon import van_albada
 from .ops.sweep import dynamics_dU, interface_flux, interface_flux_pair
 from .ops.timestep import dynamics_dt
-from .stepper import (_scma_flag, cell_advance, check_av, glm_psi_damp, later,
+from .stepper import (_scma_flag, cell_advance, glm_psi_damp, later,
                       limit_dt)
 from .utils import StepLogger, resolve_device
 
@@ -131,13 +131,20 @@ class NGHierarchy:
     """Holds per-level state and advances the stack recursively.
 
     ``device``: the CUDA device when None (raising if there is none), the
-    CPU only when the caller asks for it."""
+    CPU only when the caller asks for it.
+
+    The H-correction (``av`` "hcorr" / "hcorr_falle") runs on every level
+    through the plain sweep, which keeps its face fluxes for BC89.
+    ``cfg.conduction`` is not read: the JAX package's hierarchy has no
+    conduction term (its level update is its own, not
+    ``stepper._partial_update``), and this one gives the same state with
+    the flag on or off, as that one does (a reference behaviour, ROADMAP
+    C3)."""
 
     def __init__(self, cfg0: SimConfig, n_levels: Optional[int] = None,
                  states: Optional[List] = None, physics=None, device=None):
         if n_levels is None:
             n_levels = cfg0.nlevels
-        check_av(cfg0)
         self.device = resolve_device(device)
         self.n_levels = n_levels
         self.cfg0 = cfg0

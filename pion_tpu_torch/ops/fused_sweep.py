@@ -505,8 +505,10 @@ def advance_dynamics(P: torch.Tensor, Ph_pad: torch.Tensor, cfg: SimConfig,
     The transverse axes run :func:`sweep_axis`; the axis-0 launch of
     :func:`final_axis` also applies the conserved update, the floors and the
     GLM psi damping.  The fallback mask is one plain pass shared by the
-    launches.  Only valid when no microphysics or conduction term joins the
-    update."""
+    launches.  It has no place for another term of the update: a caller
+    with microphysics or conduction takes :func:`dynamics_dU_fused` and
+    composes the update itself (``stepper._partial_update``, as the JAX
+    package's ``stepper.py:85``)."""
     if not supports(cfg):
         raise ValueError("configuration outside fused_sweep.supports()")
     if cfg.eqn is Eqn.GLM and ch is None:

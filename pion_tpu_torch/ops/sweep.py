@@ -25,7 +25,8 @@ of those face fluxes from 4-cell slabs, for the nested-grid hierarchy.
 Ported: Cartesian, 2D axisymmetric (cylindrical) and 1D spherical grids
 (the metric divergence and the radial geometric sources), the Euler, MHD and
 GLM-MHD systems with every solver of the reference's menu, Falle artificial
-viscosity.  The H-correction raises ``NotImplementedError``.
+viscosity and the H-correction (Sanders et al. 1998; only the Roe-CV solvers
+read its eta, as in the reference).
 """
 from __future__ import annotations
 
@@ -224,6 +225,72 @@ def _av_falle(flux, Pl, Pr, pstar, cfg: SimConfig):
     return _replace(flux, upd)
 
 
+def calc_hcorr_eta(Ph_pad, cfg: SimConfig, geom: Geometry, order: int):
+    """Per-cell, per-axis H-correction eta at each cell's positive face
+    (Sanders, Morano & Druguet 1998 eq. 10; reference:
+    solver_eqn_base.cpp:423-599).  Order 1 takes the cell values, order 2
+    the van Albada edge states of the centre-of-volume slopes (so a
+    cylindrical radial axis too).  Returns a list of padded tensors (no
+    variable axis); the last cell along each axis has no positive face and
+    holds 0."""
+    etas = []
+    nd = cfg.ndim
+    for axis in range(nd):
+        ax = 1 + axis
+        perm = sweep_perm(cfg, axis)
+        if order == 1:
+            el = _slab(Ph_pad, ax, 0, -1)
+            er = _slab(Ph_pad, ax, 1, None)
+        else:
+            g = geom.axis_tensors(axis, Ph_pad.dtype, Ph_pad.device)
+            com = _bcast(g["com"], axis, nd)
+            d = _slab(Ph_pad, ax, 1, None) - _slab(Ph_pad, ax, 0, -1)
+            h = _slab(com, ax, 1, None) - _slab(com, ax, 0, -1)
+            one_sided = d / h
+            slopes = van_albada(_slab(one_sided, ax, 0, -1),
+                                _slab(one_sided, ax, 1, None))
+            z = torch.zeros_like(_slab(Ph_pad, ax, 0, 1))
+            slopes_full = torch.cat([z, slopes, z], dim=ax)
+            lo = Ph_pad + slopes_full * _bcast(g["del_n"], axis, nd)
+            hi = Ph_pad + slopes_full * _bcast(g["del_p"], axis, nd)
+            el = _slab(hi, ax, 0, -1)
+            er = _slab(lo, ax, 1, None)
+        el_r = permute(el, perm)
+        er_r = permute(er, perm)
+        eta = 0.5 * (
+            torch.abs(er_r[VX] - el_r[VX])
+            + torch.abs(maxspeed(er_r, cfg) - maxspeed(el_r, cfg))
+        )
+        # stored at the cell owning the positive face
+        pad = torch.zeros_like(_slab(eta, axis, 0, 1))
+        etas.append(torch.cat([eta, pad], dim=axis))
+    return etas
+
+
+def _select_hcorr_eta(etas, cfg: SimConfig, axis: int, n: int):
+    """Max eta over the H-stencil of each interface along ``axis``
+    (reference: solver_eqn_base.cpp:608-678, Sanders et al. 1998 fig. 9).
+    Returns an interface tensor laid out as this module's interfaces are:
+    interior transverse cells, n+1 along ``axis`` in its own position."""
+    ng = cfg.ng
+
+    def interior_t(cells):
+        return cells[tuple(slice(ng, -ng) if a != axis else slice(None)
+                           for a in range(cfg.ndim))]
+
+    eta = _slab(interior_t(etas[axis]), axis, ng - 1, ng + n)
+    for p in range(cfg.ndim):
+        if p == axis:
+            continue
+        ep = etas[p]
+        # the transverse eta of the faces on both sides of each cell
+        ep_nm = torch.cat([_slab(ep, p, 0, 1), _slab(ep, p, 0, -1)], dim=p)
+        m = interior_t(torch.maximum(ep, ep_nm))
+        eta = torch.maximum(eta, _slab(m, axis, ng - 1, ng + n))
+        eta = torch.maximum(eta, _slab(m, axis, ng, ng + n + 1))
+    return eta
+
+
 def hlld_fallback_cells(Ph_pad, cfg: SimConfig, dx: float):
     """Per-cell div(v) and pressure-jump measure for the HLLD->HLL switch
     (Mignone et al. 2011; reference: solver_eqn_base.cpp:398-412 preprocess
@@ -283,8 +350,6 @@ def dynamics_dU(
     returned dU is only the selected axes' contribution.  ``dt`` and ``ch``
     may be Python numbers or 0-d tensors on the state's device.
     """
-    if cfg.av in (AV.HCORR, AV.HCORR_FALLE):
-        raise NotImplementedError("the H-correction is not ported yet")
     ng = cfg.ng
     dx = geom.dx
     nd = cfg.ndim
@@ -294,6 +359,10 @@ def dynamics_dU(
         # full-step value (reference: solver_eqn_mhd_adi.cpp:906-922 via
         # calc_timestep.cpp:112-139) so the half-step reuses it.
         ch = cfg.cfl * dx / dt
+
+    etas = None
+    if cfg.av in (AV.HCORR, AV.HCORR_FALLE):
+        etas = calc_hcorr_eta(Ph_pad, cfg, geom, order)
 
     hlld_strong = None
     if (cfg.solver is Solver.HLLD and cfg.eqn.is_mhd
@@ -317,6 +386,10 @@ def dynamics_dU(
         Pl_r = permute(Pl, perm)
         Pr_r = permute(Pr, perm)
 
+        hc_eta = None
+        if etas is not None:
+            hc_eta = _select_hcorr_eta(etas, cfg, axis, n)
+
         hll_mask = None
         if hlld_strong is not None:
             # interface uses HLL when either adjacent cell is flagged
@@ -335,7 +408,7 @@ def dynamics_dU(
             Pl_r = _replace(Pl_r, {SI: zero, BX: bxstar})
             Pr_r = _replace(Pr_r, {SI: zero, BX: bxstar})
 
-        flux_r, pstar = _riemann(Pl_r, Pr_r, cfg, dx / dt, None,
+        flux_r, pstar = _riemann(Pl_r, Pr_r, cfg, dx / dt, hc_eta,
                                  hll_mask=hll_mask)
 
         if glm:
@@ -347,7 +420,7 @@ def dynamics_dU(
                 SI: ch * bxstar,
             })
 
-        if cfg.av is AV.FALLE:
+        if cfg.av in (AV.FALLE, AV.HCORR_FALLE):
             flux_r = _av_falle(flux_r, Pl_r, Pr_r, pstar, cfg)
 
         # Tracer advection: upwind on the mass flux

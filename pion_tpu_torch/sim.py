@@ -57,8 +57,6 @@ class Simulation:
                 "Simulation advances one grid; a nested-grid run "
                 f"(nlevels={cfg.nlevels}) goes through "
                 "pion_tpu_torch.ng.NGHierarchy")
-        if cfg.conduction:
-            raise NotImplementedError("thermal conduction is not ported yet")
         if cfg.halo == "explicit" or cfg.mesh == "on":
             raise NotImplementedError("multi-device runs are not ported yet")
         self.device = resolve_device(self.device)
@@ -257,7 +255,10 @@ class Simulation:
                    and self.opfreq % chunk == 0
                    and self.checkpoint_freq % chunk == 0
                    and (self.log_freq == 0 or self.log_freq % chunk == 0))
-        while self.t < tmax * (1.0 - 1e-12) and self.step_count < max_steps:
+        # the end time is read at every step: a callback may lower it
+        # (utils.WalltimeGuard)
+        while (self.t < self._tmax * (1.0 - 1e-12)
+               and self.step_count < max_steps):
             if (chunked and self.step_count + chunk <= max_steps
                     and not (self.step_count == 0
                              and self.physics is not None

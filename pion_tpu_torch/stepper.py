@@ -27,9 +27,10 @@ import torch
 
 from .boundaries import BoundaryData, apply_bcs
 from .config import SimConfig
-from .constants import AV, SI, Eqn
+from .constants import K_B, M_P, PG, RO, SI, Eqn
 from .grid import Geometry
 from .ops import fused_sweep
+from .ops.conduction import conduction_Edot, conduction_dt
 from .ops.eqns import cons_to_prim, prim_to_cons
 from .ops.sweep import dynamics_dU
 from .ops.timestep import dynamics_dt
@@ -88,23 +89,31 @@ def _scma_flag(physics):
     return el if el else True
 
 
+def _temperature(Ppad, cfg, physics):
+    """Temperature of the padded state for the conduction term: the
+    module's, else the ideal-gas one grouped as ``(p/rho)*(m_p/k_B)``
+    (``rho*k_B`` ~ 1e-42 cgs is subnormal in float32)."""
+    if physics is not None and physics.mp is not None:
+        return physics.mp.temperature(Ppad, cfg)
+    return Ppad[PG] / Ppad[RO] * (M_P / K_B)
+
+
 def _partial_update(P, Ph, dt, order_space, cfg, geom, bdata, ch,
                     physics=None, t=0.0, rt=None, sp=None):
     """One flux update: dU from Ph, applied on top of P.
 
     Chemistry contributes a conserved increment computed from P with columns
     traced through Ph (reference: time_integrator.cpp:151-197, 206-243 —
-    RT_all_sources -> calc_microphysics_dU -> calc_dynamics_dU).
+    RT_all_sources -> calc_microphysics_dU -> calc_dynamics_dU); conduction
+    adds ``dt*Edot`` of Ph to the energy.
     Returns the advanced primitive state as a new tensor (the OA2
     corrector reads the old ``P`` again, so ``P`` is never written)."""
-    if cfg.conduction:
-        raise NotImplementedError("thermal conduction is not ported yet")
     Ppad = apply_bcs(Ph, cfg, bdata, t=t)
     dU = None
     if cfg.kernels != "off" and fused_sweep.supports(cfg):
         # The wrappers launch the CUDA kernels for a CUDA tensor and take
         # their plain versions for a CPU tensor.
-        if physics is None:
+        if physics is None and not cfg.conduction:
             # pure dynamics: the final-axis kernel also applies the
             # conserved update + floors + GLM damping (no separate passes)
             return fused_sweep.advance_dynamics(P, Ppad, cfg, geom, dt,
@@ -117,6 +126,10 @@ def _partial_update(P, Ph, dt, order_space, cfg, geom, bdata, ch,
                                        and physics.mp is not None))
     if physics is not None and physics.mp is not None:
         dU = dU + physics.mp_delta_U(P, Ph, dt, cfg, rt=rt, sp=sp)
+    if cfg.conduction:
+        Edot = conduction_Edot(Ppad, _temperature(Ppad, cfg, physics), cfg,
+                               geom)
+        dU = torch.cat([dU[:PG], (dU[PG] + dt * Edot)[None], dU[PG + 1:]])
     Pnew = cell_advance(P, dU, cfg)
     if cfg.eqn is Eqn.GLM:
         Pnew = glm_psi_damp(Pnew, dt, ch, cfg, geom)
@@ -154,16 +167,6 @@ def advance(P, dt, cfg: SimConfig, geom: Geometry,
                            sp=sp)
 
 
-def check_av(cfg: SimConfig):
-    """The H-correction (``av`` "hcorr" / "hcorr_falle", parameter-file
-    codes 3 and 4) is not ported: a run that asks for it raises when it is
-    built, not at its first step."""
-    if cfg.av in (AV.HCORR, AV.HCORR_FALLE):
-        raise NotImplementedError(
-            f"av={cfg.av.value!r}: the H-correction is not ported yet "
-            "(ROADMAP.md, queue A item 16)")
-
-
 class StepFns(NamedTuple):
     advance: callable   # (P, dt, t=0.0, sp=None) -> P_new
     calc_dt: callable   # (P,) -> 0-d tensor, dt before the growth limit
@@ -181,7 +184,6 @@ def make_step_fns(cfg: SimConfig, geom: Geometry,
     The functions put the state they are given on ``device``: the CUDA
     device when ``device`` is None (raising if there is none), the CPU only
     when the caller asks for it."""
-    check_av(cfg)
     dev = resolve_device(device)
     dtype = cfg.torch_dtype
 
@@ -196,6 +198,13 @@ def make_step_fns(cfg: SimConfig, geom: Geometry,
             # chemistry/cooling dt limit (reference: calc_timestep.cpp:342
             # calc_microphysics_dt with MP_timestep_limit)
             dt = torch.minimum(dt, physics.timescale(P, cfg, rt=rt0))
+        if cfg.conduction:
+            # the ghosts of the boundaries at t = 0, as the JAX package
+            # fills them here (stepper.py:176)
+            Ppad = apply_bcs(P, cfg, bdata)
+            Edot = conduction_Edot(Ppad, _temperature(Ppad, cfg, physics),
+                                   cfg, geom)
+            dt = torch.minimum(dt, conduction_dt(P, Edot, cfg))
         return dt
 
     def _advance(P, dt, t=0.0, sp=None):

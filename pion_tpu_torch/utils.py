@@ -1,7 +1,10 @@
-"""Runtime utilities: device choice, conservation audits, step logging.
+"""Runtime utilities: device choice, named timers, conservation audits,
+walltime guard, step logging, precision check.
 
-Equivalents of the reference utility layer (reference: sim_control.cpp:401-450
-conservation checks; sim_control.cpp:240-270 per-step status line).
+Equivalents of the reference tool layer (reference: source/tools/timer.h:27-61
+``class timers``; sim_control.cpp:401-450 conservation checks;
+sim_control_MPI.cpp:425-440 max-walltime graceful stop;
+sim_control.cpp:240-270 per-step status line).
 """
 from __future__ import annotations
 
@@ -26,6 +29,82 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device available; pass device='cpu' to run on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+class Timers:
+    """Named wall-clock timers with start/pause/stop semantics
+    (reference: tools/timer.h — used e.g. to split RT waiting vs working).
+
+    They read the host clock.  Work queued on the card runs after the call
+    that queued it returns, so synchronise the device
+    (``torch.cuda.synchronize()``) before ``pause``/``stop`` when the timed
+    region queues device work, or the timer measures the enqueue only."""
+
+    def __init__(self):
+        self._acc: Dict[str, float] = {}
+        self._started: Dict[str, float] = {}
+
+    def start(self, name: str):
+        self._started[name] = time.perf_counter()
+
+    def pause(self, name: str) -> float:
+        t0 = self._started.pop(name, None)
+        if t0 is not None:
+            self._acc[name] = (self._acc.get(name, 0.0)
+                               + time.perf_counter() - t0)
+        return self._acc.get(name, 0.0)
+
+    def stop(self, name: str) -> float:
+        return self.pause(name)
+
+    def read(self, name: str) -> float:
+        run = 0.0
+        if name in self._started:
+            run = time.perf_counter() - self._started[name]
+        return self._acc.get(name, 0.0) + run
+
+    def report(self) -> Dict[str, float]:
+        return {k: self.read(k) for k in
+                set(self._acc) | set(self._started)}
+
+
+class WalltimeGuard:
+    """Callback for ``Simulation.run``: stop cleanly before a walltime limit
+    (reference: sim_control_MPI.cpp:425-440 allreduced walltime check), on
+    the host clock; a step's device work has finished when the callback runs
+    (the step reads its dt back).
+
+    Past the deadline it sets the run's end time to the current time.  The
+    port's run loop reads that end time at every step and stops; the JAX
+    package's loop keeps its own copy, and only its dt cap reads the new
+    one, so there the steps go on with dt = 0 (a reference behaviour,
+    ROADMAP C3)."""
+
+    def __init__(self, max_seconds: float, margin: float = 0.05):
+        self.deadline = time.time() + max_seconds * (1.0 - margin)
+        self.triggered = False
+
+    def __call__(self, sim):
+        if time.time() >= self.deadline:
+            self.triggered = True
+            sim._tmax = sim.t
+
+
+def ensure_precision(cfg) -> torch.dtype:
+    """The torch dtype of ``cfg.dtype``, raising for anything but float32
+    and float64.
+
+    The JAX package's function of this name turns on JAX's process-wide x64
+    switch for a float64 config, without which JAX computes in float32.
+    Torch has no such switch: each tensor carries its dtype, and the port
+    casts a run's state to the config's dtype when the run is built.  So
+    here there is nothing to turn on, only the dtype to check."""
+    dtype = getattr(cfg, "dtype", None)
+    if dtype == "float32":
+        return torch.float32
+    if dtype == "float64":
+        return torch.float64
+    raise ValueError(f"dtype must be 'float32' or 'float64', got {dtype!r}")
 
 
 def conservation_totals(P, cfg: SimConfig, geom: Geometry) -> Dict[str, float]:

@@ -301,8 +301,8 @@ def test_restart_rebuilds_physics_from_the_header(tmp_path):
 
 def test_entry_points_need_a_card_or_the_cpu(tmp_path):
     """Without a card and without ``--device cpu`` every entry point raises;
-    a bad flag and ``mesh on`` are refused; MPv7/MPv8 name their ROADMAP
-    item; the usage text comes back with 2."""
+    a bad flag and ``mesh on`` are refused; MPv7/MPv8 are built from the
+    parameters; the usage text comes back with 2."""
     pf, _ = _write(tmp_path, PARAMS, "port")
     if not torch.cuda.is_available():
         for argv in (["icgen", pf], ["run", pf]):
@@ -314,8 +314,13 @@ def test_entry_points_need_a_card_or_the_cpu(tmp_path):
         cli.run_main([pf, "mesh=on", "--device", "cpu"])
     cfg = cli.config_from_params({"ndim": "1", "NGridX": "8", "ntracer": "1"})
     for chem in ("MPv7", "MPv8"):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            cli.physics_from_params(cfg, {"chem_code": chem})
+        phys = cli.physics_from_params(cfg, {"chem_code": chem,
+                                             "MPv7_Thi": "8000.0"})
+        assert type(phys.mp).__name__ == chem
+        assert phys.mp.mpc.tracer_slot == cfg.eqn.nbase
+    assert phys.mp.mpc.max_temperature == 1.0e4
+    assert cli.physics_from_params(cfg, {"chem_code": "MPv7", "MPv7_Thi":
+                                         "8000.0"}).mp.mpc.t_hi == 8000.0
     assert cli.main(["help"]) == 2
 
 

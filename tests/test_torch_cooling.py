@@ -14,7 +14,7 @@ from pion_tpu.microphysics import cooling as ref_cooling
 
 from pion_tpu_torch import convert
 from pion_tpu_torch.constants import K_B, M_P, PG, RO
-from pion_tpu_torch.microphysics import CoolingConfig, MPOnlyCooling
+from pion_tpu_torch.microphysics.cooling import CoolingConfig, MPOnlyCooling
 from pion_tpu_torch.microphysics import cooling
 
 torch.set_num_threads(1)
@@ -25,8 +25,8 @@ RTOL = 1e-12
 def pair(curve, **kw):
     ref = ref_cooling.MPOnlyCooling(ref_cooling.CoolingConfig(curve=curve,
                                                               **kw))
-    mp = MPOnlyCooling(convert.cooling_config_from_reference(
-        dataclasses.asdict(ref.mpc)))
+    mp = MPOnlyCooling(convert.mp_config_from_reference(
+        "MPOnlyCooling", dataclasses.asdict(ref.mpc)))
     return ref, mp
 
 
@@ -106,12 +106,13 @@ def test_tables_match_reference():
 
 def test_config_crosses_both_ways_and_bad_curve_raises():
     mpc = CoolingConfig(curve="KI02", min_temperature=50.0, mu=1.2)
-    fields = convert.cooling_config_to_reference(mpc)
+    fields = convert.mp_config_to_reference(mpc)
     assert ref_cooling.CoolingConfig(**fields) == ref_cooling.CoolingConfig(
         curve="KI02", min_temperature=50.0, mu=1.2)
-    assert convert.cooling_config_from_reference(fields) == mpc
+    assert convert.mp_config_from_reference("MPOnlyCooling", fields) == mpc
     with pytest.raises(ValueError, match="unknown CoolingConfig keys"):
-        convert.cooling_config_from_reference(dict(fields, tracer_slot=5))
+        convert.mp_config_from_reference("MPOnlyCooling",
+                                         dict(fields, tracer_slot=5))
     with pytest.raises(ValueError, match="cooling curve"):
         MPOnlyCooling(CoolingConfig(curve="nope"))
     phys = convert.physics_from_reference(fields, dt_limit=1)

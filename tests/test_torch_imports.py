@@ -41,7 +41,13 @@ def test_every_submodule_imports_without_jax_or_reference_package():
                    "pion_tpu_torch.ics.starbench",
                    "pion_tpu_torch.ics.advection",
                    "pion_tpu_torch.ics.mhd2d",
-                   "pion_tpu_torch.microphysics.variants"):
+                   "pion_tpu_torch.microphysics.variants",
+                   "pion_tpu_torch.microphysics.mpv7",
+                   "pion_tpu_torch.ops.conduction", "pion_tpu_torch.utils",
+                   "pion_tpu_torch.debug", "pion_tpu_torch.io.compare",
+                   "pion_tpu_torch.io.fits", "pion_tpu_torch.analysis",
+                   "pion_tpu_torch.analysis.export",
+                   "pion_tpu_torch.analysis.projection"):
         assert needed in names
     code = (
         "import importlib, sys\n"

@@ -135,8 +135,7 @@ def test_no_silent_cpu_run():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("nlevels", 2), ("conduction", True), ("halo", "explicit"),
-    ("mesh", "on")])
+    ("nlevels", 2), ("halo", "explicit"), ("mesh", "on")])
 def test_unported_options_raise(field, value):
     rcfg = ref_config("glm3d")
     P = noisy_state(rcfg, 16)
@@ -147,9 +146,10 @@ def test_unported_options_raise(field, value):
 
 def test_unported_io_and_physics_raise(tmp_path):
     """What was unported in the first slices now runs (snapshots, winds, a
-    restart that rebuilds its physics from the header's parameter section);
-    what is left raises: the H-correction, when the run is built, and
-    conduction."""
+    restart that rebuilds its physics from the header's parameter section,
+    the H-correction and conduction); what is left raises: a nested grid
+    through ``Simulation``, a save without a file name, a state of the
+    wrong shape."""
     rcfg = ref_config("glm3d")
     cfg, Pt, _ = to_port(rcfg, noisy_state(rcfg, 17))
     sim = Simulation(cfg, Pt, device="cpu", outfile=str(tmp_path / "run"),
@@ -161,14 +161,19 @@ def test_unported_io_and_physics_raise(tmp_path):
     again = Simulation.restart(path, device="cpu")
     assert type(again.physics.mp).__name__ == "MPOnlyCooling"
     assert again.params == {"EP_cooling": "8"}
-    with pytest.raises(NotImplementedError, match="item 16"):
-        Simulation(dataclasses.replace(cfg, av="hcorr"), Pt, device="cpu")
+    # the H-correction (Roe-CV reads its eta) is built and steps
+    hc = Simulation(dataclasses.replace(cfg, solver="roe", av="hcorr"), Pt,
+                    device="cpu").run(max_steps=1)
+    assert hc.step_count == 1 and bool(torch.isfinite(hc.P).all())
     with pytest.raises(ValueError, match="outfile"):
         Simulation(cfg, Pt, device="cpu").save()
     with pytest.raises(NotImplementedError, match="NGHierarchy"):
         Simulation(dataclasses.replace(cfg, nlevels=2), Pt, device="cpu")
-    with pytest.raises(NotImplementedError):
-        advance(Pt, DT, dataclasses.replace(cfg, conduction=True),
-                pion_tpu_torch.make_geometry(cfg))
+    # conduction joins the update (code units: a temperature of p/rho
+    # times m_p/k_B, whose gradient drives a flux): it moves the energy only
+    geom = pion_tpu_torch.make_geometry(cfg)
+    on = advance(Pt, DT, dataclasses.replace(cfg, conduction=True), geom)
+    off = advance(Pt, DT, cfg, geom)
+    assert bool(torch.isfinite(on).all()) and not torch.equal(on, off)
     with pytest.raises(ValueError, match="shape"):
         Simulation(cfg, Pt[:, :4], device="cpu")

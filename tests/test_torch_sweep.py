@@ -182,9 +182,8 @@ def test_supports_and_unported_configs():
     """The kernels' scope is the scope of the Pallas gate: Euler with
     HLL/linear/Roe-CV/Roe-PV, MHD and GLM with those and HLLD, on Cartesian
     and 2D cylindrical grids; the other solvers, the H-correction and 1D
-    stay out.  The H-correction still raises in the plain sweep, which runs
-    cylindrical grids; Euler with HLLD raises the reference's
-    ``ValueError``."""
+    stay out.  The plain sweep runs the H-correction and cylindrical grids;
+    Euler with HLLD raises the reference's ``ValueError``."""
     cfg = to_port(*(lambda r: (r, noisy_state(r, 0)))(ref_config("glm3d")))[0]
     assert fused_sweep.supports(cfg)
     S = pion_tpu_torch.SimConfig
@@ -222,8 +221,8 @@ def test_supports_and_unported_configs():
                               cyl, pion_tpu_torch.make_geometry(cyl), DT, 1)
     assert tuple(dU.shape) == (8, 8, 8) and bool(torch.isfinite(dU).all())
     hc = S(eqn="euler", solver="roe", av="hcorr", **box2)
-    with pytest.raises(NotImplementedError):
-        sweep.dynamics_dU(torch.ones((5, 12, 12), dtype=torch.float64), hc,
-                          pion_tpu_torch.make_geometry(hc), DT, 1)
+    dU, _ = sweep.dynamics_dU(torch.ones((5, 12, 12), dtype=torch.float64),
+                              hc, pion_tpu_torch.make_geometry(hc), DT, 1)
+    assert tuple(dU.shape) == (5, 8, 8) and bool(torch.isfinite(dU).all())
     with pytest.raises(ValueError):
         S(kernels="interpret", **box2)

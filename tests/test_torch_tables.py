@@ -59,7 +59,8 @@ def _ref_mp(ion):
 @pytest.mark.parametrize("ion", [None, "mono", "mfion"])
 def test_mpv3_tables_match_reference(ion):
     ref = _ref_mp(ion)
-    mp = MPv3(convert.mpv3_config_from_reference(dataclasses.asdict(ref.mpc)))
+    mp = MPv3(convert.mp_config_from_reference(
+        "MPv3", dataclasses.asdict(ref.mpc)))
     ref_tab = {k: np.asarray(v) for k, v in ref.tab.items()}
     n = convert.check_rate_tables(mp, ref_tab, rtol=RTOL)
     assert n == len(ref_tab) - len(convert.TPU_LAYOUT_TABLES) >= 16
@@ -80,7 +81,8 @@ def test_mpv3_tables_match_reference(ion):
 
 def test_check_rate_tables_rejects_a_wrong_table():
     ref = _ref_mp("mfion")
-    mp = MPv3(convert.mpv3_config_from_reference(dataclasses.asdict(ref.mpc)))
+    mp = MPv3(convert.mp_config_from_reference(
+        "MPv3", dataclasses.asdict(ref.mpc)))
     ref_tab = {k: np.array(v) for k, v in ref.tab.items()}
     ref_tab["rrhp"] = ref_tab["rrhp"] * (1.0 + 1e-9)
     with pytest.raises(ValueError, match="rrhp"):
@@ -88,4 +90,5 @@ def test_check_rate_tables_rejects_a_wrong_table():
     with pytest.raises(ValueError, match="missing"):
         convert.check_rate_tables(mp, {"no_such_table": np.zeros(3)})
     with pytest.raises(ValueError, match="unknown MPv3Config keys"):
-        convert.mpv3_config_from_reference({"tracer_slot": 5, "bogus": 1})
+        convert.mp_config_from_reference("MPv3", {"tracer_slot": 5,
+                                                  "bogus": 1})

@@ -41,7 +41,8 @@ def pair(name, ion, n_diff=0):
         tracer_slot=SLOT, ion_src=ion, n_idot=1e48,
         tstar=3.75e4 if mf else 0.0, rstar_cm=10 * RSUN if mf else 0.0,
         min_temperature=50.0, n_diff_srcs=n_diff))
-    mp = cls(convert.mpv3_config_from_reference(dataclasses.asdict(ref.mpc)))
+    mp = cls(convert.mp_config_from_reference(
+        "MPv3", dataclasses.asdict(ref.mpc)))
     return ref, mp
 
 
