@@ -31,7 +31,12 @@ with Roe-CV, on the plain sweep as in the JAX package), thermal conduction
 MPv8 (the StarBench set-up) and MPv7 (Iliev et al.'s test 5) through
 ``cli.main`` at 128^3, and the analysis and I/O tools (projections,
 FITS, snapshot comparison, exports, the cell inspector) on their states,
-the card against a CPU copy.  Then each path again through
+the card against a CPU copy.  Then multi-device runs on a 2x2x2 mesh of
+shards, all eight on the one card: the mesh and its exchange, the sharded
+octant trace B6 (B5 once a shard) against the whole grid's B5 and its plain
+version, configuration 1 with ``halo="explicit"`` and the photoionised Euler
+wind bubble as sharded states, each against the single-device run of the
+same state.  Then each path again through
 ``run(chunk=k)``, k steps as one CUDA graph replay: bit for bit the run of k
 single steps, and timed beside it.
 Every phase prints one JSON line; any failed
@@ -658,19 +663,27 @@ def step_parts(device, shape=(128, 128, 128), steps: int = 10):
 
 # launches a step of each path, by wrapper (the hierarchy's: NG_LAUNCHES)
 BLAST_LAUNCHES = {"sweep_axis": 4, "final_axis": 2, "mpv3_update": 0,
-                  "mpv3_ydot": 0, "octant_trace": 0}
+                  "mpv3_ydot": 0, "octant_trace": 0,
+                  "sharded_octant_trace": 0}
 HII_LAUNCHES = {"sweep_axis": 6, "final_axis": 0, "mpv3_update": 2,
-                "mpv3_ydot": 1, "octant_trace": 2}
+                "mpv3_ydot": 1, "octant_trace": 2, "sharded_octant_trace": 0}
+# a step on the one-card 2x2x2 mesh: every launch of a step, once a shard;
+# the wind bubble's two traces are B6's, 8 B5 launches each
+MESH_BLAST_LAUNCHES = {k: 8 * v for k, v in BLAST_LAUNCHES.items()}
+MESH_WIND_LAUNCHES = dict({k: 8 * v for k, v in HII_LAUNCHES.items()},
+                          sharded_octant_trace=2)
 
 
 def _wrappers():
     from pion_tpu_torch.microphysics import fused_mpv3 as fm
     from pion_tpu_torch.ops import fused_sweep as fs
     from pion_tpu_torch.raytracing import fused_trace as ft
+    from pion_tpu_torch.raytracing import sharded_trace as st
 
     return {"sweep_axis": fs.sweep_axis, "final_axis": fs.final_axis,
             "mpv3_update": fm.update, "mpv3_ydot": fm.ydot,
-            "octant_trace": ft.octant_trace}
+            "octant_trace": ft.octant_trace,
+            "sharded_octant_trace": st.sharded_octant_trace}
 
 
 def reset_counts():
@@ -1560,11 +1573,14 @@ def hii_path(device, n: int, steps: int, agree_tol: float):
     return rec, counts
 
 
-def timed_run(sim, steps: int):
+def timed_run(sim, steps: int, dts=None):
+    """Seconds and peak device memory of ``steps`` steps of ``sim.run``;
+    each step's dt appended to ``dts`` where given."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    sim.run(max_steps=sim.step_count + steps)
+    sim.run(max_steps=sim.step_count + steps, callback=None if dts is None
+            else lambda s: dts.append(s.last_dt))
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     return sec, torch.cuda.max_memory_allocated()
@@ -1582,7 +1598,7 @@ def timed_run(sim, steps: int):
 # and for its corrector; level 1 the same on its first substep, and for
 # predictor and corrector on its second.
 NG_LAUNCHES = {"sweep_axis": 18, "final_axis": 0, "mpv3_update": 6,
-               "mpv3_ydot": 2, "octant_trace": 6}
+               "mpv3_ydot": 2, "octant_trace": 6, "sharded_octant_trace": 0}
 NG_SEEDED = 2
 
 
@@ -2689,11 +2705,10 @@ CYL_SHAPE = (1024, 2048)
 # its 1 + 2 + 4 level steps' predictors (the correctors take the plain sweep
 # with its faces)
 CYL_BLAST_LAUNCHES = {"sweep_axis": 2, "final_axis": 2, "mpv3_update": 0,
-                      "mpv3_ydot": 0, "octant_trace": 0}
-CYL_WIND_LAUNCHES = {"sweep_axis": 4, "final_axis": 0, "mpv3_update": 0,
-                     "mpv3_ydot": 0, "octant_trace": 0}
-CYL_NG_LAUNCHES = {"sweep_axis": 14, "final_axis": 0, "mpv3_update": 0,
-                   "mpv3_ydot": 0, "octant_trace": 0}
+                      "mpv3_ydot": 0, "octant_trace": 0,
+                      "sharded_octant_trace": 0}
+CYL_WIND_LAUNCHES = dict(CYL_BLAST_LAUNCHES, sweep_axis=4, final_axis=0)
+CYL_NG_LAUNCHES = dict(CYL_BLAST_LAUNCHES, sweep_axis=14, final_axis=0)
 # kernels against the plain path after two steps of the wind runs, each
 # group of variables scaled by its own range (``level_errs``)
 CYL_AGREE_TOL = 1.0e-5
@@ -2978,7 +2993,8 @@ def cyl_ng_path(steps: int = 6):
 # axis 0 at both partial steps (on the jet's cylindrical grid B2 takes the
 # radial branch); the StarBench run takes the H II region's HII_LAUNCHES
 CLI_2D_LAUNCHES = {"sweep_axis": 2, "final_axis": 2, "mpv3_update": 0,
-                   "mpv3_ydot": 0, "octant_trace": 0}
+                   "mpv3_ydot": 0, "octant_trace": 0,
+                   "sharded_octant_trace": 0}
 NO_LAUNCHES = dict.fromkeys(CLI_2D_LAUNCHES, 0)
 # icgen's chemistry equilibration: 2 x 50 updates, each one call of B3
 EQUILIBRATE_LAUNCHES = dict(NO_LAUNCHES, mpv3_update=100)
@@ -3694,6 +3710,384 @@ def conduction_wind_path(device, n: int = 128, steps: int = 10):
     return rec, counts, {"conduction_wind": (ca, cb, 5, HII_LAUNCHES)}
 
 
+# ---------------------------------------------------------------------------
+# multi-device runs: a 2x2x2 mesh of shards, all eight on the one card
+# ---------------------------------------------------------------------------
+
+MESH_SHAPE = (128, 128, 128)
+# the sharded blast against the single-device run from the same state: the
+# same kernels on the same stencil values a shard, the dt a min over the
+# shards (read: bit for bit); float64 at 64^3
+MESH_BLAST_TOL = {"float32": 2.0e-5, "float64": 1.0e-12}
+# the sweep and trace kernels with the plain chemistry, float64 32^3
+MESH_WIND_F64_TOL = 1.0e-10
+
+
+def one_card_mesh(cfg, device):
+    """The 2x2x2 mesh of ``cfg``'s 3D grid with all eight shards on
+    ``device``."""
+    from pion_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(cfg, devices=[device] * 8)
+    if mesh.factors != (2, 2, 2):
+        raise AssertionError(f"mesh {mesh.factors}, expected (2, 2, 2)")
+    return mesh
+
+
+def fill_share(parts, fill) -> dict:
+    """Device ms a step (the profiler's ``parts``) beside the ghost fill's
+    (``fill``, from :func:`fill_cost`) and its share of the step, with the
+    copy kernels of ``torch.cat`` (``CatArrayBatchedCopy``: a fill's
+    physical faces; the exchange's strips are strided copies, in the
+    elementwise group) and the six largest groups."""
+    groups = parts["device_ms_per_step_by_group"]
+    dev = parts["device_ms_per_step"]
+    fill_ms = fill["fill_ms_per_step"]
+    return {"device_ms_per_step": dev, **fill,
+            "fill_share": fill_ms / dev if dev else None,
+            "cat_copy_ms_per_step": groups.get("CatArrayBatchedCopy", 0.0),
+            "by_group": dict(list(groups.items())[:6])}
+
+
+def fill_cost(sim) -> dict:
+    """The ghost fill of one step of ``sim`` as its step calls it: on a mesh
+    the exchange (``halo.apply_bcs_sharded``: the neighbours' strips and
+    the physical faces of every shard), on one device ``apply_bcs`` of the
+    whole grid.  One step is run with the fill recorded; then the fill is
+    timed alone on the arguments of its first call (``time_ms``: CUDA
+    events, 20 calls behind a busy device).  Returns the fills a step and
+    the device ms of one and of a step's."""
+    from pion_tpu_torch import stepper
+    from pion_tpu_torch.parallel import Sharded, halo
+
+    mod, name = ((halo, "apply_bcs_sharded") if isinstance(sim.P, Sharded)
+                 else (stepper, "apply_bcs"))
+    fn, calls = getattr(mod, name), []
+
+    def recorded(*a, **k):
+        calls.append((a, k))
+        return fn(*a, **k)
+
+    setattr(mod, name, recorded)
+    try:
+        sim.run(max_steps=sim.step_count + 1)
+    finally:
+        setattr(mod, name, fn)
+    a, k = calls[0]
+    ms = time_ms(lambda: fn(*a, **k), 20)
+    return {"fill": name, "fills_per_step": len(calls), "fill_ms": ms,
+            "fill_ms_per_step": ms * len(calls)}
+
+
+def mesh_profile(sim, steps: int = 5) -> dict:
+    """:func:`fill_share` of ``steps`` more steps of ``sim``."""
+    fill = fill_cost(sim)
+    return fill_share(device_time_by_kernel(
+        lambda: sim.run(max_steps=sim.step_count + steps), steps), fill)
+
+
+def check_mesh(device) -> dict:
+    """On the one-card 2x2x2 mesh: ``shard_state`` then ``gather`` bit for
+    bit; ``apply_bcs_sharded`` equal to ``apply_bcs`` of the whole grid,
+    sliced, for outflow, periodic and reflecting faces (and one-way), at
+    128^3; B6 (``sharded_octant_trace``) at 128^3 with the source in cell
+    63 of every axis, float32 and float64, against the single-device B5 on
+    the whole grid and against its plain version (TRACE_TOL of max tau),
+    with 8 B5 launches a trace and one of B6's own; then B6 timed (CUDA
+    events, 20 calls behind a busy device) beside the whole grid's B5 and
+    B6's plain version.  Returns the phase record and B6's row of
+    ``kernels`` (its launches filled in by the wind path)."""
+    from pion_tpu_torch.boundaries import apply_bcs
+    from pion_tpu_torch.parallel import Sharded, gather, shard_state
+    from pion_tpu_torch.parallel.halo import apply_bcs_sharded, local_config
+    from pion_tpu_torch.raytracing import fused_trace as ft
+    from pion_tpu_torch.raytracing import sharded_trace as st
+
+    t0 = time.perf_counter()
+    cfg = main_cfg(MESH_SHAPE, "float32")
+    mesh = one_card_mesh(cfg, device)
+    P = torch.as_tensor(noisy_state(cfg, 70), device=device)
+    S = shard_state(P, mesh, cfg)
+    if not (torch.equal(gather(S), P)
+            and all(b.device == P.device for b in S.blocks)):
+        raise AssertionError("shard_state -> gather is not the state")
+    ng = cfg.ng
+    faces = {"outflow": ("outflow", "outflow"),
+             "periodic": ("periodic", "periodic"),
+             "reflecting": ("reflecting", "reflecting"),
+             "mixed": ("oneway_out", "outflow")}
+    for name, face in faces.items():
+        c = dataclasses.replace(cfg, bcs=(face, ("periodic", "periodic"),
+                                          ("reflecting", "outflow"))
+                                if name == "mixed" else (face,) * 3)
+        full = apply_bcs(P, c)
+        pads = apply_bcs_sharded(S, local_config(c, mesh))
+        for blk, r in zip(pads, S.ranges()):
+            sl = (slice(None),) + tuple(slice(lo, hi + 2 * ng)
+                                        for lo, hi in r)
+            if not torch.equal(blk, full[sl]):
+                raise AssertionError(f"the exchange ({name} faces) is not "
+                                     f"the whole grid's padding at {r}")
+        del full, pads
+    del P, S
+    src = tuple(n // 2 - 1 for n in MESH_SHAPE)
+    tmin = 0.7 * 6.0 / 7.0
+    errs, times = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        key = str(dtype).split(".")[-1]
+        rng = np.random.default_rng(71)
+        dtau = torch.as_tensor(rng.uniform(0.01, 0.5, MESH_SHAPE),
+                               dtype=dtype, device=device)
+        blocks = shard_state(dtau, mesh).blocks
+        if not st.supports_sharded(MESH_SHAPE, src, mesh):
+            raise AssertionError(f"B6 does not take the source at {src}")
+        reset_counts()
+        got = gather(Sharded(st.sharded_octant_trace(blocks, mesh, tmin),
+                             mesh, MESH_SHAPE))
+        counts = read_counts()
+        if (counts["octant_trace"], counts["sharded_octant_trace"]) != (8, 1):
+            raise AssertionError(f"B6 launches {counts}: expected 8 B5 and "
+                                 f"1 B6")
+        whole = ft.octant_trace(dtau, src, tmin)
+        plain = gather(Sharded(
+            st.sharded_octant_trace_plain(blocks, mesh, tmin), mesh,
+            MESH_SHAPE))
+        torch.cuda.synchronize()
+        scale = float(whole.abs().max())
+        e_b5 = float((got - whole).abs().max()) / scale
+        e_plain = float((got - plain).abs().max()) / scale
+        if not (e_b5 <= TRACE_TOL[dtype] and e_plain <= TRACE_TOL[dtype]
+                and bool(torch.isfinite(got).all())):
+            raise AssertionError(
+                f"B6 {key}: {e_b5:.3e} from the whole grid's B5, "
+                f"{e_plain:.3e} from its plain version > "
+                f"{TRACE_TOL[dtype]:.1e}")
+        errs[key] = {"vs_whole_grid_b5": e_b5, "vs_plain": e_plain,
+                     "max_abs_err": float((got - plain).abs().max())}
+        times[key] = {
+            "ms": time_ms(lambda: st.sharded_octant_trace(blocks, mesh,
+                                                          tmin), 20),
+            "whole_grid_b5_ms": time_ms(
+                lambda: ft.octant_trace(dtau, src, tmin), 20),
+            "plain_ms": time_ms(lambda: st.sharded_octant_trace_plain(
+                blocks, mesh, tmin), 2, warmup=1),
+            "block_plans": sorted({str(dict(ft.trace_plan(
+                tuple(c.shape), s_, dtau.element_size())))
+                for c, s_ in zip(*st._exchange(blocks, mesh))})}
+        del dtau, blocks, got, whole, plain
+    cells = int(np.prod(MESH_SHAPE))
+    b_ms, b_by = bound(2 * cells * 4, 40 * cells, torch.float32)
+    row = {"name": "sharded_octant_trace", "route": "cuda",
+           "source": "pion_tpu_torch/raytracing/sharded_trace.py",
+           "replaces": "pion_tpu/raytracing/pallas_trace.py:325",
+           "launches": None, "max_abs_err": errs["float32"]["max_abs_err"],
+           "max_rel_err": errs["float32"]["vs_plain"],
+           "ms": times["float32"]["ms"],
+           "plain_ms": times["float32"]["plain_ms"],
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "kernel": "octant_trace_cluster_kernel (B5) once a shard, "
+                     "csrc/trace.cu",
+           "whole_grid_b5_ms": times["float32"]["whole_grid_b5_ms"],
+           "float64": times["float64"], "source_cell": list(src)}
+    rec = {"mesh": [2, 2, 2], "devices": str(device),
+           "faces_checked": list(faces), "trace_errs": errs,
+           "trace_tol": {str(k).split(".")[-1]: v
+                         for k, v in TRACE_TOL.items()},
+           "trace_times": times, "seconds": time.perf_counter() - t0}
+    return rec, row
+
+
+def mesh_blast_path(device, steps: int = 10):
+    """Configuration 1 at 128^3 float32 with ``halo="explicit"`` on the
+    one-card 2x2x2 mesh (``Simulation(cfg, shard_state(P0, mesh)).run``),
+    against the single-device run from the same state: fields within
+    MESH_BLAST_TOL, the same dt sequence; launches a step B1 4 x 8, B2 2 x
+    8 (MESH_BLAST_LAUNCHES); host ms a step (``timed_run``) and device ms
+    a step (the profiler over 5 more steps) with the share of the exchange
+    (timed alone, ``fill_cost``), each beside the single-device run's and
+    its ``apply_bcs``.  Then 64^3 float64, 3 steps.  Returns
+    the record and the launch counts."""
+    from pion_tpu_torch import Simulation
+    from pion_tpu_torch.parallel import Sharded, shard_state
+
+    rec = {}
+    for shape, dtype, n in ((MESH_SHAPE, "float32", steps),
+                            ((64,) * 3, "float64", 3)):
+        cfg = main_cfg(shape, dtype, halo="explicit")
+        mesh = one_card_mesh(cfg, device)
+        P0 = torch.as_tensor(noisy_state(cfg, 72), device=device)
+
+        def runs():
+            one = Simulation(dataclasses.replace(cfg, halo="gspmd"), P0)
+            sh = Simulation(cfg, shard_state(P0, mesh, cfg))
+            if not (isinstance(sh.P, Sharded) and sh.mesh is mesh):
+                raise AssertionError("the run is not on the mesh")
+            return one, sh
+
+        for r in runs():                               # warm-up
+            r.run(max_steps=2)
+        one, sh = runs()
+        dts, dts_one = [], []
+        reset_counts()
+        sec, peak = timed_run(sh, n, dts)
+        counts = read_counts()
+        sec_one, _ = timed_run(one, n, dts_one)
+        want = {k: v * n for k, v in MESH_BLAST_LAUNCHES.items()}
+        if counts != want:
+            raise AssertionError(f"mesh blast {dtype}: launch counts "
+                                 f"{counts}, expected {want}")
+        G = sh.P.gather()
+        if not bool(torch.isfinite(G).all()):
+            raise AssertionError(f"mesh blast {dtype}: non-finite values")
+        err, err_abs = scaled_err(G, one.P)
+        dt_err = max(abs(a - b) / b for a, b in zip(dts, dts_one))
+        tol = MESH_BLAST_TOL[dtype]
+        if not (err <= tol
+                and dt_err <= 10.0 * float(torch.finfo(G.dtype).eps)):
+            raise AssertionError(f"mesh blast {dtype}: {err:.3e} from the "
+                                 f"single-device run (tol {tol:.0e}), dt "
+                                 f"{dt_err:.3e}")
+        r = {"shape": list(shape), "steps": n, "launches": counts,
+             "launches_per_step": {k: v / n for k, v in counts.items()},
+             "vs_single_device": err, "vs_single_device_abs": err_abs,
+             "dt_rel_diff": dt_err, "tol": tol, "t": sh.t}
+        if dtype == "float32":
+            cells = int(np.prod(shape))
+            prof, prof_one = mesh_profile(sh), mesh_profile(one)
+            r.update(host_ms_per_step=sec / n * 1e3,
+                     host_ms_per_step_single_device=sec_one / n * 1e3,
+                     cell_updates_per_s=cells * n / sec, peak_mem_bytes=peak,
+                     mesh_device=prof, single_device=prof_one)
+            counts32 = counts
+        rec[dtype] = r
+        del one, sh, G
+    return rec, counts32
+
+
+def gathered(sim):
+    """What ``check_euler_wind`` reads of a sharded run, gathered."""
+    import types
+
+    return types.SimpleNamespace(P=sim.P.gather(), cfg=sim.cfg,
+                                 physics=sim.physics, t=sim.t)
+
+
+def mesh_wind_path(device, n: int = 128, steps: int = 10):
+    """The photoionised Euler wind bubble (``euler_wind_problem``: the
+    reference's sharded smoke step, ``__graft_entry__.py:176-205``) at 128^3
+    float32, the source and the wind at 0.5 L (cell 63), as a state sharded
+    over the one-card 2x2x2 mesh, 10 steps, against the single-device run of
+    the same state: launches a step MESH_WIND_LAUNCHES (B1 48, B3 16, B4 8,
+    B5 16, B6 2); EULER_WIND_TOL (ROADMAP C8: B3 takes its ladder per tile of
+    each shard's block); then from that state 2 steps of both with the
+    plain chemistry (sweep and trace kernels only) at
+    EULER_WIND_DYNAMICS_TOL in every group; B3 on each shard's block
+    against ``update_plain`` of that block (UPDATE_TOL, the same ladder
+    tiles); host and device ms a step beside the single-device run's; a
+    32^3 float64 copy, 2 steps, sweep and trace kernels only, within
+    MESH_WIND_F64_TOL.  Returns the record and the launch counts."""
+    from pion_tpu_torch import Simulation
+    from pion_tpu_torch.constants import PG, RO, VX
+    from pion_tpu_torch.microphysics import fused_mpv3 as fm
+    from pion_tpu_torch.parallel import shard_state
+
+    cfg, P0, make_physics = euler_wind_problem(n, "float32")
+    mesh = one_card_mesh(cfg, device)
+    P0t = torch.as_tensor(P0, dtype=torch.float32, device=device)
+    xs = cfg.eqn.nbase
+    groups = {"mass": [RO], "velocity": [VX, VX + 1, VX + 2],
+              "pressure": [PG], "tracer": [xs]}
+
+    def sharded(P, cls=None, c=cfg, mk=make_physics, **clock):
+        phys = mk() if cls is None else mk(cls)
+        return Simulation(c, shard_state(P, one_card_mesh(c, device)),
+                          physics=phys, **clock)
+
+    sharded(P0t).run(max_steps=2)                      # warm-up
+    sh = sharded(P0t)
+    one = Simulation(cfg, P0, physics=make_physics())
+    dts, dts_one = [], []
+    reset_counts()
+    sec, peak = timed_run(sh, steps, dts)
+    counts = read_counts()
+    sec_one, _ = timed_run(one, steps, dts_one)
+    want = {k: v * steps for k, v in MESH_WIND_LAUNCHES.items()}
+    if counts != want:
+        raise AssertionError(f"mesh wind: launch counts {counts}, expected "
+                             f"{want}")
+    state = check_euler_wind(gathered(sh), "mesh wind")
+    G = sh.P.gather()
+    errs = {k: grouped_err(G, one.P, [g]) for k, g in groups.items()}
+    for k, e in errs.items():
+        if not e <= EULER_WIND_TOL[k]:
+            raise AssertionError(f"mesh wind against one device in {k}: "
+                                 f"{e:.3e} > {EULER_WIND_TOL[k]:.1e}")
+    dt_err = max(abs(a - b) / b for a, b in zip(dts, dts_one))
+
+    # the sweep and trace kernels alone, from the run's state
+    clock = dict(t=sh.t, step_count=sh.step_count, last_dt=sh.last_dt)
+    pc = plain_chemistry_class()
+    a = sharded(G, pc, **clock)
+    b = Simulation(cfg, G, physics=make_physics(pc), **clock)
+    a.run(max_steps=steps + 2)
+    b.run(max_steps=steps + 2)
+    errs_dyn = {k: grouped_err(a.P.gather(), b.P, [g])
+                for k, g in groups.items()}
+    for k, e in errs_dyn.items():
+        if not e <= EULER_WIND_DYNAMICS_TOL:
+            raise AssertionError(f"mesh wind, sweep and trace kernels only, "
+                                 f"against one device in {k}: {e:.3e}")
+    del a, b
+
+    # B3 on each shard's block against its plain version, at the step the
+    # run would take
+    dt = float(sh.fns.calc_dt(sh.P))
+    rts = sh.physics.raytrace_sharded(
+        sh.P, [sh.physics.for_block(r) for r in sh.P.ranges()])
+    b3 = {"dt": dt, "max_soft_rel_err": 0.0, "ladder_tiles": [],
+          "newton_iterations": []}
+    for blk, rt in zip(sh.P.blocks, rts):
+        omx, E, nH = sh.physics.mp.local_state(blk)
+        got, tiles, newton = update_stats(sh.physics.mp, omx, E, nH, dt, rt)
+        *ref, ref_stats = fm.update_plain(sh.physics.mp, omx, E, nH, dt, rt,
+                                          return_stats=True)
+        e = max(soft_err(g, r) for g, r in zip(got, ref))
+        if not (e <= UPDATE_TOL[torch.float32]
+                and ladder_agrees(tiles, ref_stats[0])):
+            raise AssertionError(f"B3 on a shard: {e:.3e}, ladder tiles "
+                                 f"{tiles} / plain {ref_stats[0]}")
+        b3["max_soft_rel_err"] = max(b3["max_soft_rel_err"], e)
+        b3["ladder_tiles"].append([tiles, ref_stats[0]])
+        b3["newton_iterations"].append([newton, ref_stats[1]])
+
+    prof, prof_one = mesh_profile(sh), mesh_profile(one)
+
+    # float64 at 32^3: the sweep and trace kernels, the plain chemistry
+    c64, P64, mk64 = euler_wind_problem(32, "float64")
+    a = sharded(torch.as_tensor(P64, device=device), pc, c=c64, mk=mk64)
+    b = Simulation(c64, P64, physics=mk64(pc))
+    a.run(max_steps=2)
+    b.run(max_steps=2)
+    err64, _ = scaled_err(a.P.gather(), b.P)
+    if not err64 <= MESH_WIND_F64_TOL:
+        raise AssertionError(f"mesh wind float64 32^3: {err64:.3e} > "
+                             f"{MESH_WIND_F64_TOL:.0e}")
+    rec = {"shape": [n] * 3, "mesh": [2, 2, 2], "steps": steps, "t": sh.t,
+           "launches": counts,
+           "launches_per_step": {k: v / steps for k, v in counts.items()},
+           **state, "vs_single_device": errs, "tol": EULER_WIND_TOL,
+           "dt_rel_diff": dt_err,
+           "sweep_trace_kernels_vs_single_device_2_steps": errs_dyn,
+           "tol_sweep_trace": EULER_WIND_DYNAMICS_TOL,
+           "b3_per_shard": b3, "float64_32": {"vs_single_device": err64,
+                                              "tol": MESH_WIND_F64_TOL},
+           "host_ms_per_step": sec / steps * 1e3,
+           "host_ms_per_step_single_device": sec_one / steps * 1e3,
+           "peak_mem_bytes": peak, "mesh_device": prof,
+           "single_device": prof_one}
+    return rec, counts
+
+
 def mpv8_params(n: int) -> dict:
     """``starbench_params`` with ``chem_code MPv8`` (the StarBench module,
     reference MPv8.cpp): the same medium as MPv8 counts it, with helium
@@ -4165,6 +4559,15 @@ def main(argv=None):
         del run_m8
         cyl_runs.update(runs_hc, **runs_cd, **runs_cw2, **runs_m8, **runs_m7)
 
+    # multi-device runs on a 2x2x2 mesh of shards, all on this card: the
+    # mesh, the exchange and B6, then the blast and the wind bubble sharded
+    rec_mesh, b6_row = check_mesh(device)
+    emit("mesh_checks", **rec_mesh, kernel=b6_row)
+    rec_mb, counts_mb = mesh_blast_path(device)
+    emit("mesh_blast_path", **rec_mb)
+    rec_mw, counts_mw = mesh_wind_path(device)
+    emit("mesh_wind_path", **rec_mw)
+
     # several steps in one dispatch: each path's chunked run against its
     # single steps, then both timed in this call
     rec_chunk, chunk_runs = chunk_checks(device)
@@ -4233,7 +4636,9 @@ def main(argv=None):
                                        conduction_wind=counts_cw2[
                                            row["name"]],
                                        cli_mpv8=counts_m8[row["name"]],
-                                       cli_mpv7=counts_m7[row["name"]])
+                                       cli_mpv7=counts_m7[row["name"]],
+                                       mesh_blast=counts_mb[row["name"]],
+                                       mesh_wind=counts_mw[row["name"]])
     # B4 and B3 on the MPv6 mix: launches from the StarBench run, the
     # numbers from ``mpv6_kernels`` (128^3, and the 32^3 copy)
     for row in rows:
@@ -4258,6 +4663,24 @@ def main(argv=None):
                              for v, by_dtype in radial_errs.items()},
                          **{v: rec[name] for v, rec in radial.items()
                             if name in rec}}
+    # B6: launched on the sharded wind bubble (two traces a step), on no
+    # other path
+    by_path = {path: counts_of["sharded_octant_trace"] for path, counts_of in
+               (("blast", counts), ("hii", counts_hii), ("ng", counts_ng),
+                ("euler", counts_e), ("euler_wind", counts_w),
+                ("cyl_blast", counts_cb), ("cyl_wind", counts_cw),
+                ("cyl_ng", counts_cn), ("cli_dmr", counts_dmr),
+                ("cli_jet", counts_jet), ("cli_starbench", counts_sb),
+                ("hcorr", counts_hc), ("conduction", counts_cd),
+                ("conduction_wind", counts_cw2), ("cli_mpv8", counts_m8),
+                ("cli_mpv7", counts_m7), ("mesh_blast", counts_mb),
+                ("mesh_wind", counts_mw))}
+    b6_row.update(launches=counts_mw["sharded_octant_trace"],
+                  launches_by_path=by_path)
+    if b6_row["launches"] < 1:
+        raise AssertionError("sharded_octant_trace was not launched on the "
+                             "sharded wind bubble")
+    rows.append(b6_row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

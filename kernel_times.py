@@ -48,6 +48,13 @@ float32 it times:
 - the host's microseconds a call of ``update``, ``ydot`` and ``sweep_axis``
   (order 2) on level 1 of the coupled state, queued behind a busy device.
 
+With ``--ladder`` it times only the host's cost of the plain per-tile
+ladder (``fused_mpv3.update_plain``) on ``mpv3_checks``' inputs, read-backs
+of its stopping test every 1, 2, 4 or 8 Newton iterations, and one Newton
+iteration's Jacobian as two ``torch.func.jvp`` (the ladder's first form)
+and as one forward-mode pass (its form now): the host's queueing, the
+events' time, a read-back's wait.
+
 With ``--paths`` it also times whole steps of the three paths on the host
 clock (``Simulation.run`` of the blast and the H II region, ``NGHierarchy.step``
 of the coupled flagship, each after two warm-up steps, ending in
@@ -77,6 +84,9 @@ def main(argv=None):
     ap.add_argument("--paths", action="store_true",
                     help="also time whole steps of the three paths on the "
                          "host clock (blast 10, H II 10, coupled 6 steps)")
+    ap.add_argument("--ladder", action="store_true",
+                    help="only the host's cost of the plain per-tile "
+                         "ladder (fused_mpv3.update_plain) and its parts")
     args = ap.parse_args(argv)
     if args.here:
         sys.path.insert(0, os.getcwd())
@@ -110,6 +120,14 @@ def main(argv=None):
                 "ladder_tiles": tiles, "newton_iterations": newton,
                 "cells": omx.numel(), "dt": float(dt)}
 
+    if args.ladder:
+        for dtype in (torch.float32, torch.float64):
+            emit("ladder", **ladder_costs(cs, torch, dtype))
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip(), flush=True)
+        return 0
     emit("build", seconds=_build.load_all()["seconds"],
          source=os.path.dirname(os.path.abspath(fs.__file__)))
 
@@ -315,6 +333,80 @@ def ydot_times(cs, sim, torch) -> dict:
                                      for a, b in zip((d_o, d_e), got))}
     out["staging_only"] = {"ms": cs.time_ms(lambda: probe(1), 20)}
     del keep
+    return out
+
+
+def ladder_costs(cs, torch, dtype) -> dict:
+    """The host's cost of ``fused_mpv3.update_plain`` (the plain per-tile
+    ladder) on ``chip_smoke.py``'s ``mpv3_checks`` case (multifrequency, one
+    source, 7 x 33 x 41 cells: 10 tiles), at dt = 1e3 s (Newton converges)
+    and 1e9 s (the stiff case: 32 substeps of 8 iterations): seconds a call
+    and its Newton tile-iterations.  Then the Jacobian
+    of one Newton iteration on the case's tiles, made as the ladder made it
+    before (two ``torch.func.jvp`` of ``ydot``) and as it makes it now
+    (``mpv3.jacobian_columns``, one forward-mode pass): the host's time to
+    queue it, the CUDA events' time over 20 of them behind a busy device
+    (which is the host's time where the host is the slower), and the wait
+    of one read-back issued right after it."""
+    from torch.func import jvp
+
+    from pion_tpu_torch.microphysics import fused_mpv3 as fm
+    from pion_tpu_torch.microphysics.mpv3 import MPv3, jacobian_columns
+
+    dev = torch.device("cuda", 0)
+    mp = cs.make_mp("mfion")
+    omx, E, nH, rt = cs.mp_inputs(mp, (7, 33, 41), 1, dtype, dev, 40)
+    out = {"dtype": str(dtype).split(".")[-1], "cells": omx.numel()}
+    for dt in (1.0e3, 1.0e9):
+        fm.update_plain(mp, omx, E, nH, dt, rt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        *_, stats = fm.update_plain(mp, omx, E, nH, dt, rt,
+                                    return_stats=True)
+        torch.cuda.synchronize()
+        row = {"s": time.perf_counter() - t0}
+        row["ladder_tiles"], row["newton_tile_iterations"] = stats
+        out[f"dt_{dt:g}"] = row
+    srcs, g0uv, g0ir = fm._planes(mp, rt, omx)
+    n_pad = -(-omx.numel() // fm.TILE) * fm.TILE
+    o, e, h = (fm._pad(omx, n_pad, 0.5), fm._pad(E, n_pad, 1.0),
+               fm._pad(nH, n_pad, 1.0))
+    rt_t = fm._plane_rt(mp, [(fm._pad(t0, n_pad, 1.0e6),
+                              fm._pad(ds, n_pad, 0.0),
+                              fm._pad(nv, n_pad, 0.0), tab)
+                             for t0, ds, nv, tab in srcs], g0uv, g0ir)
+    one, zero = torch.ones_like(o), torch.zeros_like(o)
+
+    def rhs(a, b):
+        return MPv3.ydot(mp, a, b, h, rt_t)
+
+    def two_jvp():
+        jvp(rhs, (o, e), (one, zero))
+        return jvp(rhs, (o, e), (zero, one))[1][1]
+
+    def one_pass():
+        return jacobian_columns(rhs, o, e)[5]
+
+    for name, iteration in (("two_jvp", two_jvp), ("one_pass", one_pass)):
+        for _ in range(3):
+            iteration()
+        torch.cuda.synchronize()
+        n = 20
+        t0 = time.perf_counter()
+        for _ in range(n):
+            iteration()
+        queue_ms = (time.perf_counter() - t0) / n * 1e3
+        torch.cuda.synchronize()
+        waits = []
+        for _ in range(n):
+            j = iteration()
+            t0 = time.perf_counter()
+            bool(j.any())
+            waits.append((time.perf_counter() - t0) * 1e3)
+        out[f"newton_jacobian_{name}"] = {
+            "host_queue_ms": queue_ms,
+            "events_ms": cs.time_ms(iteration, n),
+            "read_back_wait_ms": float(sorted(waits)[n // 2])}
     return out
 
 

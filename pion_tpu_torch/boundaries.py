@@ -167,6 +167,13 @@ def _mirror_signs(cfg: SimConfig, axis: int, kind: BC) -> np.ndarray:
 
 def _pad_axis(P, cfg: SimConfig, axis: int, bdata: BoundaryData, t=0.0):
     """Pad one spatial axis with ng ghost layers on each side."""
+    lo, hi = axis_ghosts(P, cfg, axis, bdata, t=t)
+    return torch.cat([lo, P, hi], dim=1 + axis)
+
+
+def axis_ghosts(P, cfg: SimConfig, axis: int, bdata: BoundaryData, t=0.0):
+    """The ``ng`` ghost layers of the low and of the high face of one
+    spatial axis, from the domain BCs and ``P``'s edge data."""
     ng = cfg.ng
     lo_bc, hi_bc = cfg.bcs[axis]
     ax = 1 + axis  # tensor axis (variable index leads)
@@ -252,9 +259,7 @@ def _pad_axis(P, cfg: SimConfig, axis: int, bdata: BoundaryData, t=0.0):
             return torch.where(inside, js, mirror(side, BC.REFLECTING))
         raise NotImplementedError(f"BC {kind} not implemented")
 
-    lo = ghost(0, lo_bc)
-    hi = ghost(1, hi_bc)
-    return torch.cat([lo, P, hi], dim=ax)
+    return ghost(0, lo_bc), ghost(1, hi_bc)
 
 
 def apply_bcs(P, cfg: SimConfig, bdata: Optional[BoundaryData] = None, t=0.0):

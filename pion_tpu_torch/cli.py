@@ -20,9 +20,10 @@ restarts on the card.
 Reads the reference's actual parameter-file dialect (test_problems/*.txt),
 including radiation-source (``RT_*``), stellar-wind (``WIND_*``) and
 chemistry (``chem_code``/``EP_*``) sections.  The JAX package's ``pallas``
-key maps to ``kernels`` (:mod:`.io.params`).  The port runs one device:
-``mesh on`` raises, ``mesh auto``/``off`` run on the one device, as the JAX
-package does on one device.
+key maps to ``kernels`` (:mod:`.io.params`).  The workflow runs one
+device: ``mesh on`` (or ``halo explicit``) raises with several visible cards
+(ROADMAP A20.4) and runs the one device with one card, as the JAX package
+does; ``mesh auto``/``off`` run the one device.
 """
 from __future__ import annotations
 
@@ -565,12 +566,19 @@ def _split_device(argv: List[str], device=None):
 
 
 def _check_mesh(params: Dict[str, str]):
-    """The port runs one device: ``mesh on`` raises as ``Simulation`` does;
-    ``auto`` and ``off`` run the one device."""
-    if str(params.get("mesh", "")).strip() == "on":
+    """The workflow runs one device: ``mesh on`` or ``halo explicit`` with
+    several visible cards raises (ROADMAP A20.4); with one card, and for
+    ``mesh auto``/``off``, the run takes the device it was given."""
+    from .parallel.mesh import mesh_requested
+
+    several = torch.cuda.is_available() and torch.cuda.device_count() > 1
+    mesh = str(params.get("mesh", "")).strip()
+    halo = str(params.get("halo", "")).strip()
+    if (mesh == "on" and mesh_requested(SimConfig(mesh="on"))) or (
+            halo == "explicit" and several):
         raise NotImplementedError(
-            "mesh on: multi-device runs are not ported yet (ROADMAP.md, "
-            "queue A item 20)")
+            f"mesh {mesh or 'auto'} / halo {halo or 'gspmd'} on several "
+            "cards: the workflow's multi-device runs are ROADMAP A20.4")
 
 
 def icgen_main(argv: List[str], device=None) -> str:

@@ -79,12 +79,15 @@ def config_to_reference(cfg: SimConfig) -> dict:
 def from_reference(cfg_fields: dict, P: np.ndarray, t: float = 0.0,
                    step: int = 0, last_dt: float = 0.0,
                    fixed: Optional[Dict[Tuple[int, int], np.ndarray]] = None,
-                   device="cpu"):
+                   device="cpu", mesh=None):
     """A reference run's state as the port's
     ``(SimConfig, torch.Tensor, BoundaryData)``.
 
-    ``P`` is the primitive state ``(nvar, *shape)``; it is cast to the
-    config's dtype and put on ``device``.  ``fixed`` holds the frozen
+    ``P`` is the primitive state ``(nvar, *shape)`` (any array
+    ``np.asarray`` takes: a sharded ``jax.Array`` arrives gathered); it is
+    cast to the config's dtype and put on ``device``, or, with a ``mesh``
+    (:class:`.parallel.mesh.Mesh`), split over the mesh's devices (a
+    :class:`.parallel.mesh.Sharded`).  ``fixed`` holds the frozen
     INFLOW/FIXED ghost strips keyed by ``(axis, side)``.  ``t``, ``step``
     and ``last_dt`` are the clock; they are validated here and handed to
     ``Simulation(cfg, P, t=..., step_count=..., last_dt=...)`` by the
@@ -97,19 +100,29 @@ def from_reference(cfg_fields: dict, P: np.ndarray, t: float = 0.0,
     if not (np.isfinite(t) and step >= 0 and last_dt >= 0.0):
         raise ValueError(f"bad clock: t={t}, step={step}, last_dt={last_dt}")
     # a copy in the config's dtype: the caller's array is never aliased
-    Pt = torch.from_numpy(np.array(P, dtype=cfg.np_dtype)).to(device)
+    Pt = torch.from_numpy(np.array(P, dtype=cfg.np_dtype))
+    if mesh is not None:
+        from .parallel.mesh import shard_state
+
+        Pt = shard_state(Pt, mesh)
+    else:
+        Pt = Pt.to(device).contiguous()
     strips = {}
     for (axis, side), arr in (fixed or {}).items():
         strips[(int(axis), int(side))] = np.asarray(arr, dtype=cfg.np_dtype)
-    return cfg, Pt.contiguous(), BoundaryData(fixed=strips)
+    return cfg, Pt, BoundaryData(fixed=strips)
 
 
-def to_reference(cfg: SimConfig, P: torch.Tensor,
+def to_reference(cfg: SimConfig, P,
                  bdata: Optional[BoundaryData] = None):
-    """The way back: ``(config dict, numpy state, fixed strips)``."""
+    """The way back: ``(config dict, numpy state, fixed strips)``; a
+    sharded state is gathered."""
+    from .parallel.mesh import gather
+
     fixed = {} if bdata is None else {k: np.asarray(v)
                                       for k, v in bdata.fixed.items()}
-    return config_to_reference(cfg), P.detach().cpu().numpy(), fixed
+    return (config_to_reference(cfg), gather(P).detach().cpu().numpy(),
+            fixed)
 
 
 # the reference's microphysics modules by class name: the port's module and

@@ -37,7 +37,6 @@ from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.func import jvp
 
 from ..constants import K_B
 from . import tables as TB
@@ -360,10 +359,11 @@ def update_plain(mp, omx0, Eint0, nH, dt, rt: Optional[Dict],
     kernel: the grid is flattened, padded to whole tiles of 1024 cells
     (1-x 0.5, E 1, nH 1, tau0 1e6, ds 0) and laid out ``(ntile, 1024)``;
     every reduction runs along a tile.  Tiles whose Newton iteration has
-    stopped are masked, not dropped.  Reads the stopping tests back to the
-    host every iteration.  ``return_stats``: also return ``(tiles that ran
+    stopped are masked, not dropped; the host reads the stopping test back
+    once a Newton iteration and the Newton count once, at the end.
+    ``return_stats``: also return ``(tiles that ran
     the ladder, Newton iterations they took in all)``."""
-    from .mpv3 import EULER_CUTOFF, MIN_NEUTRAL, MPv3
+    from .mpv3 import EULER_CUTOFF, MIN_NEUTRAL, MPv3, jacobian_columns
 
     shape = omx0.shape
     dtype = omx0.dtype
@@ -415,9 +415,7 @@ def update_plain(mp, omx0, Eint0, nH, dt, rt: Optional[Dict],
         o, e = omx[tiles], E[tiles]
 
         def newton_step(o, e, op, ep):
-            one, zero = torch.ones_like(o), torch.zeros_like(o)
-            (g0f, g1f), (j00, j10) = jvp(rhs, (o, e), (one, zero))
-            _, (j01, j11) = jvp(rhs, (o, e), (zero, one))
+            g0f, g1f, j00, j10, j01, j11 = jacobian_columns(rhs, o, e)
             g0 = o - op - h * g0f
             g1 = e - ep - h * g1f
             a = 1.0 - h * j00
@@ -435,11 +433,13 @@ def update_plain(mp, omx0, Eint0, nH, dt, rt: Optional[Dict],
             e_n = torch.maximum(e - d_e, 1.0e-10 * ep)
             return o_n, e_n
 
+        its = torch.zeros((), dtype=torch.int64, device=o.device)
         for k in range(int(n_eff.max())):
-            run = k < n_eff                       # tiles still stepping
+            run = k < n_eff          # tiles still stepping: at least one
             op, ep = o, e
-            it = 0
-            while it < n_newton and bool(run.any()):
+            for it in range(n_newton):
+                if it and not bool(run.any()):
+                    break
                 o_n, e_n = newton_step(o, e, op, ep)
                 err = torch.maximum(
                     torch.abs(o_n - o).amax(dim=1),
@@ -447,9 +447,9 @@ def update_plain(mp, omx0, Eint0, nH, dt, rt: Optional[Dict],
                               / torch.clamp(e, min=1e-300)).amax(dim=1))
                 o = torch.where(run[:, None], o_n, o)
                 e = torch.where(run[:, None], e_n, e)
-                newton_its += int(run.sum())
+                its += run.sum()
                 run = run & (err > tol)
-                it += 1
+        newton_its = int(its)
         omx_st, E_st = omx.clone(), E.clone()
         omx_st[tiles] = o
         E_st[tiles] = e

@@ -44,7 +44,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
-from torch.func import jvp
+import torch.autograd.forward_ad as fwAD
 
 from ..config import SimConfig
 from ..constants import K_B, M_P, PG, RO
@@ -57,6 +57,21 @@ DTFRAC = 0.25           # tier-2/6 fraction (reference: MPv3.cpp:188-224)
 SIGMA0 = 6.3042e-18     # H0 photoionization cross-section at threshold
 E_MONO = 2.98e-11       # 5 eV above threshold (reference: MPv3.cpp:1744)
 E_EXCESS = 8.01e-12
+
+
+def jacobian_columns(rhs, o, e):
+    """``rhs(o, e)`` (a pair) and the two columns of its Jacobian, from one
+    forward-mode pass over the state stacked twice, with the tangents
+    d/do and d/de: ``(f0, f1, df0/do, df1/do, df0/de, df1/de)``, the values
+    of ``torch.func.jvp`` with each tangent, bit for bit (every operation
+    of ``rhs`` is elementwise), in half its launches and without its
+    per-operation dispatch (the plain ladders' host cost, ROADMAP C12)."""
+    one, zero = torch.ones_like(o), torch.zeros_like(o)
+    with fwAD.dual_level():
+        f = rhs(fwAD.make_dual(torch.stack([o, o]), torch.stack([one, zero])),
+                fwAD.make_dual(torch.stack([e, e]), torch.stack([zero, one])))
+        (p0, t0), (p1, t1) = (fwAD.unpack_dual(v) for v in f)
+    return p0[0], p1[0], t0[0], t1[0], t0[1], t1[1]
 
 
 def dtlimit_tier_params(tier: int):
@@ -437,10 +452,10 @@ class MPv3(MicrophysicsBase):
         return omx_dot, Edot
 
     # -- integration (reference: MPv3.cpp:1146-1235 + cvode_integrator) ----
-    def _stiff_solve(self, omx0, E0, nH, rt, dt, n_sub=32, n_newton=8,
-                     stiffness=None):
+    def _stiff_solve(self, bufs, dt, n_sub=32, n_newton=8, stiffness=None):
         """Backward-Euler ladder with vectorized, bound-limited 2x2 Newton
-        solves.
+        solves on ``bufs``: the cells to step, ``(1-x, E, nH, rt)`` a
+        device, stepped as one set; returns ``(1-x, E)`` a buffer.
 
         The Newton update is clipped per iteration (|dE| <= 0.6 E,
         |d(1-x)| <= 0.3): the energy equation is non-smooth at the Tmin
@@ -452,26 +467,20 @@ class MPv3(MicrophysicsBase):
         ``stiffness`` (optional 0-d tensor: the global max |ydot*dt/y|)
         makes the ladder adaptive: the substep count scales with the
         stiffness (every cell shares the count) and each substep's Newton
-        iteration stops on convergence.  The stopping tests are read back
-        to the host every iteration."""
+        iteration stops on convergence, the largest correction over every
+        buffer's cells.  The stopping test is read back to the host every
+        iteration."""
         if stiffness is not None:
             n_eff = int(torch.clamp(torch.ceil(4.0 * stiffness), 2, n_sub))
-            h = dt / n_eff
         else:
             n_eff = n_sub
-            h = dt / n_sub
+        dev0 = bufs[0][0].device
 
-        def rhs(o, e):
-            return self.ydot(o, e, nH, rt)
-
-        def newton_step(y, y_prev):
+        def newton_step(rhs, h, y, y_prev):
             omx, E = y
             # the exact per-cell 2x2 Jacobian by forward-mode
-            # differentiation of ydot, one column per pass
-            one = torch.ones_like(omx)
-            zero = torch.zeros_like(omx)
-            (f0, f1v), (j00, j10) = jvp(rhs, (omx, E), (one, zero))
-            _, (j01, j11) = jvp(rhs, (omx, E), (zero, one))
+            # differentiation of ydot, both columns in one pass
+            f0, f1v, j00, j10, j01, j11 = jacobian_columns(rhs, omx, E)
             # g(y) = y - y_prev - h*f(y);  J_g = I - h*J_f
             g0 = omx - y_prev[0] - h * f0
             g1 = E - y_prev[1] - h * f1v
@@ -490,29 +499,38 @@ class MPv3(MicrophysicsBase):
             E_n = torch.maximum(E - d_E, 1.0e-10 * y_prev[1])
             return (omx_n, E_n)
 
+        steps = []
+        for omx, E, nH, rt in bufs:
+            def rhs(o, e, nH=nH, rt=rt):
+                return self.ydot(o, e, nH, rt)
+            h = torch.as_tensor(dt, dtype=E.dtype, device=E.device) / n_eff
+            steps.append((rhs, h))
+
         # convergence tolerance tracks the working precision: 1e-11 is
         # below f32 resolution and would force every Newton loop to the
         # n_newton cap
-        tol = 1.0e-11 if E0.dtype == torch.float64 else 1.0e-6
+        tol = 1.0e-11 if bufs[0][1].dtype == torch.float64 else 1.0e-6
 
-        def newton_converged(y):
+        def newton_converged(ys):
             """Newton to convergence (or n_newton), global max criterion."""
-            y_prev = y
+            ys_prev = ys
             i, err = 0, float("inf")
             while i < n_newton and err > tol:
-                y_n = newton_step(y, y_prev)
-                err = float(torch.maximum(
-                    torch.max(torch.abs(y_n[0] - y[0])),
-                    torch.max(torch.abs((y_n[1] - y[1])
-                                        / torch.clamp(y[1], min=1e-300)))))
-                y = y_n
+                ys_n = [newton_step(rhs, h, y, yp) for (rhs, h), y, yp
+                        in zip(steps, ys, ys_prev)]
+                err = float(torch.max(torch.stack([torch.maximum(
+                    torch.max(torch.abs(yn[0] - y[0])),
+                    torch.max(torch.abs((yn[1] - y[1])
+                                        / torch.clamp(y[1], min=1e-300))))
+                    .to(dev0) for yn, y in zip(ys_n, ys)])))
+                ys = ys_n
                 i += 1
-            return y
+            return ys
 
-        y = (omx0, E0)
+        ys = [(omx, E) for omx, E, _, _ in bufs]
         for _ in range(n_eff):
-            y = newton_converged(y)
-        return y
+            ys = newton_converged(ys)
+        return ys
 
     def local_state(self, P):
         """``(1-x, E, nH)`` of a primitive state as the integrator sees it:
@@ -528,81 +546,150 @@ class MPv3(MicrophysicsBase):
             / (c.gamma - 1.0)
         return omx, torch.where(Eint > 0.0, Eint, E_floor), nH
 
-    def _update_impl(self, P, dt, cfg: SimConfig, rt: Dict):
-        """TimeUpdateMP(_RTnew): advance chemistry+energy of every cell by dt
-        and return the updated primitive tensor (``P`` is not written)."""
-        dt = torch.as_tensor(dt, dtype=P.dtype, device=P.device)
-        omx, Eint, nH = self.local_state(P)
-
-        if self._use_fused(cfg):
-            from . import fused_mpv3
-
-            omx1, E1 = fused_mpv3.update(self, omx, Eint, nH, dt, rt,
-                                         f0=rt.get("f0"))
-            return self._finish_update(P, nH, omx1, E1)
-
-        d_omx, d_E = self.ydot(omx, Eint, nH, rt)
+    @staticmethod
+    def _euler_part(omx, Eint, dt, first):
+        """The forward-Euler step, which cells take it (|ydot dt / y| below
+        EULER_CUTOFF) and the stiffness: that ratio's max over the others
+        (0 where there is none)."""
+        d_omx, d_E = first
         maxdelta = torch.maximum(torch.abs(d_omx * dt / omx),
                                  torch.abs(d_E * dt / Eint))
-        omx_eul = omx + dt * d_omx
-        E_eul = Eint + dt * d_E
         use_euler = maxdelta < EULER_CUTOFF
-        # global short-circuit: when NO cell is past the Euler cutoff the
-        # implicit ladder is skipped entirely (reference: the per-cell
-        # Euler-vs-CVODE branch, MPv3.cpp:1146-1235 EULER_CUTOFF)
         stiffness = torch.max(torch.where(use_euler,
                                           torch.zeros_like(maxdelta),
                                           maxdelta))
+        return omx + dt * d_omx, Eint + dt * d_E, use_euler, stiffness
 
-        # stiff-cell compaction: the cells past the Euler cutoff are
-        # typically a thin shell (the ionization front) — a few % of the
-        # grid.  Gather them into a buffer, run the Newton ladder on the
-        # small array, scatter back; run the full-grid ladder if the stiff
-        # set overflows the buffer's capacity.
-        ncell = omx.numel()
+    @staticmethod
+    def _ladder_sets(use_eulers):
+        """The cells the plain ladder steps, a block each (the blocks of a
+        grid in C order, so the last holds the grid's last cell; one block:
+        the grid): None when no cell is past the Euler cutoff, else
+        ``(idx, gidx)`` a block.  Stiff-cell compaction: the stiff cells are
+        typically a thin shell (the ionization front), a few % of the grid,
+        so they are gathered into a buffer (``idx``, flat) and the Newton
+        ladder runs on the small array; every cell (``idx`` and ``gidx``
+        None: the dense ladder) when the grid is small or its stiff set
+        overflows the buffer's capacity, both the whole grid's.  ``gidx``:
+        the buffer's cells, with one copy of the grid's last cell while the
+        buffer has room (the JAX package pads its fixed-capacity buffer
+        with copies of that cell, whose Newton error enters the stopping
+        test; the copies are identical, and one reproduces that).  The copy
+        is dropped at the scatter."""
+        ncell = sum(u.numel() for u in use_eulers)
         cap = min(ncell, max(4096, ncell // 8))
-        idx = torch.nonzero((~use_euler).reshape(-1)).reshape(-1)
-        n_stiff = idx.numel()
-        omx_st, E_st = omx, Eint
-        if n_stiff > 0 and (cap >= ncell or n_stiff > cap):
-            omx_st, E_st = self._stiff_solve(omx, Eint, nH, rt, dt,
-                                             stiffness=stiffness)
-        elif n_stiff > 0:
-            # the JAX package pads its fixed-capacity buffer with copies of
-            # the LAST cell of the grid, whose Newton error enters the
-            # global stopping test; one such copy reproduces that (the
-            # copies are identical), and it is dropped at the scatter
-            gidx = idx
-            if n_stiff < cap:
-                gidx = torch.cat([idx, idx.new_tensor([ncell - 1])])
-            grid_shape = omx.shape
+        idxs = [torch.nonzero((~u).reshape(-1)).reshape(-1)
+                for u in use_eulers]
+        n_stiff = sum(i.numel() for i in idxs)
+        if n_stiff == 0:
+            return None
+        if cap >= ncell or n_stiff > cap:
+            return [(None, None)] * len(idxs)
+        sets = [(i, i) for i in idxs]
+        if n_stiff < cap:
+            last = idxs[-1]
+            sets[-1] = (last, torch.cat([
+                last, last.new_tensor([use_eulers[-1].numel() - 1])]))
+        return sets
 
-            def sub(a):
-                return a.reshape(-1)[gidx]
+    @staticmethod
+    def _take(trees, gidxs, grid_shape):
+        """Each tree (a cell array, or an rt dict that may nest per-source
+        dicts under "ion") at its flat cells ``gidx`` (all cells when None),
+        the trees' cells joined end to end; what is not a cell array (a
+        table, a number) is the first tree's."""
+        v = trees[0]
+        if isinstance(v, dict):
+            return {k: MPv3._take([t[k] for t in trees], gidxs, grid_shape)
+                    for k in v}
+        if isinstance(v, (tuple, list)):
+            return tuple(MPv3._take([t[j] for t in trees], gidxs, grid_shape)
+                         for j in range(len(v)))
+        if isinstance(v, torch.Tensor) and tuple(v.shape) == tuple(grid_shape):
+            parts = [t.reshape(-1) if g is None else t.reshape(-1)[g]
+                     for t, g in zip(trees, gidxs)]
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
+        return v
 
-            def sub_tree(v):
-                # rt may nest per-source dicts under "ion"
-                if isinstance(v, dict):
-                    return {k2: sub_tree(v2) for k2, v2 in v.items()}
-                if isinstance(v, (tuple, list)):
-                    return tuple(sub_tree(v2) for v2 in v)
-                if (isinstance(v, torch.Tensor)
-                        and tuple(v.shape) == tuple(grid_shape)):
-                    return sub(v)
-                return v
+    @staticmethod
+    def _put(a, vals, idx):
+        """``a`` with the ladder's values at its stiff cells (``vals`` may
+        run past them: the padding copy)."""
+        if idx is None:
+            return vals.reshape(a.shape)
+        out = a.reshape(-1).clone()
+        out[idx] = vals[:idx.numel()]
+        return out.reshape(a.shape)
 
-            rt_sub = {k: sub_tree(v) for k, v in rt.items()}
-            o1, e1 = self._stiff_solve(sub(omx), sub(Eint), sub(nH), rt_sub,
-                                       dt, stiffness=stiffness)
-            omx_st = omx.reshape(-1).clone()
-            E_st = Eint.reshape(-1).clone()
-            omx_st[idx] = o1[:n_stiff]
-            E_st[idx] = e1[:n_stiff]
-            omx_st = omx_st.reshape(grid_shape)
-            E_st = E_st.reshape(grid_shape)
-        omx1 = torch.where(use_euler, omx_eul, omx_st)
-        E1 = torch.where(use_euler, E_eul, E_st)
+    def _update_impl(self, P, dt, cfg: SimConfig, rt: Dict):
+        """TimeUpdateMP(_RTnew): advance chemistry+energy of every cell by dt
+        and return the updated primitive tensor (``P`` is not written)."""
+        if not self._use_fused(cfg):
+            return self.update_blocks([P], [dt], cfg, [rt])[0]
+        from . import fused_mpv3
+
+        dt = torch.as_tensor(dt, dtype=P.dtype, device=P.device)
+        omx, Eint, nH = self.local_state(P)
+        omx1, E1 = fused_mpv3.update(self, omx, Eint, nH, dt, rt,
+                                     f0=rt.get("f0"))
         return self._finish_update(P, nH, omx1, E1)
+
+    def update_blocks(self, Ps, dts, cfg: SimConfig, rts):
+        """The plain ladder's update (``kernels="off"``) of the blocks of a
+        grid (``Ps``, ``dts`` and ``rts`` a block each, in the mesh's C
+        order; one block: the grid).  The blocks step as the whole grid
+        does on one device, so each cell's result is the one-device run's:
+        the stiffness is the max over them (the JAX package's whole-grid
+        max, ``mpv3.py:600``), the compaction's choice and capacity are the
+        whole grid's (:meth:`_ladder_sets`), and one Newton stopping test
+        reads every block's ladder cells.  The blocks of a device share
+        one buffer, so a mesh costs the host one ladder a device."""
+        parts = []
+        for P, dt, rt in zip(Ps, dts, rts):
+            dt = torch.as_tensor(dt, dtype=P.dtype, device=P.device)
+            omx, Eint, nH = self.local_state(P)
+            first = self.ydot(omx, Eint, nH, rt)
+            # global short-circuit: when NO cell is past the Euler cutoff
+            # the implicit ladder is skipped entirely (reference: the
+            # per-cell Euler-vs-CVODE branch, MPv3.cpp:1146-1235
+            # EULER_CUTOFF)
+            parts.append((omx, Eint, nH) + self._euler_part(
+                omx, Eint, dt, first))
+        st = [(p[0], p[1]) for p in parts]
+        sets = self._ladder_sets([p[5] for p in parts])
+        if sets is not None:
+            dev0 = Ps[0].device
+            stiffness = torch.max(torch.stack([p[6].to(dev0)
+                                               for p in parts]))
+            groups, bufs = [], []
+            for dev in dict.fromkeys(P.device for P in Ps):
+                members = [i for i, P in enumerate(Ps) if P.device == dev
+                           and (sets[i][1] is None or sets[i][1].numel())]
+                if not members:
+                    continue
+                gidxs = [sets[i][1] for i in members]
+                shape = parts[members[0]][0].shape
+                groups.append(members)
+                bufs.append(tuple(
+                    self._take([parts[i][k] for i in members], gidxs, shape)
+                    for k in (0, 1, 2))
+                    + (self._take([rts[i] for i in members], gidxs, shape),))
+            outs = self._stiff_solve(bufs, dts[0], stiffness=stiffness)
+            for members, (o1, e1) in zip(groups, outs):
+                sizes = [parts[i][0].numel() if sets[i][1] is None
+                         else sets[i][1].numel() for i in members]
+                for i, o, e in zip(members, o1.split(sizes),
+                                   e1.split(sizes)):
+                    idx = sets[i][0]
+                    st[i] = (self._put(parts[i][0], o, idx),
+                             self._put(parts[i][1], e, idx))
+        out = []
+        for P, p, (omx_st, E_st) in zip(Ps, parts, st):
+            omx, Eint, nH, omx_eul, E_eul, use_euler, _ = p
+            out.append(self._finish_update(
+                P, nH, torch.where(use_euler, omx_eul, omx_st),
+                torch.where(use_euler, E_eul, E_st)))
+        return out
 
     def _use_fused(self, cfg: SimConfig) -> bool:
         """Gate for the fused update/ydot of :mod:`.fused_mpv3`:

@@ -55,8 +55,9 @@ from .stepper import (_scma_flag, cell_advance, glm_psi_damp, later,
                       limit_dt)
 from .utils import StepLogger, resolve_device
 
-_NO_MESH = ("a hierarchy sharded over several devices is not ported yet "
-            "(ROADMAP.md, queue A item 20)")
+_NO_MESH = ("mesh='on' with several cards: a hierarchy sharded over "
+            "several devices is ROADMAP A20.4 (mesh 'auto' and one card run "
+            "one device)")
 
 
 def snap_ng_centre(cfg0: SimConfig) -> Tuple[float, ...]:
@@ -230,7 +231,9 @@ class NGHierarchy:
         self._graphs: Dict = {}
 
     def set_states(self, states):
-        if self.cfg0.mesh == "on" or self.cfg0.halo == "explicit":
+        from .parallel.mesh import mesh_requested
+
+        if self.cfg0.mesh == "on" and mesh_requested(self.cfg0):
             raise NotImplementedError(_NO_MESH)
         if len(states) != self.n_levels:
             raise ValueError(f"{len(states)} states for {self.n_levels} "

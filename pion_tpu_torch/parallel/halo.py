@@ -1,0 +1,135 @@
+"""The explicit halo exchange of a sharded run.
+
+Counterpart of ``pion_tpu/parallel/halo.py`` (its ``shard_map`` +
+``ppermute`` path), the hand-scheduled equivalent of the reference's MPI
+halo machinery (reference: source/boundaries/MCMD_boundaries.cpp pack ->
+``COMM->send_cell_data``/``receive_cell_data`` -> unpack): each shard pads
+its block with ghost strips taken from its mesh neighbours, applies the
+physical boundary conditions only where it owns a domain edge, and runs the
+sweep (the CUDA kernels B1/B2 on a card, as on one device) on its padded
+block.  A strip crosses as a tensor copy: a peer copy between two cards
+(``Tensor.to(device, non_blocking=True)``, on the current stream), a slice
+copy when both shards share a device.  The dt is a min over the shards, the
+reference's MPI_Allreduce (sim_control_MPI.cpp:503-504).
+
+Scope, as the JAX package's: Cartesian grids and BCs whose ghosts derive
+from local edge data (periodic, outflow, one-way, reflecting, jetreflect,
+axisymmetric).  The time-stepping itself is ``stepper.make_step_fns`` with a
+mesh: the same partial update on every shard's block.
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..boundaries import BC, BoundaryData, _pad_axis, axis_ghosts
+from ..config import SimConfig
+from ..constants import Coord
+from ..grid import Geometry
+from .mesh import Mesh, Sharded
+
+_LOCAL_BCS = (BC.PERIODIC, BC.OUTFLOW, BC.ONEWAY_OUT, BC.REFLECTING,
+              BC.JETREFLECT, BC.AXISYMMETRIC)
+
+
+def supports(cfg: SimConfig) -> bool:
+    return all(lo in _LOCAL_BCS and hi in _LOCAL_BCS for lo, hi in cfg.bcs)
+
+
+def check_shardable(cfg: SimConfig):
+    """Raise ``NotImplementedError`` for what a sharded run does not take
+    yet (ROADMAP A20.5): a BC whose ghosts are not local edge data, a
+    non-Cartesian grid."""
+    if not supports(cfg):
+        raise NotImplementedError(
+            "a sharded run requires local-data BCs "
+            "(periodic/outflow/oneway/reflecting/jetreflect/axisym); "
+            "DMACH, JET and fixed strips on a mesh are ROADMAP A20.5")
+    if cfg.coords is not Coord.CARTESIAN:
+        raise NotImplementedError(
+            "a sharded run is Cartesian only (the radial metric is global); "
+            "ROADMAP A20.5")
+
+
+def local_config(cfg: SimConfig, mesh: Mesh) -> SimConfig:
+    """The config of one shard's block: the block's shape, with exactly the
+    global ``dx`` (only ``dx`` is read of a Cartesian block's extent)."""
+    shape = mesh.block_shape(cfg.shape)
+    dx = cfg.dx
+    hi = cfg.xmin[-1] + dx * shape[-1]
+    for _ in range(8):       # a last-bit nudge where the sum rounds off
+        got = (hi - cfg.xmin[-1]) / shape[-1]
+        if got == dx:
+            break
+        hi = float(np.nextafter(hi, np.inf if got < dx else -np.inf))
+    xmax = tuple(cfg.xmin[a] + dx * shape[a] for a in range(cfg.ndim - 1))
+    out = cfg.with_(shape=shape, xmax=xmax + (hi,))
+    if out.dx != dx:
+        raise ValueError(f"no block extent gives dx = {dx!r} exactly")
+    return out
+
+
+def _pad_axis_sharded(blocks: List[torch.Tensor], cfg: SimConfig, axis: int,
+                      bdata, mesh: Mesh, t) -> List[torch.Tensor]:
+    """Pad one axis of every block: a shard's low ghosts are its lower
+    neighbour's top ``ng`` planes and its high ghosts its upper neighbour's
+    bottom ones (round the ring, so a periodic face wraps); a shard that
+    owns a non-periodic domain face takes the physical BC's ghosts there."""
+    ng = cfg.ng
+    ax = 1 + axis
+    m = mesh.factors[axis]
+    lo_kind, hi_kind = cfg.bcs[axis]
+    out = []
+    for b, blk in enumerate(blocks):
+        i = mesh.coords[b][axis]
+        own_lo = i == 0 and lo_kind is not BC.PERIODIC
+        own_hi = i == m - 1 and hi_kind is not BC.PERIODIC
+        if own_lo or own_hi:
+            lo_bc, hi_bc = axis_ghosts(blk, cfg, axis, bdata, t=t)
+        if own_lo:
+            lo = lo_bc
+        else:
+            nb = blocks[mesh.neighbour(b, axis, -1)]
+            lo = nb.narrow(ax, nb.shape[ax] - ng, ng).to(blk.device,
+                                                         non_blocking=True)
+        if own_hi:
+            hi = hi_bc
+        else:
+            nb = blocks[mesh.neighbour(b, axis, +1)]
+            hi = nb.narrow(ax, 0, ng).to(blk.device, non_blocking=True)
+        out.append(torch.cat([lo, blk, hi], dim=ax))
+    return out
+
+
+def apply_bcs_sharded(P: Sharded, cfg: SimConfig,
+                      bdata: Optional[BoundaryData] = None,
+                      mesh: Optional[Mesh] = None, t=0.0) -> List[torch.Tensor]:
+    """Every shard's block padded with ``ng`` ghost layers on each face
+    (``cfg`` is the blocks' config, :func:`local_config`).  Axes are padded
+    in order, each from the blocks padded along the axes before it, so edge
+    and corner ghosts arrive as ``boundaries.apply_bcs`` fills them on the
+    whole grid: the result is that of the whole grid, sliced."""
+    mesh = P.mesh if mesh is None else mesh
+    if bdata is None:
+        bdata = BoundaryData()
+    out = list(P.blocks)
+    for axis in range(cfg.ndim):
+        if mesh.factors[axis] == 1:
+            out = [_pad_axis(blk, cfg, axis, bdata, t=t) for blk in out]
+        else:
+            out = _pad_axis_sharded(out, cfg, axis, bdata, mesh, t)
+    return out
+
+
+def make_sharded_step(cfg: SimConfig, geom: Geometry, mesh: Mesh,
+                      bdata: Optional[BoundaryData] = None):
+    """``(advance, calc_dt)`` of a pure-dynamics run on ``mesh`` (the JAX
+    package's ``make_sharded_step``): ``advance(P, dt, t)`` and
+    ``calc_dt(P)`` take a :class:`Sharded` state (or a whole tensor, which
+    they shard), the dt a min over the shards."""
+    from ..stepper import make_step_fns
+
+    fns = make_step_fns(cfg, geom, bdata, mesh=mesh)
+    return fns.advance, fns.calc_dt

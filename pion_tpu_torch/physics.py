@@ -18,6 +18,7 @@ float64 and only the ratio is cast.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import inspect
 from typing import Dict, List, Optional
@@ -48,6 +49,9 @@ class Physics:
     dt_limit: int = 2
     wind_sources: List = dataclasses.field(default_factory=list)
     winds: List = dataclasses.field(default_factory=list)
+    # the global slices of the block this physics is restricted to (see
+    # for_block), None for the whole grid
+    _block = None
 
     def setup(self, cfg: SimConfig, geom: Geometry):
         # N ionizing sources are supported with per-source column sets
@@ -112,11 +116,31 @@ class Physics:
                        dt_limit=self.dt_limit,
                        wind_sources=self.wind_sources).setup(cfg, geom)
 
+    def for_block(self, ranges) -> "Physics":
+        """This physics restricted to one block of a sharded grid
+        (``ranges``: the block's global index range along every axis): the
+        same chemistry and sources, the wind regions and every static field
+        of the tracer sliced from the whole grid's (global cell positions,
+        never the block's own).  It does not trace: a sharded step hands it
+        its columns (:meth:`raytrace_sharded`)."""
+        blk = copy.copy(self)
+        blk._block = tuple(slice(lo, hi) for lo, hi in ranges)
+        blk.winds = [w.block(blk._block) for w in self.winds]
+        blk._rate_cache = {}
+        blk._excl_cache = {}
+        return blk
+
+    def _source_fields(self, i: int, src: Source, like):
+        """``(ds, vshell)`` of source ``i`` over the grid (or block), as
+        ``raytracer.trace_source`` gives them."""
+        if src.at_infinity:
+            ds = torch.full_like(like, self.raytracer.geom.dx)
+            return ds, ds
+        return self.raytracer.static_fields(i, like, self._block)
+
     def _ds0(self, i: int, src: Source, Ph):
         """Path length through every cell for source ``i``."""
-        if src.at_infinity:
-            return torch.full_like(Ph[RO], self.raytracer.geom.dx)
-        return self.raytracer.static_fields(i, Ph)[0]
+        return self._source_fields(i, src, Ph[RO])[0]
 
     def trace_taus(self, Ph, tau_in: Optional[Dict] = None) -> Dict:
         """Per-source entry optical depths (incl. any upstream offsets) —
@@ -219,6 +243,8 @@ class Physics:
                 vsh_np = np.float64(self.raytracer.geom.dx)
             else:
                 vsh_np = self.raytracer.point_tracers[i].vshell
+                if self._block is not None:
+                    vsh_np = vsh_np[self._block]
             nv = torch.as_tensor(np.float64(src.strength) / vsh_np,
                                  dtype=Ph.dtype, device=Ph.device)
             sv = None
@@ -232,15 +258,38 @@ class Physics:
             self._rate_cache[key] = (nv, sv)
         return self._rate_cache[key]
 
+    def raytrace_sharded(self, Ph, blocks: List["Physics"],
+                         sp: Optional[Dict] = None) -> List[Dict]:
+        """The rt dict of every block of a sharded state ``Ph``
+        (:class:`.parallel.mesh.Sharded`), ``blocks`` being this physics
+        restricted to each (:meth:`for_block`): each source's optical depths
+        made block by block, its columns traced across the shards
+        (``Raytracer.trace_sharded``), each block's dict assembled from its
+        part of them."""
+        from .parallel.mesh import Sharded
+
+        taus = [dict() for _ in blocks]
+        for i, src in enumerate(self.sources):
+            dtau = Sharded([bp.dtau_for(src, b, bp._ds0(i, src, b))
+                            for bp, b in zip(blocks, Ph.blocks)],
+                           Ph.mesh, Ph.grid_shape)
+            tau = self.raytracer.trace_sharded(i, dtau)
+            for t_b, tau_b in zip(taus, tau.blocks):
+                t_b[i] = tau_b
+        return [bp.raytrace(b, sp=sp, taus=t_b)
+                for bp, b, t_b in zip(blocks, Ph.blocks, taus)]
+
     def raytrace(self, Ph, tau_in: Optional[Dict] = None,
-                 sp: Optional[Dict] = None) -> Dict:
+                 sp: Optional[Dict] = None,
+                 taus: Optional[Dict] = None) -> Dict:
         """Trace all sources through the current state; assemble the rt dict
         (reference: setup_radiation_source_parameters, MPv3.cpp:1431-1516).
         ``tau_in`` optionally adds per-source upstream column offsets (for
         nested-grid levels whose domain does not reach the ray origin).
         ``sp``: evolving-source parameters from :meth:`update_sources`, with
         host numbers and numpy tables, or from :meth:`device_sp`, which
-        copies nothing inside a step."""
+        copies nothing inside a step.  ``taus``: each source's entry optical
+        depths, already traced (a block of a sharded state)."""
         rt: Dict = {}
         g0_uv = None
         g0_ir = None
@@ -254,8 +303,16 @@ class Physics:
                 rel = sp[str(i)]["rel"]
                 if not isinstance(rel, torch.Tensor):
                     rel = float(rel)
-            dtau = self.dtau_for(src, Ph, self._ds0(i, src, Ph))
-            tau, ds, vshell = self.raytracer.trace_source(i, dtau)
+            if taus is None:
+                if self._block is not None:
+                    raise RuntimeError(
+                        "a block of a sharded grid does not trace: its "
+                        "columns come from Physics.raytrace_sharded")
+                dtau = self.dtau_for(src, Ph, self._ds0(i, src, Ph))
+                tau, ds, vshell = self.raytracer.trace_source(i, dtau)
+            else:
+                tau = taus[i]
+                ds, vshell = self._source_fields(i, src, tau)
             if tau_in is not None and i in tau_in:
                 tau = tau + tau_in[i]
             nv, sv = self._rate_factors(i, src, Ph)
@@ -315,17 +372,20 @@ class Physics:
         return rt
 
     def mp_delta_U(self, P, Ph, dt, cfg: SimConfig, tau_in=None, rt=None,
-                   sp=None):
+                   sp=None, P_new=None):
         """Conserved-variable increment from the chemistry update
         (reference: calc_RT_microphysics_dU — dU += U(p_out)-U(p_in),
         time_integrator.cpp:430-497; base state is P, columns from Ph).
         ``rt``: optionally reuse a column set already traced through Ph —
         the reference likewise raytraces once per partial update
-        (time_integrator.cpp:206-243) and hands the stored columns to MP."""
-        if rt is None:
-            rt = (self.raytrace(Ph, tau_in, sp=sp) if self.sources
-                  else self.mp.default_rt(P))
-        P_new = self.mp._update_impl(P, dt, cfg, rt)
+        (time_integrator.cpp:206-243) and hands the stored columns to MP.
+        ``P_new``: the module's update of ``P``, already made (a block of a
+        sharded step, ``MPv3.update_blocks``)."""
+        if P_new is None:
+            if rt is None:
+                rt = (self.raytrace(Ph, tau_in, sp=sp) if self.sources
+                      else self.mp.default_rt(P))
+            P_new = self.mp._update_impl(P, dt, cfg, rt)
         return prim_to_cons(P_new, cfg) - prim_to_cons(P, cfg)
 
     def timescale(self, P, cfg: SimConfig, tau_in=None, rt=None, sp=None,

@@ -365,22 +365,51 @@ class Raytracer:
                 self.point_tracers[i] = cls(cfg, geom, s.position,
                                             s.tau_min)
 
-    def static_fields(self, i: int, like: torch.Tensor):
+    def static_fields(self, i: int, like: torch.Tensor, block=None):
         """``(ds, vshell)`` of point source ``i`` as tensors of ``like``'s
-        dtype on its device, made once.  Raw shell volumes (~1e51 cm^3)
-        leave float32: they are clipped to 3e38 there, and only serve as a
-        diagnostic — rate factors use the host-side Ndot/Vshell of
-        ``Physics.raytrace``."""
-        key = (i, like.dtype, like.device)
+        dtype on its device, made once (``block``: the global slices of one
+        block of a sharded grid, None for the whole grid).  Raw shell
+        volumes (~1e51 cm^3) leave float32: they are clipped to 3e38 there,
+        and only serve as a diagnostic — rate factors use the host-side
+        Ndot/Vshell of ``Physics.raytrace``."""
+        key = (i, like.dtype, like.device, block and tuple(
+            (sl.start, sl.stop) for sl in block))
         if key not in self._static:
             tr = self.point_tracers[i]
-            vs = tr.vshell
+            ds, vs = tr.ds, tr.vshell
             if like.dtype == torch.float32:
                 vs = np.minimum(vs, 3.0e38)
+            if block is not None:
+                ds, vs = ds[block], vs[block]
             self._static[key] = tuple(
-                torch.as_tensor(a, dtype=like.dtype, device=like.device)
-                for a in (tr.ds, vs))
+                torch.as_tensor(np.ascontiguousarray(a), dtype=like.dtype,
+                                device=like.device) for a in (ds, vs))
         return self._static[key]
+
+    def trace_sharded(self, i: int, dtau):
+        """Entry optical depths of source ``i`` for a sharded ``dtau``
+        (:class:`..parallel.mesh.Sharded`).  A point source at the centre of
+        a 3D grid on a 2x2x2 mesh takes the sharded octant trace B6
+        (:mod:`.sharded_trace`: the kernel per shard, its plain version with
+        ``kernels="off"`` or on the CPU); every other trace gathers
+        ``dtau``, traces it once and scatters the columns back (the same
+        values as one device's)."""
+        from ..parallel.mesh import Sharded, shard_state
+        from . import sharded_trace
+
+        s = self.sources[i]
+        tr = self.point_tracers.get(i)
+        if (not s.at_infinity and isinstance(tr, PointSourcePlaneTracer)
+                and sharded_trace.supports_sharded(
+                    self.cfg.shape, tr.src_idx, dtau.mesh)):
+            fn = (sharded_trace.sharded_octant_trace_plain
+                  if self.cfg.kernels == "off"
+                  else sharded_trace.sharded_octant_trace)
+            col = fn(dtau.blocks, dtau.mesh, tr.tau_min)
+            return Sharded([c - d for c, d in zip(col, dtau.blocks)],
+                           dtau.mesh, dtau.shape)
+        tau, _, _ = self.trace_source(i, dtau.gather())
+        return shard_state(tau, dtau.mesh)
 
     def trace_source(self, i: int, dtau: torch.Tensor):
         s = self.sources[i]

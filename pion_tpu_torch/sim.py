@@ -20,6 +20,7 @@ import torch
 
 from .boundaries import BoundaryData, make_fixed_strips
 from .config import SimConfig
+from .constants import Coord
 from .grid import Geometry, make_geometry
 from .stepper import make_step_fns
 from .utils import StepLogger, resolve_device
@@ -49,6 +50,9 @@ class Simulation:
     log_freq: int = 0                  # per-step status line cadence
     # None: the CUDA device (raises if there is none); "cpu" on request
     device: Optional[object] = None
+    # the mesh a sharded run steps on (pion_tpu_torch.parallel.Mesh); set
+    # from a sharded ``P``, or made when the config asks for a mesh
+    mesh: Optional[object] = None
 
     def __post_init__(self):
         cfg = self.cfg
@@ -57,14 +61,15 @@ class Simulation:
                 "Simulation advances one grid; a nested-grid run "
                 f"(nlevels={cfg.nlevels}) goes through "
                 "pion_tpu_torch.ng.NGHierarchy")
-        if cfg.halo == "explicit" or cfg.mesh == "on":
-            raise NotImplementedError("multi-device runs are not ported yet")
-        self.device = resolve_device(self.device)
         expect = (cfg.nvar,) + cfg.shape
         if tuple(self.P.shape) != expect:
             raise ValueError(
                 f"state shape {tuple(self.P.shape)} != {expect} expected "
                 f"from the config (nvar, *shape)")
+        if self._sharded():
+            self._setup_sharded()
+            return
+        self.device = resolve_device(self.device)
         # the frozen inflow/fixed strips are taken from the state as given,
         # on the host, before it is cast
         P_host = (self.P.detach().cpu().numpy()
@@ -89,6 +94,66 @@ class Simulation:
                                  physics=self.physics, device=self.device)
         self._ckpt_flip = 0
         self._writer = None  # lazy AsyncSnapshotWriter
+        self._next_optime = self.t + self.opfreq_time
+
+    def _sharded(self) -> bool:
+        """Whether the run steps on a mesh: a sharded ``P``, a ``mesh``,
+        ``halo="explicit"``, or ``mesh`` "on"/"auto" with several visible
+        cards and no device named (``parallel.mesh.mesh_requested``; "auto"
+        only where the shard stepper takes the config and the grid splits
+        evenly over the cards)."""
+        from .parallel.halo import supports
+        from .parallel.mesh import Sharded, decompose, mesh_requested
+
+        cfg = self.cfg
+        if (isinstance(self.P, Sharded) or self.mesh is not None
+                or cfg.halo == "explicit"):
+            return True
+        if self.device is not None or not mesh_requested(cfg):
+            return False
+        factors = decompose(torch.cuda.device_count(), cfg.ndim, cfg.shape)
+        return cfg.mesh == "on" or (
+            supports(cfg) and cfg.coords is Coord.CARTESIAN
+            and all(n % f == 0 for n, f in zip(cfg.shape, factors)))
+
+    def _setup_sharded(self):
+        """A run on a mesh of shards (ROADMAP A20): ``P`` split over the
+        mesh (its own, a given one, or one of the visible cards — the
+        one device named by ``device`` when the caller names one), stepped
+        by ``make_step_fns`` with the mesh.  ``halo="explicit"`` keeps the
+        JAX package's guards: pure dynamics only."""
+        from .parallel.halo import check_shardable
+        from .parallel.mesh import Sharded, make_mesh, shard_state
+
+        cfg = self.cfg
+        if cfg.halo == "explicit" and self.physics is not None:
+            raise NotImplementedError(
+                "halo='explicit' supports pure dynamics only (a sharded "
+                "state with physics steps without it)")
+        check_shardable(cfg)
+        if isinstance(self.P, Sharded):
+            self.mesh = self.P.mesh
+        elif self.mesh is None:
+            self.mesh = make_mesh(cfg, devices=None if self.device is None
+                                  else [self.device])
+        self.P = shard_state(self.P, self.mesh)
+        self.P = self.P.map(lambda b: b.to(cfg.torch_dtype).contiguous())
+        self.device = self.P.device
+        self.geom = make_geometry(cfg)
+        self.bdata = BoundaryData()
+        if self.physics is not None:
+            self.physics.setup(cfg, self.geom)
+            # carve the wind regions into the initial state, block by block
+            if self.physics.winds:
+                self.P = Sharded(
+                    [self.physics.for_block(r).apply_internal_bcs(b, self.t)
+                     for r, b in zip(self.mesh.ranges(cfg.shape),
+                                     self.P.blocks)],
+                    self.mesh, self.P.shape)
+        self.fns = make_step_fns(cfg, self.geom, self.bdata,
+                                 physics=self.physics, mesh=self.mesh)
+        self._ckpt_flip = 0
+        self._writer = None
         self._next_optime = self.t + self.opfreq_time
 
     @classmethod
@@ -121,17 +186,20 @@ class Simulation:
                 raise ValueError("set Simulation.outfile or pass a path")
             path = f"{self.outfile}.{self.step_count:08d}"
         extra = {"params": self.params} if self.params else None
+        # a sharded run writes its gathered state: its snapshot restarts on
+        # one device, or on a mesh, in either package
+        P = self.P.gather() if self.mesh is not None else self.P
         if wait:
             from .io import save_snapshot
 
             self.flush_io()
-            return save_snapshot(path, self.P, self.cfg, self.t,
+            return save_snapshot(path, P, self.cfg, self.t,
                                  self.step_count, extra=extra)
         if self._writer is None:
             from .io.snapshot import AsyncSnapshotWriter
 
             self._writer = AsyncSnapshotWriter()
-        self._writer.submit(path, self.P, self.cfg, self.t, self.step_count,
+        self._writer.submit(path, P, self.cfg, self.t, self.step_count,
                             extra)
         return path
 
@@ -195,8 +263,10 @@ class Simulation:
         (``Physics.update_sources``, then ``device_sp``), or None."""
         if self.physics is None or not self.physics.sources:
             return None
-        return self.physics.device_sp(self.physics.update_sources(self.t),
-                                      self.P)
+        sp = self.physics.update_sources(self.t)
+        if self.mesh is not None:
+            return sp      # host numbers: each shard takes them on its device
+        return self.physics.device_sp(sp, self.P)
 
     def step(self) -> float:
         Pn, dt, dt_raw = self.fns.step(self.P, self.t, self.last_dt,
@@ -249,6 +319,9 @@ class Simulation:
         cap.  The result equals the run without ``chunk`` bit for bit, but
         that evolving sources are taken once a chunk."""
         tmax = self.cfg.tmax if tmax is None else tmax
+        if chunk > 1 and self.mesh is not None:
+            raise NotImplementedError(
+                "run(chunk=k) on a sharded state is ROADMAP A20.5")
         self._tmax = tmax
         logger = StepLogger(self.log_freq)
         chunked = (chunk > 1 and self.opfreq_time == 0.0 and callback is None
@@ -273,7 +346,9 @@ class Simulation:
             if callback is not None:
                 callback(self)
         if self.P.is_cuda:
-            torch.cuda.synchronize(self.P.device)
+            for dev in {b.device for b in getattr(self.P, "blocks",
+                                                   [self.P])}:
+                torch.cuda.synchronize(dev)
         if self.outfile is not None:
             self.save()
         self.flush_io()

@@ -99,7 +99,8 @@ def _temperature(Ppad, cfg, physics):
 
 
 def _partial_update(P, Ph, dt, order_space, cfg, geom, bdata, ch,
-                    physics=None, t=0.0, rt=None, sp=None):
+                    physics=None, t=0.0, rt=None, sp=None, Ppad=None,
+                    mp_new=None):
     """One flux update: dU from Ph, applied on top of P.
 
     Chemistry contributes a conserved increment computed from P with columns
@@ -107,8 +108,12 @@ def _partial_update(P, Ph, dt, order_space, cfg, geom, bdata, ch,
     RT_all_sources -> calc_microphysics_dU -> calc_dynamics_dU); conduction
     adds ``dt*Edot`` of Ph to the energy.
     Returns the advanced primitive state as a new tensor (the OA2
-    corrector reads the old ``P`` again, so ``P`` is never written)."""
-    Ppad = apply_bcs(Ph, cfg, bdata, t=t)
+    corrector reads the old ``P`` again, so ``P`` is never written).
+    ``Ppad``: Ph already padded with its ghosts (a shard's block, padded by
+    the exchange); ``mp_new``: the chemistry's update of ``P``, already made
+    (a shard's, made across the shards by :meth:`_Shards.partial`)."""
+    if Ppad is None:
+        Ppad = apply_bcs(Ph, cfg, bdata, t=t)
     dU = None
     if cfg.kernels != "off" and fused_sweep.supports(cfg):
         # The wrappers launch the CUDA kernels for a CUDA tensor and take
@@ -125,7 +130,8 @@ def _partial_update(P, Ph, dt, order_space, cfg, geom, bdata, ch,
                                  scma=(physics is not None
                                        and physics.mp is not None))
     if physics is not None and physics.mp is not None:
-        dU = dU + physics.mp_delta_U(P, Ph, dt, cfg, rt=rt, sp=sp)
+        dU = dU + physics.mp_delta_U(P, Ph, dt, cfg, rt=rt, sp=sp,
+                                     P_new=mp_new)
     if cfg.conduction:
         Edot = conduction_Edot(Ppad, _temperature(Ppad, cfg, physics), cfg,
                                geom)
@@ -146,7 +152,7 @@ def _partial_update(P, Ph, dt, order_space, cfg, geom, bdata, ch,
 
 def advance(P, dt, cfg: SimConfig, geom: Geometry,
             bdata: Optional[BoundaryData] = None, ch=None, physics=None,
-            t=0.0, rt0=None, sp=None):
+            t=0.0, rt0=None, sp=None, partial=_partial_update):
     """Advance one full step of size dt; returns the new state.
 
     OA1: single 1st-order update (reference: time_integrator.cpp:80-97).
@@ -155,16 +161,17 @@ def advance(P, dt, cfg: SimConfig, geom: Geometry,
     ``dt`` may be a number or a 0-d tensor on the state's device.
     ``rt0``: radiation columns already traced through P (the predictor's
     Ph), e.g. shared with the dt computation in the fused step.
+    ``partial``: the partial update, :func:`_partial_update` of one grid
+    or :meth:`_Shards.partial` of a sharded state.
     """
     if cfg.eqn is Eqn.GLM and ch is None:
         ch = cfg.cfl * geom.dx / dt
     if cfg.ooa == 1:
-        return _partial_update(P, P, dt, 1, cfg, geom, bdata, ch, physics, t,
-                               rt=rt0, sp=sp)
-    Ph = _partial_update(P, P, 0.5 * dt, 1, cfg, geom, bdata, ch, physics, t,
-                         rt=rt0, sp=sp)
-    return _partial_update(P, Ph, dt, 2, cfg, geom, bdata, ch, physics, t,
-                           sp=sp)
+        return partial(P, P, dt, 1, cfg, geom, bdata, ch, physics, t,
+                       rt=rt0, sp=sp)
+    Ph = partial(P, P, 0.5 * dt, 1, cfg, geom, bdata, ch, physics, t,
+                 rt=rt0, sp=sp)
+    return partial(P, Ph, dt, 2, cfg, geom, bdata, ch, physics, t, sp=sp)
 
 
 class StepFns(NamedTuple):
@@ -176,21 +183,126 @@ class StepFns(NamedTuple):
     multi_step: callable = None
 
 
+def _on(x, like: torch.Tensor):
+    """A 0-d tensor ``x`` on ``like``'s device (a number as it is)."""
+    if isinstance(x, torch.Tensor) and x.device != like.device:
+        return x.to(like.device, non_blocking=True)
+    return x
+
+
+class _Shards:
+    """The per-shard side of a step on a mesh (ROADMAP A20.2-A20.3): a
+    sharded state (:class:`.parallel.mesh.Sharded`) steps as one grid does,
+    every shard's block through :func:`_partial_update` with the blocks'
+    config and geometry, its ghosts from the exchange
+    (:func:`.parallel.halo.apply_bcs_sharded`), its physics restricted to
+    the block (``Physics.for_block``: wind regions sliced from the whole
+    grid's).  What couples the shards is reduced over them: the dt (a min),
+    the plain chemistry ladder's stiffness (a max, ``MPv3.update_blocks``)
+    and the point-source columns (``Physics.raytrace_sharded``: the sharded
+    octant trace B6, or a gathered trace)."""
+
+    def __init__(self, cfg: SimConfig, mesh, bdata=None, physics=None):
+        from .grid import make_geometry
+        from .parallel.halo import check_shardable, local_config
+
+        check_shardable(cfg)
+        self.mesh = mesh
+        self.cfg = local_config(cfg, mesh)
+        self.geom = make_geometry(self.cfg)
+        self.bdata = BoundaryData() if bdata is None else bdata
+        self.physics = physics
+        self.phys = [None] * mesh.size if physics is None else [
+            physics.for_block(r) for r in mesh.ranges(cfg.shape)]
+
+    def state(self, P, dtype):
+        """``P`` as a sharded state of ``dtype`` on this mesh."""
+        from .parallel.mesh import Sharded, shard_state
+
+        if not isinstance(P, Sharded) or P.mesh is not self.mesh:
+            P = shard_state(P, self.mesh)
+        if P.dtype != dtype:
+            P = P.map(lambda b: b.to(dtype))
+        return P
+
+    @staticmethod
+    def reduce(parts, op):
+        """``op`` (torch.min or torch.max) of 0-d tensors of the shards, on
+        the first shard's device."""
+        dev = parts[0].device
+        return op(torch.stack([p.to(dev) for p in parts]))
+
+    def pads(self, P, t=0.0):
+        from .parallel.halo import apply_bcs_sharded
+
+        return apply_bcs_sharded(P, self.cfg, self.bdata, self.mesh, t)
+
+    def raytrace(self, Ph, sp=None):
+        """Each block's rt dict from columns traced across the shards."""
+        return self.physics.raytrace_sharded(Ph, self.phys, sp=sp)
+
+    def chemistry(self, P, dt, rt):
+        """Every block's chemistry update where the module's plain ladder
+        reads the whole grid (``MPv3.update_blocks``: the stiffness reduced
+        over the shards); None where each block's update stands alone (the
+        fused update works per tile; the other modules have no ladder)."""
+        mp = self.physics.mp
+        if not hasattr(mp, "update_blocks") or mp._use_fused(self.cfg):
+            return None
+        if rt is None:
+            rt = [mp.default_rt(b) for b in P.blocks]
+        return mp.update_blocks(P.blocks, [_on(dt, b) for b in P.blocks],
+                                self.cfg, rt)
+
+    def partial(self, P, Ph, dt, order_space, cfg, geom, bdata, ch,
+                physics=None, t=0.0, rt=None, sp=None):
+        """:func:`_partial_update` on every shard's block (``rt``: a list,
+        one rt dict a block, or None); ``cfg``, ``geom`` and ``bdata`` are
+        the whole grid's and give way to the blocks'."""
+        from .parallel.mesh import Sharded
+
+        pads = self.pads(Ph, t)
+        new = None
+        if physics is not None and physics.mp is not None:
+            if rt is None and physics.sources:
+                rt = self.raytrace(Ph, sp)
+            new = self.chemistry(P, dt, rt)
+        out = []
+        for i, blk in enumerate(P.blocks):
+            out.append(_partial_update(
+                blk, Ph.blocks[i], _on(dt, blk), order_space, self.cfg,
+                self.geom, self.bdata, _on(ch, blk), self.phys[i], t,
+                rt=None if rt is None else rt[i], sp=sp, Ppad=pads[i],
+                mp_new=None if new is None else new[i]))
+        return Sharded(out, self.mesh, P.shape)
+
+
 def make_step_fns(cfg: SimConfig, geom: Geometry,
                   bdata: Optional[BoundaryData] = None,
-                  physics=None, device=None) -> StepFns:
+                  physics=None, device=None, mesh=None) -> StepFns:
     """Build the advance/dt functions with the config closed over.
 
     The functions put the state they are given on ``device``: the CUDA
     device when ``device`` is None (raising if there is none), the CPU only
-    when the caller asks for it."""
-    dev = resolve_device(device)
+    when the caller asks for it.  With a ``mesh``
+    (:class:`.parallel.mesh.Mesh`) they step a sharded state, each shard on
+    its mesh device (``device`` is not read), through the same partial
+    update a block (:class:`_Shards`); ``multi_step`` then raises (ROADMAP
+    A20.5)."""
     dtype = cfg.torch_dtype
+    shards = None
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        shards = _Shards(cfg, mesh, bdata, physics)
 
     def _state(P):
+        if shards is not None:
+            return shards.state(P, dtype)
         return torch.as_tensor(P, dtype=dtype, device=dev)
 
-    def _dt_expr(P, rt0=None):
+    def _dt_expr(P, rt0=None, cfg=cfg, geom=geom, physics=physics,
+                 Ppad=None):
         excl = (physics.wind_exclude_mask(P)
                 if physics is not None and physics.winds else None)
         dt = dynamics_dt(P, cfg, geom, exclude=excl)
@@ -201,25 +313,42 @@ def make_step_fns(cfg: SimConfig, geom: Geometry,
         if cfg.conduction:
             # the ghosts of the boundaries at t = 0, as the JAX package
             # fills them here (stepper.py:176)
-            Ppad = apply_bcs(P, cfg, bdata)
+            if Ppad is None:
+                Ppad = apply_bcs(P, cfg, bdata)
             Edot = conduction_Edot(Ppad, _temperature(Ppad, cfg, physics),
                                    cfg, geom)
             dt = torch.minimum(dt, conduction_dt(P, Edot, cfg))
         return dt
 
+    def _dt_all(P, rt0=None):
+        """:func:`_dt_expr` of the grid, or its min over the shards."""
+        if shards is None:
+            return _dt_expr(P, rt0)
+        pads = shards.pads(P) if cfg.conduction else [None] * mesh.size
+        return shards.reduce([
+            _dt_expr(blk, None if rt0 is None else rt0[i], shards.cfg,
+                     shards.geom, shards.phys[i], pads[i])
+            for i, blk in enumerate(P.blocks)], torch.min)
+
+    partial = _partial_update if shards is None else shards.partial
+
     def _advance(P, dt, t=0.0, sp=None):
         return advance(_state(P), dt, cfg, geom, bdata, physics=physics,
-                       t=t, sp=sp)
+                       t=t, sp=sp, partial=partial)
 
     def _calc_dt(P):
-        return _dt_expr(_state(P))
+        if shards is None:
+            return _dt_expr(_state(P))
+        # a shard's physics does not trace: the columns cross the shards
+        return _dt_of(_state(P), None)[0]
 
     def _dt_of(P, sp):
         rt0 = None
         if (physics is not None and physics.sources
                 and physics.mp is not None):
-            rt0 = physics.raytrace(P, sp=sp)
-        return _dt_expr(P, rt0), rt0
+            rt0 = (physics.raytrace(P, sp=sp) if shards is None
+                   else shards.raytrace(P, sp))
+        return _dt_all(P, rt0), rt0
 
     def _step(P, t, last_dt, dt_cap, sp=None):
         """Fused dt + advance.  The radiation columns through P are traced
@@ -235,7 +364,7 @@ def make_step_fns(cfg: SimConfig, geom: Geometry,
         dt_raw, rt0 = _dt_of(P, sp)
         dt = limit_dt(dt_raw, last_dt, dt_cap, cfg.max_dt_growth)
         Pn = advance(P, dt, cfg, geom, bdata, physics=physics, t=t, rt0=rt0,
-                     sp=sp)
+                     sp=sp, partial=partial)
         return Pn, dt, dt_raw
 
     def _chunk(P, t, last_dt, t_stop, t_target, sp, K):
@@ -275,6 +404,9 @@ def make_step_fns(cfg: SimConfig, geom: Geometry,
         the CPU they run eagerly, step after step."""
         from . import graphs
 
+        if shards is not None:
+            raise NotImplementedError(
+                "run(chunk=k) on a sharded state is ROADMAP A20.5")
         P = _state(P)
         spt = physics.device_sp(sp, P) if physics is not None else None
         clock = graphs.clock(P.device, t, last_dt, t_target)

@@ -141,6 +141,8 @@ class StepLogger:
             return
         line = (f"New time: {t:.6e}   dt: {dt:.6e}   steps: {step}"
                 f"   walltime: {time.time() - self.t0:.1f}s")
-        if P is not None and not bool(torch.isfinite(P).all()):
+        finite = (P is None or (P.all_finite() if hasattr(P, "all_finite")
+                                else bool(torch.isfinite(P).all())))
+        if not finite:
             line += "   *** NON-FINITE STATE ***"
         print(line, flush=True)

@@ -49,6 +49,7 @@ depend on time: it is computed once per dtype and device and kept, so that
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Dict, Optional, Tuple
 
@@ -349,6 +350,17 @@ class WindBC:
         # orbiting one, whose geometry is made anew at each call
         self._geo_np = self._geometry(np, src.position, self._grids)
         self._cache: Dict = {}
+
+    def block(self, sl) -> "WindBC":
+        """This region restricted to one block of a sharded grid (``sl``:
+        the block's global slices): its cell positions and geometry are the
+        whole grid's, sliced, never rebuilt from the block's own
+        coordinates, so a block's wind state is the whole grid's there."""
+        blk = copy.copy(self)
+        blk._grids = [g[sl] for g in self._grids]
+        blk._geo_np = {k: v[sl] for k, v in self._geo_np.items()}
+        blk._cache = {}
+        return blk
 
     # -- geometry ----------------------------------------------------------
     def _geometry(self, xp, position, grids):

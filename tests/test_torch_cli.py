@@ -301,7 +301,7 @@ def test_restart_rebuilds_physics_from_the_header(tmp_path):
 
 def test_entry_points_need_a_card_or_the_cpu(tmp_path):
     """Without a card and without ``--device cpu`` every entry point raises;
-    a bad flag and ``mesh on`` are refused; MPv7/MPv8 are built from the
+    a bad flag and ``mesh on`` over several cards are refused; MPv7/MPv8 are built from the
     parameters; the usage text comes back with 2."""
     pf, _ = _write(tmp_path, PARAMS, "port")
     if not torch.cuda.is_available():
@@ -310,8 +310,15 @@ def test_entry_points_need_a_card_or_the_cpu(tmp_path):
                 cli.main(argv)
     with pytest.raises(ValueError, match="--device"):
         cli.run_main([pf, "--device", "tpu"])
-    with pytest.raises(NotImplementedError, match="item 20"):
-        cli.run_main([pf, "mesh=on", "--device", "cpu"])
+    # mesh on is refused only where a mesh is really requested: several
+    # visible cards (ROADMAP A20.4); with none it runs the one device
+    cli._check_mesh({"mesh": "on"})
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: True)
+        mp.setattr(torch.cuda, "device_count", lambda: 2)
+        for key, val in (("mesh", "on"), ("halo", "explicit")):
+            with pytest.raises(NotImplementedError, match="A20.4"):
+                cli.run_main([pf, f"{key}={val}", "--device", "cpu"])
     cfg = cli.config_from_params({"ndim": "1", "NGridX": "8", "ntracer": "1"})
     for chem in ("MPv7", "MPv8"):
         phys = cli.physics_from_params(cfg, {"chem_code": chem,

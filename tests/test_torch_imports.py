@@ -47,7 +47,10 @@ def test_every_submodule_imports_without_jax_or_reference_package():
                    "pion_tpu_torch.debug", "pion_tpu_torch.io.compare",
                    "pion_tpu_torch.io.fits", "pion_tpu_torch.analysis",
                    "pion_tpu_torch.analysis.export",
-                   "pion_tpu_torch.analysis.projection"):
+                   "pion_tpu_torch.analysis.projection",
+                   "pion_tpu_torch.parallel", "pion_tpu_torch.parallel.mesh",
+                   "pion_tpu_torch.parallel.halo",
+                   "pion_tpu_torch.raytracing.sharded_trace"):
         assert needed in names
     code = (
         "import importlib, sys\n"

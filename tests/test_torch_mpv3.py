@@ -190,6 +190,123 @@ def test_update_plain_matches_pallas_interpret(ion, dt, seed_f0, tol):
         assert fused_mpv3.update.launches == before
 
 
+def _update_plain_every_iteration(mp, omx0, Eint0, nH, dt, rt,
+                                  n_sub=32, n_newton=8):
+    """The plain ladder as it stood before its stopping test was read back
+    only every few iterations: the test and the Newton count read back at
+    every iteration.  The reference the new loop is held to bit for bit."""
+    from torch.func import jvp
+
+    from pion_tpu_torch.microphysics.fused_mpv3 import (
+        TILE, _pad, _plane_rt, _planes, _tol)
+    from pion_tpu_torch.microphysics.mpv3 import EULER_CUTOFF, MIN_NEUTRAL
+
+    shape, dtype, n = omx0.shape, omx0.dtype, omx0.numel()
+    n_pad = -(-n // TILE) * TILE
+    tol = _tol(dtype)
+    dt = torch.as_tensor(dt, dtype=dtype)
+    srcs, g0uv, g0ir = _planes(mp, rt, omx0)
+    omx, E, nHp = (_pad(omx0, n_pad, 0.5), _pad(Eint0, n_pad, 1.0),
+                   _pad(nH, n_pad, 1.0))
+    srcs = [(_pad(t0, n_pad, 1.0e6), _pad(ds, n_pad, 0.0),
+             _pad(nv, n_pad, 0.0), tab) for t0, ds, nv, tab in srcs]
+    if g0uv is not None:
+        g0uv, g0ir = _pad(g0uv, n_pad, 0.0), _pad(g0ir, n_pad, 0.0)
+
+    def rhs_on(tiles):
+        def pick(a):
+            return a if tiles is None or a is None else a[tiles]
+        rt_t = _plane_rt(mp, [(pick(t0), pick(ds), pick(nv), tab)
+                              for t0, ds, nv, tab in srcs],
+                         pick(g0uv), pick(g0ir))
+        nH_t = pick(nHp)
+        return lambda o, e: MPv3.ydot(mp, o, e, nH_t, rt_t)
+
+    f0v, f1v = rhs_on(None)(omx, E)
+    maxdelta = torch.maximum(torch.abs(f0v * dt / omx),
+                             torch.abs(f1v * dt / E))
+    omx_eul, E_eul = omx + dt * f0v, E + dt * f1v
+    use_euler = maxdelta < EULER_CUTOFF
+    stiffness = torch.where(use_euler, torch.zeros_like(maxdelta),
+                            maxdelta).amax(dim=1)
+    tiles = torch.nonzero(stiffness > 0.0).reshape(-1)
+    omx_st, E_st = omx, E
+    newton_its = 0
+    if tiles.numel():
+        rhs = rhs_on(tiles)
+        n_eff = torch.clamp(torch.ceil(4.0 * stiffness[tiles]), 2, n_sub)
+        h = (dt / n_eff)[:, None]
+        o, e = omx[tiles], E[tiles]
+
+        def newton_step(o, e, op, ep):
+            one, zero = torch.ones_like(o), torch.zeros_like(o)
+            (g0f, g1f), (j00, j10) = jvp(rhs, (o, e), (one, zero))
+            _, (j01, j11) = jvp(rhs, (o, e), (zero, one))
+            g0, g1 = o - op - h * g0f, e - ep - h * g1f
+            a, b, cc, d = 1.0 - h * j00, -h * j01, -h * j10, 1.0 - h * j11
+            det = a * d - b * cc
+            det = torch.where(torch.abs(det) > 1e-300, det,
+                              torch.ones_like(det))
+            d_o = torch.clamp((d * g0 - b * g1) / det, -0.3, 0.3)
+            d_e = (a * g1 - cc * g0) / det
+            d_e = torch.minimum(torch.maximum(d_e, -0.6 * e), 0.6 * e)
+            return (torch.clamp(o - d_o, MIN_NEUTRAL, 1.0 - MIN_NEUTRAL),
+                    torch.maximum(e - d_e, 1.0e-10 * ep))
+
+        for k in range(int(n_eff.max())):
+            run = k < n_eff
+            op, ep = o, e
+            it = 0
+            while it < n_newton and bool(run.any()):
+                o_n, e_n = newton_step(o, e, op, ep)
+                err = torch.maximum(
+                    torch.abs(o_n - o).amax(dim=1),
+                    torch.abs((e_n - e)
+                              / torch.clamp(e, min=1e-300)).amax(dim=1))
+                o = torch.where(run[:, None], o_n, o)
+                e = torch.where(run[:, None], e_n, e)
+                newton_its += int(run.sum())
+                run = run & (err > tol)
+                it += 1
+        omx_st, E_st = omx.clone(), E.clone()
+        omx_st[tiles] = o
+        E_st[tiles] = e
+    omx1 = torch.where(use_euler, omx_eul, omx_st).reshape(-1)[:n]
+    E1 = torch.where(use_euler, E_eul, E_st).reshape(-1)[:n]
+    return (omx1.reshape(shape), E1.reshape(shape),
+            (int(tiles.numel()), newton_its))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dt", [1.0e3, 1.0e9])
+def test_update_plain_matches_the_old_loop_bit_for_bit(dtype, dt):
+    """The plain ladder as it stands (the Jacobian's two columns from one
+    forward-mode pass, ``mpv3.jacobian_columns``; the Newton count kept on
+    the device and read once)
+    against the loop it replaced (two ``torch.func.jvp`` an iteration, both
+    read-backs every iteration): the same outputs bit for bit, the same
+    ladder tiles and Newton iterations, at a step where Newton converges
+    (1e3 s) and at the stiff one where it does not (1e9 s)."""
+    _, mp = pair("mfion")
+    omx, E, nH, rt = cells(mp.mpc, SMALL, 1, 46)
+    rt["ion"][0]["tau0"].reshape(-1)[:300] = 1.0e6     # a shielded stretch
+    _, (to, te, tn, trt) = both((omx, E, nH, rt))
+
+    def cast(v):
+        if isinstance(v, dict):
+            return {k: cast(w) for k, w in v.items()}
+        if isinstance(v, tuple):
+            return tuple(cast(w) for w in v)
+        return v.to(dtype)
+
+    to, te, tn, trt = cast((to, te, tn, trt))
+    ro, re, rstats = _update_plain_every_iteration(mp, to, te, tn, dt, trt)
+    go, ge, stats = fused_mpv3.update_plain(mp, to, te, tn, dt, trt,
+                                            return_stats=True)
+    assert torch.equal(go, ro) and torch.equal(ge, re)
+    assert stats == rstats and stats[0] >= 1 and stats[1] >= 2
+
+
 def test_quiescent_tiles_skip_the_ladder():
     """A tile with no cell past the Euler cutoff takes forward Euler alone;
     its neighbour's stiffness does not reach it."""
@@ -250,6 +367,39 @@ def test_update_off_matches_reference(shape, stiff_frac):
     for v in range(10):
         if v not in (PG, SLOT):
             assert np.array_equal(g[v].numpy(), r[v])
+
+
+@pytest.mark.parametrize("shape,stiff_frac", [
+    ((4, 8, 16), None),        # the dense ladder
+    ((8, 24, 24), 0.05),       # the compaction, with the last cell's copy
+])
+def test_update_blocks_equal_the_whole_grid(shape, stiff_frac):
+    """``MPv3.update_blocks`` on the eight blocks of a 2x2x2 mesh (in its C
+    order) gives the whole grid's ``update`` bit for bit: the same
+    stiffness, the whole grid's compaction (the last block carries the
+    grid's last cell) and one Newton stopping test over every block."""
+    _, mp = pair("mfion")
+    _, cfg = _cfgs(shape)
+    P, rt = prim_state(mp.mpc, shape, 21, stiff_frac)
+    _, trt = both(rt)
+    Pt = torch.from_numpy(P)
+    want = mp.update(Pt, 1.0e3, cfg, trt)
+    h = [n // 2 for n in shape]
+    sls = [tuple(slice(c * n, (c + 1) * n) for c, n in zip(cs, h))
+           for cs in np.ndindex(2, 2, 2)]
+
+    def block(v, sl):
+        if isinstance(v, dict):
+            return {k: block(w, sl) for k, w in v.items()}
+        if isinstance(v, tuple):
+            return tuple(block(w, sl) for w in v)
+        return v[sl].contiguous() if v.shape == shape else v
+
+    got = mp.update_blocks([Pt[(slice(None),) + sl].contiguous()
+                            for sl in sls], [1.0e3] * 8, cfg,
+                           [block(trt, sl) for sl in sls])
+    for sl, g in zip(sls, got):
+        assert torch.equal(g, want[(slice(None),) + sl])
 
 
 def test_update_without_sources_matches_reference():

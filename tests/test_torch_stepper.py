@@ -136,12 +136,37 @@ def test_no_silent_cpu_run():
 
 @pytest.mark.parametrize("field,value", [
     ("nlevels", 2), ("halo", "explicit"), ("mesh", "on")])
-def test_unported_options_raise(field, value):
+def test_unported_options_raise(field, value, monkeypatch):
+    """What each option still refuses: a nested grid through
+    ``Simulation``; ``halo="explicit"`` with physics (the JAX package's
+    guard); a sharded run, by ``halo`` or by ``mesh="on"`` over several
+    cards, with a face whose ghosts are not local edge data (ROADMAP
+    A20.5).  Both options run where the port takes them
+    (``tests/test_torch_halo.py``)."""
+    from pion_tpu_torch.physics import Physics
+
     rcfg = ref_config("glm3d")
     P = noisy_state(rcfg, 16)
     cfg = dataclasses.replace(to_port(rcfg, P)[0], **{field: value})
-    with pytest.raises(NotImplementedError):
-        Simulation(cfg, torch.from_numpy(P), device="cpu")
+    if field == "nlevels":
+        with pytest.raises(NotImplementedError):
+            Simulation(cfg, torch.from_numpy(P), device="cpu")
+        return
+    inflow = dataclasses.replace(cfg, bcs=(("inflow", "outflow"),)
+                                 + cfg.bcs[1:])
+    if field == "halo":
+        with pytest.raises(NotImplementedError, match="pure dynamics"):
+            Simulation(cfg, torch.from_numpy(P), physics=Physics(),
+                       device="cpu")
+        with pytest.raises(NotImplementedError, match="A20.5"):
+            Simulation(inflow, torch.from_numpy(P), device="cpu")
+        return
+    # several visible cards: mesh="on" shards the run, and refuses the face
+    # before it touches a card
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="A20.5"):
+        Simulation(inflow, torch.from_numpy(P))
 
 
 def test_unported_io_and_physics_raise(tmp_path):
