@@ -36,7 +36,11 @@ shards, all eight on the one card: the mesh and its exchange, the sharded
 octant trace B6 (B5 once a shard) against the whole grid's B5 and its plain
 version, configuration 1 with ``halo="explicit"`` and the photoionised Euler
 wind bubble as sharded states, each against the single-device run of the
-same state.  Then each path again through
+same state; the coupled flagship as a hierarchy on the mesh (B6 on both
+levels; float64 too) and a sharded hierarchy restarted on the mesh; the
+double Mach reflection, the axisymmetric jet and the 3-level cylindrical
+wind hierarchy sharded, bit for bit their single-device runs.  Then each
+path again through
 ``run(chunk=k)``, k steps as one CUDA graph replay: bit for bit the run of k
 single steps, and timed beside it.
 Every phase prints one JSON line; any failed
@@ -1090,8 +1094,8 @@ def hii_problem(n: int, dtype: str, kernels: str = "auto"):
                      n_idot=1.0e48, tstar=3.75e4, rstar_cm=10 * RSUN,
                      min_temperature=50.0)
 
-    def make_physics():
-        return Physics(mp=MPv3(mpc), dt_limit=True, sources=[Source(
+    def make_physics(cls=MPv3):
+        return Physics(mp=cls(mpc), dt_limit=True, sources=[Source(
             position=(3.0e18,) * 3, strength=1.0e48, effect="mfion")])
 
     nH = 100.0
@@ -1443,12 +1447,15 @@ KERNEL_GROUPS = ("sweep_axis_kernel", "final_axis_kernel",
                  "elementwise_kernel", "reduce_kernel", "index")
 
 
-def device_time_by_kernel(run, steps: int, top_n: int = 10):
-    """Device time of ``run()`` summed by kernel name, per step."""
+def device_time_by_kernel(run, steps: int, top_n: int = 10,
+                          cpu: bool = True):
+    """Device time of ``run()`` summed by kernel name, per step.  ``cpu``:
+    record the host's operators too (the profiler's cost then grows with
+    them: a step of the sharded hierarchy queues ~64k kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         run()
         torch.cuda.synchronize()
     # kernels only: an operator's row repeats the time of the kernels it
@@ -1607,7 +1614,8 @@ def coupled_problem(n: int, dtype: str, kernels: str = "auto"):
     2-level nested grid of n^3 cells a level, with a magnetised stellar wind
     (1e-6 Msun/yr, 2000 km/s, 10 G at the surface) blown from the star's
     position inside a radius of six fine cells.  Returns (cfg, one state a
-    level, make_physics)."""
+    level, make_physics); ``make_physics(cls)`` takes the chemistry class
+    (``plain_chemistry_class()`` for the plain chemistry)."""
     from pion_tpu_torch.constants import MSUN, YEAR
     from pion_tpu_torch.physics import Physics
     from pion_tpu_torch.winds import WindSource
@@ -1617,8 +1625,8 @@ def coupled_problem(n: int, dtype: str, kernels: str = "auto"):
     ctr = tuple(0.5 * (lo + hi) for lo, hi in zip(cfg.xmin, cfg.xmax))
     fine_dx = cfg.dx / 2
 
-    def make_physics():
-        hii = make_hii()
+    def make_physics(cls=None):
+        hii = make_hii() if cls is None else make_hii(cls)
         return Physics(mp=hii.mp, sources=hii.sources, dt_limit=True,
                        wind_sources=[WindSource(
                            position=ctr, radius=6.0 * fine_dx,
@@ -4088,6 +4096,375 @@ def mesh_wind_path(device, n: int = 128, steps: int = 10):
     return rec, counts
 
 
+# ---------------------------------------------------------------------------
+# nested grids and faces that are not local edge data on the one-card mesh
+# ---------------------------------------------------------------------------
+
+# a coupled hierarchy step on the 2x2x2 mesh: every launch of a block is one
+# a shard (B1, B3, B4: 8 x NG_LAUNCHES), every trace is B6 (both levels'
+# sources sit in cell n/2 - 1), 8 B5 launches within each
+MESH_NG_LAUNCHES = dict(
+    {k: 8 * v for k, v in NG_LAUNCHES.items()},
+    sharded_octant_trace=NG_LAUNCHES["octant_trace"])
+MESH_NG_SEEDED = 8 * NG_SEEDED
+# the coupled mesh hierarchy against one device: the dynamics groups at
+# ng_path's tolerance, the chemistry groups at ROADMAP C8's (B3 forms its
+# ladder tiles from each block's stiff cells), the dt sequence as the
+# chemistry groups; float64 with the plain chemistry (the sweep and trace
+# kernels only, the ladder over every block as one device steps it)
+MESH_NG_TOL = {"dynamics": 1.0e-5, "chemistry": 1.0e-4, "dt": 1.0e-4}
+MESH_NG_F64_TOL = 1.0e-12
+
+
+def mesh8(cfg, device):
+    """The mesh of 8 shards of ``cfg``'s grid, all on ``device``
+    (``decompose``: 2x2x2 in 3D, (2, 4) for a 2D grid twice as long on its
+    last axis)."""
+    from pion_tpu_torch.parallel import make_mesh
+
+    return make_mesh(cfg, devices=[device] * 8)
+
+
+def gathered_hierarchy(hier):
+    """What ``check_hierarchy`` reads of a sharded hierarchy, gathered."""
+    import types
+
+    return types.SimpleNamespace(
+        P=[p.gather() for p in hier.P], cfg0=hier.cfg0, cfgs=hier.cfgs,
+        phys=hier.phys,
+        n_levels=hier.n_levels, t=hier.t, _restrict=hier._restrict)
+
+
+def mesh_glue_ms(hier) -> dict:
+    """The cross-shard glue of a 2-level hierarchy step, each call timed
+    alone (``time_ms``: CUDA events around ten calls behind a busy device)
+    with how often a step makes it: the level-0 exchange (``_pad_blocks``
+    of level 0, ``apply_bcs`` on one device), level 1's ghosts (the
+    exchange, the parent's boxes prolonged, the root faces), the
+    restriction into the parent's blocks, the child's boundary-plane
+    fluxes assembled over its blocks (one device: 6 restricted planes) and
+    BC89 into the parent's blocks."""
+    from pion_tpu_torch.parallel import Sharded
+
+    P0, P1 = hier.P
+    cfg = hier.cfgs[1]
+    n = cfg.shape[0]
+    dt = 0.5 * hier._level_dt(hier.P)
+    on_mesh = isinstance(P0, Sharded)
+    if on_mesh:
+        sh = hier.shards[1]
+        planes = {(b, ax, i): torch.zeros(
+            (cfg.nvar,) + tuple(hi - lo for bx, (lo, hi) in enumerate(r)
+                                if bx != ax), dtype=P0.dtype,
+            device=P0.device)
+            for b, r in enumerate(sh.ranges) for ax in range(cfg.ndim)
+            for i in range(r[ax][0], r[ax][1] + 1)
+            if i in (0, n, n // 4, 3 * n // 4)}
+
+        def face(b, ax, i):
+            return planes[(b, ax, i)]
+
+        sums = [tuple(hier._face_sums(face, ax, side, 1) for side in (0, 1))
+                for ax in range(cfg.ndim)]
+        dU = [torch.zeros_like(b) for b in P0.blocks]
+        calls = {
+            "pad_level_0": (lambda: hier._pad_blocks(0, P0, None), 2),
+            "pad_level_1": (lambda: hier._pad_blocks(1, P1, P0), 4),
+            "restrict": (lambda: hier._restrict(P0, P1, 1), 1),
+            "face_sums": (lambda: hier._face_sums(face, 0, 0, 1), 12),
+            "bc89": (lambda: hier._bc89_blocks(dU, face, sums, 0, dt), 1)}
+    else:
+        plane = P0.new_zeros((cfg.nvar, n, n))
+        sums = [(hier._restrict_face_flux(plane, ax, 1),) * 2
+                for ax in range(cfg.ndim)]
+        dU = torch.zeros_like(P0)
+        calls = {
+            "pad_level_0": (lambda: hier._pad_level(0, P0, None), 2),
+            "pad_level_1": (lambda: hier._pad_level(1, P1, P0), 4),
+            "restrict": (lambda: hier._restrict(P0, P1, 1), 1),
+            "face_sums": (lambda: hier._restrict_face_flux(plane, 0, 1), 12),
+            "bc89": (lambda: hier._bc89_correct(
+                dU, lambda ax, i: plane, sums, 0, dt), 1)}
+    rec = {name: {"ms": time_ms(fn, 10), "calls_per_step": k}
+           for name, (fn, k) in calls.items()}
+    return {"per_call": rec,
+            "glue_ms_per_step": sum(v["ms"] * v["calls_per_step"]
+                                    for v in rec.values()),
+            "exchange_ms_per_step": rec["pad_level_0"]["ms"] * 2}
+
+
+def mesh_ng_path(device, n: int = 128, steps: int = 6):
+    """The coupled flagship (``coupled_problem``, 2 x 128^3 float32) on the
+    one-card 2x2x2 mesh, as a user runs it: ``NGHierarchy(cfg, 2,
+    physics=..., mesh=mesh)``, ``set_states``, ``step()`` (2 warm-up steps,
+    then ``steps`` counted), against the one-device hierarchy from the same
+    states: launches a step MESH_NG_LAUNCHES (B1, B3, B4 8x one device's,
+    B6 on both levels), the dt sequence and every level within
+    MESH_NG_TOL; ``check_hierarchy`` on the gathered levels; host ms a
+    step, device ms a step (the profiler over 2 steps), and the glue timed
+    alone (``mesh_glue_ms``), each beside one device's.  The profiler
+    records the device only: with the host's operators it took 81 s over
+    the mesh's two steps on an H100.  Returns the
+    record, the launch counts and the mesh hierarchy."""
+    from pion_tpu_torch import NGHierarchy
+    from pion_tpu_torch.microphysics import fused_mpv3 as fm
+
+    t_start = time.perf_counter()
+    cfg, states, make_physics = coupled_problem(n, "float32")
+    mesh = one_card_mesh(cfg, device)
+
+    def make(m):
+        hier = NGHierarchy(cfg, 2, physics=make_physics(), mesh=m)
+        hier.set_states(states)
+        return hier
+
+    one, sh = make(None), make(mesh)
+    set_up_s = time.perf_counter() - t_start
+    dts, dts_one = [], []
+    for _ in range(2):                       # warm-up; the first: wind cap
+        dts.append(sh.step())
+        dts_one.append(one.step())
+    reset_counts()
+    fm.update.launches_seeded = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        dts.append(sh.step())
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = read_counts()
+    seeded = fm.update.launches_seeded
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        dts_one.append(one.step())
+    torch.cuda.synchronize()
+    sec_one = time.perf_counter() - t0
+    want = {k: v * steps for k, v in MESH_NG_LAUNCHES.items()}
+    if counts != want or seeded != MESH_NG_SEEDED * steps:
+        raise AssertionError(
+            f"mesh hierarchy: launch counts {counts} ({seeded} updates "
+            f"seeded), expected {want} ({MESH_NG_SEEDED * steps} seeded)")
+    ranges = check_hierarchy(gathered_hierarchy(sh), "mesh_ng_path")
+    dt_err = max(abs(a - b) / b for a, b in zip(dts, dts_one))
+    dxdt = [one.geoms[l].dx / (one.last_dt / 2 ** l) for l in range(2)]
+    errs = [level_errs(sh.P[l].gather(), one.P[l], dxdt[l])
+            for l in range(2)]
+    for l in range(2):
+        for group, err in errs[l].items():
+            tol = MESH_NG_TOL["chemistry" if group in CHEMISTRY_GROUPS
+                              else "dynamics"]
+            if not err <= tol:
+                raise AssertionError(
+                    f"mesh hierarchy against one device, level {l}, "
+                    f"{group}: {err:.3e} > {tol:.0e}")
+    if not dt_err <= MESH_NG_TOL["dt"]:
+        raise AssertionError(f"mesh hierarchy: dt sequence {dt_err:.3e} "
+                             f"from one device's")
+
+    def two(h):
+        return lambda: [h.step() for _ in range(2)]
+
+    t0 = time.perf_counter()
+    prof, prof_one = (device_time_by_kernel(two(h), 2, cpu=False)
+                      for h in (sh, one))
+    profile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    glue, glue_one = mesh_glue_ms(sh), mesh_glue_ms(one)
+    glue_s = time.perf_counter() - t0
+    for g, p in ((glue, prof), (glue_one, prof_one)):
+        dev = p["device_ms_per_step"]
+        g["glue_share"] = g["glue_ms_per_step"] / dev if dev else None
+        g["exchange_share"] = g["exchange_ms_per_step"] / dev if dev \
+            else None
+    cells = 3 * n ** 3
+    rec = {"shape": [n] * 3, "levels": 2, "mesh": list(mesh.factors),
+           "dtype": "float32", "steps": steps, "t": sh.t,
+           "launches": counts,
+           "launches_per_step": {k: v / steps for k, v in counts.items()},
+           "updates_seeded_per_step": seeded / steps, "ranges": ranges,
+           "vs_single_device_by_level": errs, "dt_rel_diff": dt_err,
+           "tol": MESH_NG_TOL, "host_ms_per_step": sec / steps * 1e3,
+           "host_ms_per_step_single_device": sec_one / steps * 1e3,
+           "cell_updates_per_s": cells * steps / sec,
+           "mesh_device": {**prof, "glue": glue},
+           "single_device": {**prof_one, "glue": glue_one},
+           "seconds": {"set_up": set_up_s, "profile": profile_s,
+                       "glue": glue_s,
+                       "phase": time.perf_counter() - t_start}}
+    del one
+    return rec, counts, sh
+
+
+def mesh_ng_path_f64(device, n: int = 32, steps: int = 2):
+    """The coupled hierarchy at 2 x 32^3 float64 on the one-card mesh with
+    the plain chemistry (``plain_chemistry_class``: B1 and B6 launched, the
+    ladder over every block as one device steps it), ``steps`` steps
+    against the one-device hierarchy within MESH_NG_F64_TOL of each
+    variable's scale; then B6 on both levels' states against its plain
+    version (TRACE_TOL of max tau)."""
+    from pion_tpu_torch import NGHierarchy
+    from pion_tpu_torch.parallel import Sharded
+    from pion_tpu_torch.raytracing import sharded_trace as st
+
+    cfg, states, make_physics = coupled_problem(n, "float64")
+    pc = plain_chemistry_class()
+    hs = []
+    for m in (None, one_card_mesh(cfg, device)):
+        h = NGHierarchy(cfg, 2, physics=make_physics(pc), mesh=m)
+        h.set_states(states)
+        hs.append(h)
+    one, sh = hs
+    reset_counts()
+    dts = [sh.step() for _ in range(steps)]
+    counts = read_counts()
+    dts_one = [one.step() for _ in range(steps)]
+    want = dict({k: MESH_NG_LAUNCHES[k] * steps for k in (
+        "sweep_axis", "final_axis", "octant_trace", "sharded_octant_trace")},
+        mpv3_update=0, mpv3_ydot=0)
+    if counts != want:
+        raise AssertionError(f"mesh hierarchy float64: launches {counts}, "
+                             f"expected {want}")
+    err = max(scaled_err(sh.P[l].gather(), one.P[l])[0] for l in range(2))
+    dt_err = max(abs(a - b) / b for a, b in zip(dts, dts_one))
+    if not (err <= MESH_NG_F64_TOL and dt_err <= MESH_NG_F64_TOL):
+        raise AssertionError(f"mesh hierarchy float64: {err:.3e} from one "
+                             f"device, dt {dt_err:.3e}")
+    b6 = {}
+    for l in range(2):
+        phys, blk_phys = sh.phys[l], sh.shards[l].phys
+        src = phys.sources[0]
+        dtau = Sharded([bp.dtau_for(src, b, bp._ds0(0, src, b))
+                        for bp, b in zip(blk_phys, sh.P[l].blocks)],
+                       sh.mesh, sh.P[l].grid_shape)
+        tau_min = phys.raytracer.point_tracers[0].tau_min
+        got = st.sharded_octant_trace(dtau.blocks, sh.mesh, tau_min)
+        ref = st.sharded_octant_trace_plain(dtau.blocks, sh.mesh, tau_min)
+        scale = max(float(r.abs().max()) for r in ref)
+        e = max(float((g - r).abs().max()) for g, r in zip(got, ref)) / scale
+        if not e <= TRACE_TOL[torch.float64]:
+            raise AssertionError(f"B6 float64 level {l}: {e:.3e}")
+        b6[f"level{l}"] = e
+    return {"shape": [n] * 3, "levels": 2, "steps": steps,
+            "launches": counts, "vs_single_device": err,
+            "dt_rel_diff": dt_err, "tol": MESH_NG_F64_TOL,
+            "b6_vs_plain": b6, "tol_b6": TRACE_TOL[torch.float64]}
+
+
+def mesh_ng_restart(d: str, device, n: int = 64, steps: int = 2) -> dict:
+    """A hierarchy on the one-card mesh saved (its gathered levels) and
+    restarted on the mesh (``NGHierarchy.restart(path, physics=...,
+    mesh=...)``), ``steps`` more steps of both, bit for bit: the H II
+    region of ``hii_problem`` on 2 levels of n^3 float32 (B1, B3, B4, B6 on
+    blocks).  Without a wind: a restart carves the wind region into every
+    level again, level 0's too, where the run holds level 1's restriction
+    (both packages do), so a hierarchy with a wind restarts to other
+    values there.  A snapshot carries no last dt: the restarted run is
+    handed the run's."""
+    from pion_tpu_torch import NGHierarchy
+    from pion_tpu_torch.parallel import Sharded
+
+    cfg1, P0, make_physics = hii_problem(n, "float32")
+    cfg = dataclasses.replace(cfg1, nlevels=2)
+    mesh = one_card_mesh(cfg, device)
+    run = NGHierarchy(cfg, 2, physics=make_physics(), mesh=mesh)
+    run.set_states([P0, P0])
+    for _ in range(steps):
+        run.step()
+    path = run.save(os.path.join(d, "mesh_ng"))
+    again = NGHierarchy.restart(path, physics=make_physics(), mesh=mesh)
+    if not all(isinstance(p, Sharded) for p in again.P):
+        raise AssertionError("the restarted hierarchy is not on the mesh")
+    again.last_dt = run.last_dt
+    reset_counts()
+    for _ in range(steps):
+        again.step()
+    counts = read_counts()
+    for _ in range(steps):
+        run.step()
+    same = [bool(torch.equal(a.gather(), b.gather()))
+            for a, b in zip(run.P, again.P)]
+    if not (all(same) and again.t == run.t):
+        raise AssertionError(f"the restarted mesh hierarchy is not the run: "
+                             f"levels equal {same}, t {again.t} vs {run.t}")
+    if counts["sharded_octant_trace"] < 1 or counts["mpv3_update"] < 1:
+        raise AssertionError(f"the restarted mesh hierarchy: launches "
+                             f"{counts}")
+    return {"shape": [n] * 3, "levels": 2, "steps": steps, "t": run.t,
+            "launches": counts, "bit_for_bit": True,
+            "snapshot_bytes": os.path.getsize(path)}
+
+
+def mesh_faces_path(d: str, device, steps: int = 4):
+    """Faces that are not local edge data, and axisymmetric grids, on the
+    one-card mesh of 8 shards, each against its one-device run bit for bit
+    after ``steps`` steps: the double Mach reflection (``dmr_params``,
+    1920 x 480 float32: an INFLOW face, DMACH2's wedge and DMACH's moving
+    shock, B1 and B2 on every block), the axisymmetric jet (``jet_params``,
+    (512, 2048) float32: the JET face and the radial B2 on blocks of R),
+    each restarted from its icgen snapshot on the mesh
+    (``Simulation.restart(path, mesh=...)``), and the 3-level cylindrical
+    wind hierarchy (``cyl_ng_problem``: the radial B1, the inflow face).
+    Launches 8x the one-device run's a step; host ms a step beside it."""
+    from pion_tpu_torch import NGHierarchy, Simulation
+
+    rec, counts_all = {}, {}
+    for name, params, per_step in (
+            ("dmr", dmr_params(DMR_ROWS[0], "float32"), CLI_2D_LAUNCHES),
+            ("jet", jet_params(), CLI_2D_LAUNCHES)):
+        pf = write_params(d, f"mesh_{name}", params)
+        cli_main("icgen", pf)
+        ic = snap_path(pf, 0)
+        cfg = Simulation.restart(ic).cfg
+        mesh = mesh8(cfg, device)
+        Simulation.restart(ic, mesh=mesh).run(max_steps=1)      # warm-up
+        sh, one = Simulation.restart(ic, mesh=mesh), Simulation.restart(ic)
+        (_, counts, sec), (_, _, sec_one) = (
+            counted(lambda: sh.run(max_steps=steps),
+                    {k: 8 * v * steps for k, v in per_step.items()},
+                    f"mesh {name}"),
+            counted(lambda: one.run(max_steps=steps),
+                    times(per_step, steps), f"{name} on one device"))
+        if not (torch.equal(sh.P.gather(), one.P) and sh.t == one.t):
+            err = float((sh.P.gather() - one.P).abs().max())
+            raise AssertionError(f"mesh {name}: not the one-device run "
+                                 f"({err:.3e}, t {sh.t} vs {one.t})")
+        rec[name] = {"shape": list(cfg.shape), "mesh": list(mesh.factors),
+                     "steps": steps, "launches": counts,
+                     "bit_for_bit": True,
+                     "host_ms_per_step": sec / steps * 1e3,
+                     "host_ms_per_step_single_device": sec_one / steps * 1e3}
+        counts_all[name] = counts
+        del sh, one
+
+    cfg, states, make_physics = cyl_ng_problem()
+    mesh = mesh8(cfg, device)
+
+    def make(m):
+        hier = NGHierarchy(cfg, 3, physics=make_physics(), mesh=m)
+        hier.set_states(states)
+        return hier
+
+    make(mesh).step()                                    # warm-up
+    sh, one = make(mesh), make(None)
+    (_, counts, sec), (_, _, sec_one) = (
+        counted(lambda: time_steps(sh, steps),
+                {k: 8 * v * steps for k, v in CYL_NG_LAUNCHES.items()},
+                "mesh cylindrical hierarchy"),
+        counted(lambda: time_steps(one, steps), times(CYL_NG_LAUNCHES, steps),
+                "cylindrical hierarchy on one device"))
+    same = [bool(torch.equal(a.gather(), b)) for a, b in zip(sh.P, one.P)]
+    if not (all(same) and sh.t == one.t):
+        raise AssertionError(f"mesh cylindrical hierarchy: levels equal "
+                             f"{same}, t {sh.t} vs {one.t}")
+    rec["cyl_ng"] = {"shape": list(cfg.shape), "levels": 3,
+                     "mesh": list(mesh.factors), "steps": steps,
+                     "launches": counts, "bit_for_bit": True,
+                     "host_ms_per_step": sec / steps * 1e3,
+                     "host_ms_per_step_single_device": sec_one / steps * 1e3}
+    counts_all["cyl_ng"] = counts
+    return rec, counts_all
+
+
 def mpv8_params(n: int) -> dict:
     """``starbench_params`` with ``chem_code MPv8`` (the StarBench module,
     reference MPv8.cpp): the same medium as MPv8 counts it, with helium
@@ -4567,6 +4944,17 @@ def main(argv=None):
     emit("mesh_blast_path", **rec_mb)
     rec_mw, counts_mw = mesh_wind_path(device)
     emit("mesh_wind_path", **rec_mw)
+    # the coupled hierarchy on the mesh (B6 on both levels), its float64
+    # copy and a restart on the mesh; the non-local faces and the
+    # axisymmetric grids sharded
+    rec_mn, counts_mn, hier_mn = mesh_ng_path(device)
+    emit("mesh_ng_path", **rec_mn)
+    del hier_mn
+    emit("mesh_ng_path_f64", **mesh_ng_path_f64(device))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+        emit("mesh_ng_restart", **mesh_ng_restart(d, device))
+        rec_mf, counts_mf = mesh_faces_path(d, device)
+        emit("mesh_faces_path", **rec_mf)
 
     # several steps in one dispatch: each path's chunked run against its
     # single steps, then both timed in this call
@@ -4638,7 +5026,10 @@ def main(argv=None):
                                        cli_mpv8=counts_m8[row["name"]],
                                        cli_mpv7=counts_m7[row["name"]],
                                        mesh_blast=counts_mb[row["name"]],
-                                       mesh_wind=counts_mw[row["name"]])
+                                       mesh_wind=counts_mw[row["name"]],
+                                       mesh_ng=counts_mn[row["name"]],
+                                       **{f"mesh_{k}": c[row["name"]]
+                                          for k, c in counts_mf.items()})
     # B4 and B3 on the MPv6 mix: launches from the StarBench run, the
     # numbers from ``mpv6_kernels`` (128^3, and the 32^3 copy)
     for row in rows:
@@ -4663,8 +5054,8 @@ def main(argv=None):
                              for v, by_dtype in radial_errs.items()},
                          **{v: rec[name] for v, rec in radial.items()
                             if name in rec}}
-    # B6: launched on the sharded wind bubble (two traces a step), on no
-    # other path
+    # B6: launched on the sharded wind bubble (two traces a step) and the
+    # sharded coupled hierarchy (six), on no other path
     by_path = {path: counts_of["sharded_octant_trace"] for path, counts_of in
                (("blast", counts), ("hii", counts_hii), ("ng", counts_ng),
                 ("euler", counts_e), ("euler_wind", counts_w),
@@ -4674,13 +5065,17 @@ def main(argv=None):
                 ("hcorr", counts_hc), ("conduction", counts_cd),
                 ("conduction_wind", counts_cw2), ("cli_mpv8", counts_m8),
                 ("cli_mpv7", counts_m7), ("mesh_blast", counts_mb),
-                ("mesh_wind", counts_mw))}
+                ("mesh_wind", counts_mw), ("mesh_ng", counts_mn),
+                *((f"mesh_{k}", c) for k, c in counts_mf.items()))}
     b6_row.update(launches=counts_mw["sharded_octant_trace"],
                   launches_by_path=by_path)
-    if b6_row["launches"] < 1:
+    if b6_row["launches"] < 1 or by_path["mesh_ng"] < 1:
         raise AssertionError("sharded_octant_trace was not launched on the "
-                             "sharded wind bubble")
+                             "sharded wind bubble and hierarchy")
     rows.append(b6_row)
+    if args.out:
+        with open(os.path.join(args.out, "kernels.json"), "w") as f:
+            json.dump({"kernels": rows}, f, indent=1)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -47,6 +47,11 @@ class BoundaryData:
 
     fixed: Dict[Tuple[int, int], np.ndarray] = dataclasses.field(default_factory=dict)
     jet: Optional[Tuple[float, np.ndarray]] = None
+    # a block of a sharded grid: the whole grid's config and the block's
+    # first global cell along every axis, from which its faces take their
+    # positions (see block); None for a whole grid
+    whole: Optional[Tuple[SimConfig, Tuple[int, ...]]] = dataclasses.field(
+        default=None, compare=False)
     # strips, masks and states already on a (dtype, device), so a step
     # copies nothing from the host
     _tensors: dict = dataclasses.field(default_factory=dict, init=False,
@@ -64,6 +69,38 @@ class BoundaryData:
 
     def __eq__(self, other):
         return isinstance(other, BoundaryData) and hash(self) == hash(other)
+
+    def block(self, cfg: SimConfig, ranges) -> "BoundaryData":
+        """This data for one block of a sharded grid of config ``cfg``
+        (``ranges``: the block's global index range along every axis): the
+        frozen strips sliced to the block's span of the axes across each
+        face (its ghosts on the axes padded before that face's, as
+        :func:`apply_bcs` pads them), and the whole grid's config and the
+        block's origin, from which the DMACH/DMACH2/JET faces take their
+        cell positions."""
+        ng = cfg.ng
+        fixed = {}
+        for (axis, side), arr in self.fixed.items():
+            sl = [slice(None)]
+            for bx, (lo, hi) in enumerate(ranges):
+                sl.append(slice(None) if bx == axis else
+                          slice(lo, hi + 2 * ng) if bx < axis else
+                          slice(lo, hi))
+            fixed[(axis, side)] = np.ascontiguousarray(arr[tuple(sl)])
+        return BoundaryData(fixed=fixed, jet=self.jet,
+                            whole=(cfg, tuple(lo for lo, _ in ranges)))
+
+    def positions(self, cfg: SimConfig, axis: int, n: int,
+                  padded: bool = False) -> np.ndarray:
+        """The cell centres along ``axis`` of the grid (or block) of ``n``
+        cells there whose faces this data fills: the whole grid's centres,
+        sliced to the block."""
+        if self.whole is None:
+            return cfg.cell_centers(axis, padded=padded)
+        whole, origin = self.whole
+        lo = origin[axis]
+        return whole.cell_centers(axis, padded=padded)[
+            lo:lo + n + (2 * cfg.ng if padded else 0)]
 
     def strip(self, axis: int, side: int, like: torch.Tensor):
         """The frozen strip of one face as a tensor like ``like`` (dtype and
@@ -112,30 +149,39 @@ def _dmr_state(cfg: SimConfig, bdata: BoundaryData, like, t):
     float64 at the cell centres (x as the config's dtype holds them) and
     the ghost rows above the domain."""
     ng = cfg.ng
-    x = bdata.kept("dmr_x", like, lambda: cfg.cell_centers(1)[None, :],
-                   dtype=torch.float64)
+    top = cfg.xmax[0] if bdata.whole is None else bdata.whole[0].xmax[0]
+    x = bdata.kept("dmr_x", like, lambda: bdata.positions(
+        cfg, 1, like.shape[-1])[None, :], dtype=torch.float64)
     y = bdata.kept("dmr_y", like, lambda: (
-        cfg.xmax[0] + (np.arange(ng) + 0.5) * cfg.dx)[:, None],
+        top + (np.arange(ng) + 0.5) * cfg.dx)[:, None],
         dtype=torch.float64)
     bpos = 10.0 * t / _SIN60 + 1.0 / 6.0 + y / _TAN60
     post, pre = _dmr_states(cfg, bdata, like)
     return torch.where(x <= bpos, post, pre)
 
 
-def _jet_mask(cfg: SimConfig, radius: float) -> np.ndarray:
+def _jet_mask(cfg: SimConfig, radius: float, bdata: "BoundaryData",
+              shape) -> np.ndarray:
     """Ghost cells of the JET face (the low face of the last axis) within
     ``radius`` of the jet axis, over the padded transverse axes: in 2D the
     distance from the symmetry axis (the first axis, Cartesian or
     cylindrical R), in 3D from the domain's centre line.  Distances and the
     comparison in the config's dtype, as the JAX package forms them (its
-    ``jnp.hypot`` written out)."""
+    ``jnp.hypot`` written out).  ``shape``: the grid's (or block's) cells
+    along every axis, the transverse ones already padded; a block takes
+    the whole grid's positions (``bdata.positions``) and centre line."""
+    whole = cfg if bdata.whole is None else bdata.whole[0]
+    ng = cfg.ng
+
+    def centres(axis):
+        return bdata.positions(cfg, axis, shape[axis] - 2 * ng, padded=True)
+
     if cfg.ndim == 2:
-        return (np.abs(cfg.cell_centers(0, padded=True)) < radius)[
-            None, :, None]
-    yy = cfg.cell_centers(1, padded=True)
-    zz = cfg.cell_centers(0, padded=True)
-    a = np.abs(zz[:, None] - 0.5 * (cfg.xmin[0] + cfg.xmax[0]))
-    b = np.abs(yy[None, :] - 0.5 * (cfg.xmin[1] + cfg.xmax[1]))
+        return (np.abs(centres(0)) < radius)[None, :, None]
+    yy = centres(1)
+    zz = centres(0)
+    a = np.abs(zz[:, None] - 0.5 * (whole.xmin[0] + whole.xmax[0]))
+    b = np.abs(yy[None, :] - 0.5 * (whole.xmin[1] + whole.xmax[1]))
     hi, lo = np.maximum(a, b), np.minimum(a, b)
     q = lo / np.where(hi == 0, np.ones_like(hi), hi)
     rdist = np.where(hi == 0, hi, hi * np.sqrt(1 + q * q))
@@ -236,8 +282,8 @@ def axis_ghosts(P, cfg: SimConfig, axis: int, bdata: BoundaryData, t=0.0):
                 raise ValueError("a DMACH2 face is the low face of axis 0 "
                                  "of a 2D grid")
             wedge = bdata.kept("dmr_wedge", P, lambda: (
-                cfg.cell_centers(1).astype(np.float64) < 1.0 / 6.0)[
-                    None, None, :], dtype=torch.bool)
+                bdata.positions(cfg, 1, P.shape[-1]).astype(np.float64)
+                < 1.0 / 6.0)[None, None, :], dtype=torch.bool)
             post = bdata.kept("dmr_wedge_post", P, lambda: np.array(
                 list(DMR_POST) + [1.0] * cfg.ntracer).reshape(-1, 1, 1))
             return torch.where(wedge, post, mirror(side, BC.REFLECTING))
@@ -252,7 +298,8 @@ def axis_ghosts(P, cfg: SimConfig, axis: int, bdata: BoundaryData, t=0.0):
                 raise ValueError("a JET BC needs BoundaryData.jet")
             radius, jstate = bdata.jet
             inside = bdata.kept("jet_mask", P,
-                                lambda: _jet_mask(cfg, radius),
+                                lambda: _jet_mask(cfg, radius, bdata,
+                                                  P.shape[1:]),
                                 dtype=torch.bool)
             js = bdata.kept("jet_state", P, lambda: np.asarray(
                 jstate, dtype=np.float64).reshape((-1,) + (1,) * cfg.ndim))

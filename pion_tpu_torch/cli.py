@@ -20,10 +20,15 @@ restarts on the card.
 Reads the reference's actual parameter-file dialect (test_problems/*.txt),
 including radiation-source (``RT_*``), stellar-wind (``WIND_*``) and
 chemistry (``chem_code``/``EP_*``) sections.  The JAX package's ``pallas``
-key maps to ``kernels`` (:mod:`.io.params`).  The workflow runs one
-device: ``mesh on`` (or ``halo explicit``) raises with several visible cards
-(ROADMAP A20.4) and runs the one device with one card, as the JAX package
-does; ``mesh auto``/``off`` run the one device.
+key maps to ``kernels`` (:mod:`.io.params`).  With several visible devices
+(``parallel.mesh.visible_devices``) ``mesh on`` (``auto`` with several
+cards) splits a fresh run or a restart, of one level or a hierarchy, over
+a mesh of them, as the JAX package's CLI does; ``halo explicit`` takes the
+explicit exchange on one level (pure dynamics) and a hierarchy ignores it.
+With one device, and with ``mesh off``, the run takes the one device.
+Snapshots hold the gathered state, so they restart on a mesh or without
+one, in either package.  ``run(chunk=k)`` on a mesh and multi-host runs
+are ROADMAP A20.5.
 """
 from __future__ import annotations
 
@@ -565,20 +570,19 @@ def _split_device(argv: List[str], device=None):
     return rest, resolve_device(device)
 
 
-def _check_mesh(params: Dict[str, str]):
-    """The workflow runs one device: ``mesh on`` or ``halo explicit`` with
-    several visible cards raises (ROADMAP A20.4); with one card, and for
-    ``mesh auto``/``off``, the run takes the device it was given."""
-    from .parallel.mesh import mesh_requested
+def _mesh_for(cfg: SimConfig, nlevels: int):
+    """The mesh a run of ``cfg`` takes (the JAX package's rule): over the
+    visible devices when ``cfg.mesh`` asks for one
+    (``parallel.mesh.mesh_requested``) or, on one level, ``halo
+    explicit`` with several of them; else None, one device."""
+    from .parallel.mesh import make_mesh, mesh_requested, visible_devices
 
-    several = torch.cuda.is_available() and torch.cuda.device_count() > 1
-    mesh = str(params.get("mesh", "")).strip()
-    halo = str(params.get("halo", "")).strip()
-    if (mesh == "on" and mesh_requested(SimConfig(mesh="on"))) or (
-            halo == "explicit" and several):
-        raise NotImplementedError(
-            f"mesh {mesh or 'auto'} / halo {halo or 'gspmd'} on several "
-            "cards: the workflow's multi-device runs are ROADMAP A20.4")
+    if nlevels > 1:
+        want = mesh_requested(cfg) and cfg.halo != "explicit"
+    else:
+        want = mesh_requested(cfg) or (cfg.halo == "explicit"
+                                       and len(visible_devices()) > 1)
+    return make_mesh(cfg) if want else None
 
 
 def icgen_main(argv: List[str], device=None) -> str:
@@ -668,11 +672,20 @@ def run_main(argv: List[str], device=None) -> "object":
         cfg, _P, _t, _s, extra = load_snapshot_raw(target)
         params = apply_overrides(dict((extra or {}).get("params") or {}),
                                  overrides)
-        _check_mesh(params)
+        # a restart re-shards as the parameters ask (a snapshot holds the
+        # gathered state)
+        if params.get("mesh"):
+            cfg = cfg.with_(mesh=params["mesh"])
+        mesh = _mesh_for(cfg, cfg.nlevels)
         if cfg.nlevels > 1:
-            sim = NGHierarchy.restart(target, device=device)
+            sim = NGHierarchy.restart(target, device=device, mesh=mesh)
+            if params.get("mesh"):
+                sim.cfg0 = sim.cfg0.with_(mesh=params["mesh"])
+                sim.cfgs = [c.with_(mesh=params["mesh"]) for c in sim.cfgs]
         else:
-            sim = Simulation.restart(target, device=device)
+            sim = Simulation.restart(target, device=device, mesh=mesh)
+            if params.get("mesh"):
+                sim.cfg = sim.cfg.with_(mesh=params["mesh"])
         tmax = params.get("FinishTime") or params.get("finishtime")
         if tmax:
             if cfg.nlevels > 1:
@@ -688,7 +701,6 @@ def run_main(argv: List[str], device=None) -> "object":
         sim.params = params or None
     else:
         params = apply_overrides(read_paramfile(target), overrides)
-        _check_mesh(params)
         cfg = cfg_ics_overrides(config_from_params(params), params)
         if params.get("mesh"):
             cfg = cfg.with_(mesh=params["mesh"])
@@ -701,7 +713,8 @@ def run_main(argv: List[str], device=None) -> "object":
             centre = snap_ng_centre(cfg)
             states = [build_ics(make_level_cfg(cfg, l, centre), params)
                       .astype(cfg.np_dtype) for l in range(cfg.nlevels)]
-            sim = NGHierarchy(cfg, physics=phys, device=device)
+            sim = NGHierarchy(cfg, physics=phys, device=device,
+                              mesh=_mesh_for(cfg, cfg.nlevels))
             sim.t = t0
             sim.set_states(states)
             sim.outfile = _outfile(params)
@@ -713,7 +726,8 @@ def run_main(argv: List[str], device=None) -> "object":
             jet = jet_from_params(cfg, params)
             sim = Simulation(cfg, P.astype(cfg.np_dtype), t=t0,
                              physics=phys, outfile=_outfile(params),
-                             jet=jet, params=params, device=device, **opts)
+                             jet=jet, params=params, device=device,
+                             mesh=_mesh_for(cfg, 1), **opts)
     max_steps = int(params.get("max_steps", 10**9) or 10**9)
     chunk = int(params.get("chunk", 1) or 1)
     sim.run(max_steps=max_steps, chunk=chunk)

@@ -221,19 +221,21 @@ def physics_from_reference(mpc_fields: Optional[dict],
 def hierarchy_from_reference(cfg_fields: dict, states: Sequence[np.ndarray],
                              t: float = 0.0, step: int = 0,
                              last_dt: float = 0.0, physics=None,
-                             device=None):
+                             device=None, mesh=None):
     """A reference nested-grid run as the port's ``NGHierarchy``: the
     level-0 config dict (``nlevels`` says how many levels unless the states
     do), one primitive state per level as numpy, and the clock.  ``physics``
     is the port's own (:func:`physics_from_reference`).  ``device`` goes to
     ``NGHierarchy`` as it is: ``None`` is the card, or an error where there
-    is none; ``"cpu"`` on request."""
+    is none; ``"cpu"`` on request.  With a ``mesh`` every level is split
+    over it."""
     from .ng import NGHierarchy
 
     cfg = config_from_reference(cfg_fields)
     if not (np.isfinite(t) and step >= 0 and last_dt >= 0.0):
         raise ValueError(f"bad clock: t={t}, step={step}, last_dt={last_dt}")
-    hier = NGHierarchy(cfg, len(states), physics=physics, device=device)
+    hier = NGHierarchy(cfg, len(states), physics=physics, device=device,
+                       mesh=mesh)
     hier.t, hier.step_count, hier.last_dt = float(t), int(step), float(last_dt)
     # copies in the config's dtype: the caller's arrays are never aliased
     hier.set_states([np.array(s, dtype=cfg.np_dtype) for s in states])
@@ -243,9 +245,11 @@ def hierarchy_from_reference(cfg_fields: dict, states: Sequence[np.ndarray],
 def hierarchy_to_reference(hier):
     """The way back: ``(config dict, [numpy state per level], t, step,
     last_dt)``; the config carries the level count and the snapped centre,
-    as a snapshot header does."""
+    as a snapshot header does.  Sharded levels are gathered."""
+    from .parallel.mesh import gather
+
     return (config_to_reference(hier._header_cfg()),
-            [p.detach().cpu().numpy() for p in hier.P], hier.t,
+            [gather(p).detach().cpu().numpy() for p in hier.P], hier.t,
             hier.step_count, hier.last_dt)
 
 

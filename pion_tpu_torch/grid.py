@@ -139,3 +139,22 @@ def make_geometry(cfg: SimConfig) -> Geometry:
         vol = (4.0 * np.pi / 3.0) * ((r + 0.5 * dx64) ** 3
                                      - (r - 0.5 * dx64) ** 3)
     return Geometry(axes=tuple(axes), cell_volume=vol, dx=dx)
+
+
+def block_geometry(geom: Geometry, cfg: SimConfig, ranges) -> Geometry:
+    """The geometry of one block of a sharded grid (``ranges``: its global
+    index range ``(lo, hi)`` along every axis): the whole grid's arrays
+    sliced, padded ones with the block's ``ng`` ghosts, never a geometry
+    of the block's own extent, since a radial metric is global."""
+    ng = cfg.ng
+    axes = []
+    for g, (lo, hi) in zip(geom.axes, ranges):
+        pad = slice(lo, hi + 2 * ng)
+        axes.append(dataclasses.replace(
+            g, pos=g.pos[pad], com=g.com[pad], del_n=g.del_n[pad],
+            del_p=g.del_p[pad], div_cn=g.div_cn[lo:hi],
+            div_cp=g.div_cp[lo:hi]))
+    vol = geom.cell_volume
+    vol = vol[tuple(slice(lo, hi) if n > 1 else slice(None)
+                    for (lo, hi), n in zip(ranges, vol.shape))]
+    return Geometry(axes=tuple(axes), cell_volume=vol, dx=geom.dx)

@@ -33,6 +33,17 @@ into the corrector's own fresh ``dU``.
 Prolongation, restriction, BC89 and the interface slabs are plain PyTorch;
 each level's sweeps go through the fused CUDA kernels under the rule of
 ``SimConfig.kernels``.
+
+On a mesh of shards (ROADMAP A20.4) every level is split over the same
+mesh, as the JAX package puts every level on one mesh: each level is a
+:class:`.parallel.mesh.Sharded` and steps block by block (the per-shard
+side of ``stepper._Shards``, one a level).  A fine block's ghosts come from
+its neighbours (the exchange), from the parent's box around its window on
+the level's outer faces (:func:`.parallel.mesh.region`, prolonged as on
+one device) and from the domain BC on root-domain faces; the restriction
+and BC89 write into whichever parent blocks hold the cells
+(:func:`.parallel.mesh.write_regions`); each cell takes the one-device
+value.  ``run(chunk=k)`` on a mesh raises (ROADMAP A20.5).
 """
 from __future__ import annotations
 
@@ -51,14 +62,10 @@ from .ops.eqns import cons_to_prim, prim_to_cons
 from .ops.recon import van_albada
 from .ops.sweep import dynamics_dU, interface_flux, interface_flux_pair
 from .ops.timestep import dynamics_dt
-from .stepper import (_scma_flag, cell_advance, glm_psi_damp, later,
-                      limit_dt)
+from .parallel.mesh import Sharded, gather, region, write_regions
+from .stepper import (_on, _scma_flag, _Shards, cell_advance, glm_psi_damp,
+                      later, limit_dt)
 from .utils import StepLogger, resolve_device
-
-_NO_MESH = ("mesh='on' with several cards: a hierarchy sharded over "
-            "several devices is ROADMAP A20.4 (mesh 'auto' and one card run "
-            "one device)")
-
 
 def snap_ng_centre(cfg0: SimConfig) -> Tuple[float, ...]:
     """Snap the refinement centre to xmin + i/4 of the domain per axis so
@@ -132,7 +139,10 @@ class NGHierarchy:
     """Holds per-level state and advances the stack recursively.
 
     ``device``: the CUDA device when None (raising if there is none), the
-    CPU only when the caller asks for it.
+    CPU only when the caller asks for it.  ``mesh``
+    (:class:`.parallel.mesh.Mesh`): every level is split over it (so it
+    is when the states handed to :meth:`set_states` are sharded, or when
+    ``cfg0.mesh`` asks for a mesh over several visible devices).
 
     The H-correction (``av`` "hcorr" / "hcorr_falle") runs on every level
     through the plain sweep, which keeps its face fluxes for BC89.
@@ -143,10 +153,13 @@ class NGHierarchy:
     C3)."""
 
     def __init__(self, cfg0: SimConfig, n_levels: Optional[int] = None,
-                 states: Optional[List] = None, physics=None, device=None):
+                 states: Optional[List] = None, physics=None, device=None,
+                 mesh=None):
         if n_levels is None:
             n_levels = cfg0.nlevels
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (mesh.device(0) if mesh is not None
+                       else resolve_device(device))
         self.n_levels = n_levels
         self.cfg0 = cfg0
         self.centre = snap_ng_centre(cfg0)
@@ -231,25 +244,46 @@ class NGHierarchy:
         self._graphs: Dict = {}
 
     def set_states(self, states):
-        from .parallel.mesh import mesh_requested
+        """Each level's state: tensors or arrays, or level states sharded
+        over one mesh (:class:`.parallel.mesh.Sharded`).  Plain states are
+        split over the hierarchy's mesh, or over one made of the visible
+        devices when ``cfg0.mesh`` asks for it (``mesh_requested``; a
+        hierarchy does not read ``halo``, as the JAX package's does not)."""
+        from .parallel.mesh import make_mesh, mesh_requested, shard_state
 
-        if self.cfg0.mesh == "on" and mesh_requested(self.cfg0):
-            raise NotImplementedError(_NO_MESH)
         if len(states) != self.n_levels:
             raise ValueError(f"{len(states)} states for {self.n_levels} "
                              f"levels")
+        sharded = [isinstance(s, Sharded) for s in states]
+        if any(sharded):
+            meshes = {id(s.mesh) for s in states if isinstance(s, Sharded)}
+            if not all(sharded) or len(meshes) > 1:
+                raise ValueError(
+                    "levels " + ", ".join(
+                        str(l) for l, s in enumerate(states)
+                        if not isinstance(s, Sharded)
+                        or s.mesh is not states[0].mesh)
+                    + " are not sharded over level 0's mesh: every level "
+                    "of a hierarchy uses one mesh")
+            self.mesh = states[0].mesh
+        elif (self.mesh is None and mesh_requested(self.cfg0)
+              and self.cfg0.halo != "explicit"):
+            self.mesh = make_mesh(self.cfg0)
+        if self.mesh is not None:
+            self.device = self.mesh.device(0)
         dtype = self.cfg0.torch_dtype
         # the strips of the frozen faces are taken from the states as given,
         # on the host, before they are cast
-        host = [s.detach().cpu().numpy() if isinstance(s, torch.Tensor)
+        host = [gather(s).detach().cpu().numpy()
+                if isinstance(s, (torch.Tensor, Sharded))
                 else np.asarray(s) for s in states]
         expect = (self.cfg0.nvar,) + self.cfg0.shape
         for l, s in enumerate(host):
             if s.shape != expect:
                 raise ValueError(f"level {l} state shape {s.shape} != "
                                  f"{expect}")
-        self.P = [torch.as_tensor(s).to(dtype=dtype, device=self.device)
-                  .contiguous() for s in host]
+        whole = [torch.as_tensor(s).to(dtype=dtype, device=self.device)
+                 .contiguous() for s in host]
         self.bdata = make_fixed_strips(
             host[0].astype(self.cfg0.np_dtype), self.cfgs[0])
         # frozen INFLOW/FIXED ghost strips for fine-level domain faces
@@ -262,7 +296,7 @@ class NGHierarchy:
             need = [(ax, sd) for (ax, sd) in self.dom_sides[l]
                     if cfg.bcs[ax][sd] in (BC.INFLOW, BC.FIXED)]
             if need:
-                pad = apply_bcs_outflow_only(self.P[l], cfg)
+                pad = apply_bcs_outflow_only(whole[l], cfg)
                 ng = cfg.ng
                 for ax, sd in need:
                     a = 1 + ax
@@ -270,26 +304,47 @@ class NGHierarchy:
                         pad.narrow(a, 0, ng) if sd == 0
                         else pad.narrow(a, pad.shape[a] - ng, ng)).clone()
             self.level_strips.append(strips)
+        self.shards = None
+        if self.mesh is None:
+            self.P = whole
+        else:
+            # one shard side a level: its blocks' config, geometry, faces
+            # and physics (level 0's faces from the whole grid's strips)
+            self.shards = [_Shards(self.cfgs[l], self.mesh,
+                                   self.bdata if l == 0 else None,
+                                   self.phys[l])
+                           for l in range(self.n_levels)]
+            self.P = [shard_state(w, self.mesh) for w in whole]
         for l in range(self.n_levels):
-            if self.phys[l] is not None and self.phys[l].winds:
-                self.P[l] = self.phys[l].apply_internal_bcs(self.P[l], self.t)
+            if self.phys[l] is None or not self.phys[l].winds:
+                continue
+            P = self.P[l]
+            if self.shards is None:
+                self.P[l] = self.phys[l].apply_internal_bcs(P, self.t)
+            else:
+                self.P[l] = Sharded(
+                    [ph.apply_internal_bcs(b, self.t)
+                     for ph, b in zip(self.shards[l].phys, P.blocks)],
+                    P.mesh, P.shape)
 
     # -- small constants, kept ---------------------------------------------
-    def _const(self, key, make):
-        """A small constant tensor on the run's device in the run's dtype,
-        made once from the numpy array ``make()`` gives."""
+    def _const(self, key, make, device=None):
+        """A small constant tensor on ``device`` (the run's by default) in
+        the run's dtype, made once from the numpy array ``make()`` gives."""
+        device = self.device if device is None else device
+        key = key + (str(device),)
         if key not in self._consts:
             self._consts[key] = torch.as_tensor(np.asarray(make())).to(
-                dtype=self.cfg0.torch_dtype, device=self.device)
+                dtype=self.cfg0.torch_dtype, device=device)
         return self._consts[key]
 
-    def _offvec(self, count: int):
+    def _offvec(self, count: int, device=None):
         """Offsets of ``count`` fine cells from their parent's centre, in
         units of the parent's dx, for a window that starts on an even fine
         index: -1/4, +1/4, -1/4, ..."""
         return self._const(
             ("offvec", count),
-            lambda: np.where(np.arange(count) % 2 == 0, -0.25, +0.25))
+            lambda: np.where(np.arange(count) % 2 == 0, -0.25, +0.25), device)
 
     # -- C2F prolongation --------------------------------------------------
     def _prolong_padded(self, Pc, level: int):
@@ -331,23 +386,26 @@ class NGHierarchy:
             total = total + sl * self._offvec(2 * counts[ax]).reshape(shape)
         return total
 
-    def _prolong_window(self, Pc, level: int, franges):
+    def _prolong_window(self, Pc, level: int, franges, base=None):
         """Prolongated fine-padded values for the box given by per-axis
         fine ranges ``(fstart, fcount)`` in fine-padded coordinates
         i_f in [-ng, n+ng) (both even).  Identical values to the
         corresponding window of :meth:`_prolong_padded`, at window cost —
         the full-cube prolongation computes fine interior values that are
         immediately overwritten by the level's own state; the ghost shells
-        are ~1/20 of the volume."""
+        are ~1/20 of the volume.  ``base``: the parent cell of ``Pc``'s
+        first one along every axis, when ``Pc`` is a box of the parent
+        (:meth:`_ghost_slabs`), not the whole of it."""
         cfg_f = self.cfgs[level]
         nd = cfg_f.ndim
         off = self.offs[level]
+        base = (0,) * nd if base is None else base
         ps, pc = [], []
         for ax, (fs, fcnt) in enumerate(franges):
             if fs % 2 or fcnt % 2:
                 raise ValueError(f"window ({fs}, {fcnt}) on axis {ax} is "
                                  f"not aligned with the parent's cells")
-            ps.append(off[ax] + fs // 2)
+            ps.append(off[ax] + fs // 2 - base[ax])
             pc.append(fcnt // 2)
 
         # every axis is cut to the window first (views, but for clamped
@@ -375,14 +433,44 @@ class NGHierarchy:
                     sl = sl.repeat_interleave(2, dim=1 + bx)
             shape = [1] * (nd + 1)
             shape[a] = 2 * pc[ax]
-            total = total + sl * self._offvec(2 * pc[ax]).reshape(shape)
+            total = total + sl * self._offvec(2 * pc[ax],
+                                              Pc.device).reshape(shape)
         return total
+
+    def _ghost_slabs(self, parent: Sharded, level: int):
+        """The prolonged ghost shell of a sharded fine level, as
+        :meth:`_pad_level` makes it on one device: the parent's window
+        (with the slopes' margin, edge cells repeated past the grid)
+        assembled once from the blocks that hold it
+        (:func:`.parallel.mesh.region`), then a pair of slabs an axis, the
+        slabs of axis a padded along the axes before it
+        (``slabs[a][side]``).  The prolongation is the same function of the
+        cell whatever window holds it, so a block's part of a slab is the
+        one-device level's ghosts there."""
+        cfg = self.cfgs[level]
+        ng, n, off = cfg.ng, cfg.shape, self.offs[level]
+        box = [(o - ng, o + m // 2 + ng) for o, m in zip(off, n)]
+        win = region(parent, box, self.device)
+        base = [lo for lo, _ in box]
+        slabs = []
+        for a in range(cfg.ndim):
+            fr = [(-ng, m + 2 * ng) if bx < a else (0, m)
+                  for bx, m in enumerate(n)]
+            pair = []
+            for face in ((-ng, ng), (n[a], ng)):
+                fr[a] = face
+                pair.append(self._prolong_window(win, level, fr, base))
+            slabs.append(pair)
+        return slabs
 
     def _pad_level(self, level: int, Ph, parent_state):
         """Padded state for level: domain BCs at level 0; C2F ghosts from
         the parent otherwise, except on faces coinciding with the root
         domain boundary, which apply the domain BC.  The result is a new
-        contiguous tensor."""
+        contiguous tensor; on a mesh, one a block
+        (:meth:`_pad_blocks`)."""
+        if isinstance(Ph, Sharded):
+            return self._pad_blocks(level, Ph, parent_state)
         cfg = self.cfgs[level]
         if level == 0:
             return apply_bcs(Ph, cfg, self.bdata)
@@ -414,6 +502,57 @@ class NGHierarchy:
                 strip=self.level_strips[level].get((ax, sd)))
         return padded
 
+    def _pad_blocks(self, level: int, Ph: Sharded, parent: Sharded):
+        """Every block of a sharded level padded as :meth:`_pad_level` pads
+        the whole level, sliced.  Level 0 takes the exchange and its faces
+        (``halo.apply_bcs_sharded``).  A fine level's axes are padded in
+        order, each from the blocks padded along the axes before it (so
+        edges and corners arrive): a face between blocks takes the
+        neighbour's strip; a face on the level's outer boundary its part of
+        the level's prolonged ghost shell (:meth:`_ghost_slabs`), then a
+        face on the root domain its BC, in the one-device
+        order, from the block's own padded data and its slice of the frozen
+        strip."""
+        sh = self.shards[level]
+        if level == 0:
+            return sh.pads(Ph)
+        cfg = self.cfgs[level]
+        ng, mesh = cfg.ng, self.mesh
+        slabs = self._ghost_slabs(parent, level)
+        out = list(Ph.blocks)
+        for axis in range(cfg.ndim):
+            a = 1 + axis
+            last = mesh.factors[axis] - 1
+            padded = []
+            for b, blk in enumerate(out):
+                rng, i = sh.ranges[b], mesh.coords[b][axis]
+                sides = []
+                for side in (0, 1):
+                    if i == (0, last)[side]:
+                        sides.append(slabs[axis][side][(slice(None),) + tuple(
+                            slice(None) if bx == axis
+                            else slice(lo, hi + 2 * ng) if bx < axis
+                            else slice(lo, hi)
+                            for bx, (lo, hi) in enumerate(rng))]
+                            .to(blk.device, non_blocking=True))
+                        continue
+                    nb = out[mesh.neighbour(b, axis, 2 * side - 1)]
+                    sides.append((nb.narrow(a, nb.shape[a] - ng, ng)
+                                  if side == 0 else nb.narrow(a, 0, ng))
+                                 .to(blk.device, non_blocking=True))
+                padded.append(torch.cat([sides[0], blk, sides[1]], dim=a))
+            out = padded
+        for ax, sd in self.dom_sides[level]:
+            strip = self.level_strips[level].get((ax, sd))
+            for b, rng in enumerate(sh.ranges):
+                if mesh.coords[b][ax] != (0, mesh.factors[ax] - 1)[sd]:
+                    continue
+                part = None if strip is None else strip[(slice(None),) + tuple(
+                    slice(None) if bx == ax else slice(lo, hi + 2 * ng)
+                    for bx, (lo, hi) in enumerate(rng))]
+                out[b] = fill_ghost_side(out[b], sh.cfg, ax, sd, strip=part)
+        return out
+
     # -- F2C restriction ---------------------------------------------------
     def _restrict(self, Pc, Pf, level_f: int):
         """Replace covered coarse cells with the VOLUME-WEIGHTED
@@ -421,11 +560,33 @@ class NGHierarchy:
         NG_fine_to_coarse_boundaries.cpp:255-320 average_cells —
         sum(U*vol)/sum(vol); exact for cylindrical/spherical metrics).
         Returns a new tensor; neither ``Pc`` nor ``Pf`` is written."""
-        cfg_f = self.cfgs[level_f]
         cfg_c = self.cfgs[level_f - 1]
-        nd = cfg_f.ndim
+        nd = cfg_c.ndim
         off = self.offs[level_f]
-        Uf = prim_to_cons(Pf, cfg_f)
+        if isinstance(Pf, Sharded):
+            # each child block's average, written into whichever parent
+            # blocks hold its window
+            return write_regions(Pc, [
+                (tuple((off[a] + lo // 2, off[a] + hi // 2)
+                       for a, (lo, hi) in enumerate(rng)),
+                 self._restrict_window(blk, level_f, rng))
+                for blk, rng in zip(Pf.blocks, Pf.ranges())])
+        # window-only conversion: uncovered coarse cells stay bitwise
+        # untouched
+        P_win = self._restrict_window(Pf, level_f)
+        sl = (slice(None),) + tuple(
+            slice(off[ax], off[ax] + cfg_c.shape[ax] // 2)
+            for ax in range(nd))
+        out = Pc.clone()
+        out[sl] = P_win
+        return out
+
+    def _restrict_window(self, Pf, level_f: int, rng=None):
+        """The primitive volume-weighted average of every 2^ndim children of
+        ``Pf``: the child level, or its block of global range ``rng``."""
+        cfg_f = self.cfgs[level_f]
+        nd = cfg_f.ndim
+        dev = Pf.device
 
         # relative volume weights: absolute cgs volumes overflow float32
         def rel_volume():
@@ -433,26 +594,22 @@ class NGHierarchy:
                              dtype=np.float64)
             return v64 / v64.max()
 
-        Vf = self._const(("relvol", level_f), rel_volume)
-        W = Uf * Vf
-        key = ("relvol_sum", level_f)
+        Vf = self._const(("relvol", level_f), rel_volume, dev)
+        key = ("relvol_sum", level_f, str(dev))
         if key not in self._consts:
-            V = Vf.expand(Uf.shape[1:])
+            V = Vf.expand(cfg_f.shape)
             for ax in range(nd):
                 V = _pairsum(V, ax)
             self._consts[key] = V
+        Vs = self._consts[key]
+        if rng is not None:
+            Vf = Vf[tuple(slice(lo, hi) if n > 1 else slice(None)
+                          for (lo, hi), n in zip(rng, Vf.shape))]
+            Vs = Vs[tuple(slice(lo // 2, hi // 2) for lo, hi in rng)]
+        W = prim_to_cons(Pf, cfg_f) * Vf
         for ax in range(nd):
             W = _pairsum(W, 1 + ax)
-        Uc_win = W / self._consts[key]
-        # window-only conversion: uncovered coarse cells stay bitwise
-        # untouched
-        P_win = cons_to_prim(Uc_win, cfg_c)
-        sl = (slice(None),) + tuple(
-            slice(off[ax], off[ax] + cfg_c.shape[ax] // 2)
-            for ax in range(nd))
-        out = Pc.clone()
-        out[sl] = P_win
-        return out
+        return cons_to_prim(W / Vs, self.cfgs[level_f - 1])
 
     # -- BC89 flux correction ----------------------------------------------
     def _face_weights(self, level: int, ax: int) -> Dict[int, np.ndarray]:
@@ -474,10 +631,12 @@ class NGHierarchy:
                 out[bx] = np.ones(cfg.shape[bx], dtype=cfg.np_dtype)
         return out
 
-    def _restrict_face_flux(self, Ff, ax, level_f: int):
+    def _restrict_face_flux(self, Ff, ax, level_f: int, rng=None):
         """Area-weighted average of the fine boundary-plane flux onto
         coarse faces: 2^(nd-1) fine faces per coarse face (reference:
-        NG_BC89flux.cpp recv_BC89_fluxes_F2C sums F*dA / sum dA)."""
+        NG_BC89flux.cpp recv_BC89_fluxes_F2C sums F*dA / sum dA).  ``rng``:
+        the global range of the block whose plane ``Ff`` is, when it is
+        one block's."""
         cfg_f = self.cfgs[level_f]
         nd = cfg_f.ndim
         out = Ff
@@ -490,12 +649,15 @@ class NGHierarchy:
             shape = (1,) * a + (-1,) + (1,) * (out.ndim - a - 1)
             w = self._const(
                 ("facew", level_f, ax, bx),
-                lambda: self._face_weights(level_f, ax)[bx]).reshape(shape)
+                lambda: self._face_weights(level_f, ax)[bx], Ff.device)
             den = self._const(
                 ("facew_sum", level_f, ax, bx),
                 lambda: self._face_weights(level_f, ax)[bx].reshape(
-                    -1, 2).sum(axis=1)).reshape(shape)
-            out = _pairsum(out * w, a) / den
+                    -1, 2).sum(axis=1), Ff.device)
+            if rng is not None:
+                lo, hi = rng[bx]
+                w, den = w[lo:hi], den[lo // 2:hi // 2]
+            out = _pairsum(out * w.reshape(shape), a) / den.reshape(shape)
             k += 1
         return out
 
@@ -567,17 +729,27 @@ class NGHierarchy:
         inf_idx = [i for i, s in enumerate(phys.sources) if s.at_infinity]
         if not inf_idx:
             return None
-        taus = phys.trace_taus(Ph, tau_in)
         cfg = self.cfgs[level]
         nd = cfg.ndim
         off_c = self.offs[level + 1]
+        if isinstance(Ph, Sharded):
+            taus = phys.trace_taus_sharded(Ph, self.shards[level].phys,
+                                           tau_in)
+        else:
+            taus = phys.trace_taus(Ph, tau_in)
         out = {}
         for i in inf_idx:
             s = phys.sources[i]
             ax = s.axis
             idx = (off_c[ax] if s.sign > 0
                    else off_c[ax] + cfg.shape[ax] // 2 - 1)
-            plane = taus[i].select(ax, idx)  # (transverse parent)
+            if isinstance(Ph, Sharded):
+                # the plane from the blocks that hold it
+                plane = region(taus[i], [
+                    (idx, idx + 1) if bx == ax else (0, cfg.shape[bx])
+                    for bx in range(nd)]).select(ax, 0)
+            else:
+                plane = taus[i].select(ax, idx)  # (transverse parent)
             # window to the child's footprint then prolong 2x per axis
             k = 0
             for bx in range(nd):
@@ -604,6 +776,10 @@ class NGHierarchy:
         vals = []
         for l in range(self.n_levels):
             phys = self.phys[l]
+            if isinstance(states[l], Sharded):
+                vals.append(self._block_limits(l, states[l], sp, rt0_map)
+                            * (2 ** l))
+                continue
             excl = (phys.wind_exclude_mask(states[l])
                     if phys is not None and phys.winds else None)
             d = dynamics_dt(states[l], self.cfgs[l], self.geoms[l],
@@ -633,6 +809,41 @@ class NGHierarchy:
             vals.append(d * (2 ** l))
         return torch.min(torch.stack(vals))
 
+    def _block_limits(self, level: int, S: Sharded, sp=None, rt0_map=None):
+        """:meth:`_level_dt`'s limit of one sharded level, before the
+        2^level: the min over its blocks of each block's CFL dt and
+        chemistry limit, the columns traced across the shards (and kept
+        in ``rt0_map``, a dict a block, where the one-device path keeps
+        them)."""
+        phys, sh = self.phys[level], self.shards[level]
+        limit = (phys is not None and phys.dt_limit
+                 and phys.mp is not None)
+        rts = sh.raytrace(S, sp) if limit and phys.sources else None
+        keep = (limit and rt0_map is not None and phys.sources
+                and not any(s.at_infinity for s in phys.sources))
+        vals, kept = [], []
+        for b, blk in enumerate(S.blocks):
+            pb = sh.phys[b]
+            excl = pb.wind_exclude_mask(blk) if pb is not None and pb.winds \
+                else None
+            d = dynamics_dt(blk, sh.cfg, sh.geoms[b], exclude=excl)
+            if limit:
+                r = None if rts is None else rts[b]
+                if keep:
+                    ts, f0 = pb.timescale(blk, sh.cfg, rt=r, sp=sp,
+                                          with_ydot=True)
+                    r = dict(r)
+                    if f0 is not None:
+                        r["f0"] = f0
+                    kept.append(r)
+                else:
+                    ts = pb.timescale(blk, sh.cfg, rt=r, sp=sp)
+                d = torch.minimum(d, ts)
+            vals.append(d)
+        if keep:
+            rt0_map[level] = kept
+        return _Shards.reduce(vals, torch.min)
+
     def compute_dt(self, sp=None) -> float:
         dt0 = float(self._level_dt(self.P, sp))
         if self.last_dt > 0.0:
@@ -648,9 +859,13 @@ class NGHierarchy:
         ``tau_in``: per-source upstream column offsets handed down by the
         parent (sources at infinity only).  ``states``: the list the
         recursion reads and rebinds entries of (never the tensors in it);
-        defaults to ``self.P``.  ``dt`` is a number or a 0-d tensor."""
+        defaults to ``self.P``.  ``dt`` is a number or a 0-d tensor.  A
+        sharded level steps block by block (:meth:`_advance_blocks`)."""
         if states is None:
             states = self.P
+        if isinstance(states[level], Sharded):
+            return self._advance_blocks(level, dt, parent_state, tau_in, t0,
+                                        states, sp, rt0_map)
         cfg = self.cfgs[level]
         geom = self.geoms[level]
         phys = self.phys[level]
@@ -710,20 +925,7 @@ class NGHierarchy:
             dU_f = fused_sweep.dynamics_dU_fused(Ppad, cfg, geom, dt, 2,
                                                  ch=ch, scma=scma)
             _fcache: Dict = {}
-            # known face pairs (leaf boundary planes / child interface
-            # planes) are computed two-at-a-time from one 8-cell slab
-            pair_of = [dict() for _ in range(cfg.ndim)]
-            if level > 0:
-                for ax_ in range(cfg.ndim):
-                    pair_of[ax_][0] = cfg.shape[ax_]
-                    pair_of[ax_][cfg.shape[ax_]] = 0
-            if level + 1 < self.n_levels:
-                off_c = self.offs[level + 1]
-                for ax_ in range(cfg.ndim):
-                    lo_i = off_c[ax_]
-                    hi_i = off_c[ax_] + cfg.shape[ax_] // 2
-                    pair_of[ax_].setdefault(lo_i, hi_i)
-                    pair_of[ax_].setdefault(hi_i, lo_i)
+            pair_of = self._face_pairs(level)
 
             def get_face(ax_, i_):
                 if (ax_, i_) not in _fcache:
@@ -796,6 +998,218 @@ class NGHierarchy:
             out.append((lo, hi))
         return out
 
+    def _advance_blocks(self, level: int, dt, parent_state=None,
+                        tau_in=None, t0=None, states=None, sp=None,
+                        rt0_map=None):
+        """:meth:`_advance_level` of a sharded level: the same steps block
+        by block, each with its config, geometry and physics
+        (``self.shards[level]``), its ghosts from :meth:`_pad_blocks`.
+        The chemistry takes its columns traced across the shards and,
+        plain, its ladder over every block (``stepper._Shards``); BC89
+        corrects the parent cells beside the child in whichever blocks hold
+        them; the face planes a parent or BC89 needs come from the blocks
+        that hold the interface (with ``use_fast`` from 4-cell slabs of
+        those blocks, two at a time where both lie in one), and the child's
+        boundary planes are assembled over its blocks on the first
+        shard's device."""
+        cfg, geom, phys = self.cfgs[level], self.geoms[level], self.phys[level]
+        sh = self.shards[level]
+        P = states[level]
+        blocks = range(len(P.blocks))
+        scma = _scma_flag(phys)
+        glm = cfg.eqn is Eqn.GLM
+        chem = phys is not None and phys.mp is not None
+        ch = cfg.cfl * geom.dx / dt if glm else None
+        if t0 is None:
+            t0 = self.t
+        fused = cfg.kernels != "off" and fused_sweep.supports(cfg)
+        child = level + 1 < self.n_levels
+        half = 0.5 * dt
+
+        def on(x, b):
+            return _on(x, P.blocks[b])
+
+        def sweep(pads, dt_, order, fused=fused):
+            if fused:
+                return [fused_sweep.dynamics_dU_fused(
+                    pads[b], sh.cfg, sh.geoms[b], on(dt_, b), order,
+                    ch=on(ch, b), scma=scma) for b in blocks], None
+            outs = [dynamics_dU(pads[b], sh.cfg, sh.geoms[b], on(dt_, b),
+                                order, ch=on(ch, b), scma=scma)
+                    for b in blocks]
+            return [o[0] for o in outs], [o[1] for o in outs]
+
+        def chemistry(dU, state, dt_):
+            rt = (rt0_map or {}).get(level) if state is P else None
+            if rt is None and phys.sources:
+                rt = sh.raytrace(state, sp, tau_in)
+            new = sh.chemistry(P, dt_, rt)
+            return [dU[b] + sh.phys[b].mp_delta_U(
+                P.blocks[b], state.blocks[b], on(dt_, b), sh.cfg,
+                rt=None if rt is None else rt[b], sp=sp,
+                P_new=None if new is None else new[b]) for b in blocks]
+
+        def finish(dU, dt_, t_end, ceiling):
+            out = []
+            for b in blocks:
+                Pn = cell_advance(P.blocks[b], dU[b], sh.cfg)
+                if glm:
+                    Pn = glm_psi_damp(Pn, on(dt_, b), on(ch, b), sh.cfg,
+                                      sh.geoms[b])
+                pb = sh.phys[b]
+                if ceiling and chem:
+                    T = pb.mp.temperature(Pn, sh.cfg)
+                    Pn = torch.where(T > cfg.max_temperature,
+                                     pb.mp.set_temp(Pn, cfg.max_temperature,
+                                                    sh.cfg), Pn)
+                if pb is not None and pb.winds:
+                    Pn = pb.apply_internal_bcs(Pn, later(t0, on(t_end, b)))
+                out.append(Pn)
+            return Sharded(out, P.mesh, P.shape)
+
+        # predictor half-step (1st-order space)
+        dU_h, _ = sweep(self._pad_blocks(level, P, parent_state), half, 1)
+        if chem:
+            dU_h = chemistry(dU_h, P, half)
+        Ph = finish(dU_h, half, half, False)
+
+        tau_child = (self._child_tau_offsets(level, Ph, tau_in)
+                     if child else None)
+        fine_sums_1 = (self._advance_level(level + 1, half, Ph, tau_child,
+                                           t0, states, sp, rt0_map)
+                       if child else None)
+
+        # corrector (2nd-order space) and the face planes of its blocks:
+        # on the fast path from slabs (faces None), else the plain sweep's
+        pads = self._pad_blocks(level, Ph, parent_state)
+        use_fast = (fused and cfg.coords is Coord.CARTESIAN
+                    and cfg.av is AV.FALLE)
+        dU_f, faces = sweep(pads, dt, 2, fused=use_fast)
+        pair_of = self._face_pairs(level)
+        _fcache: Dict = {}
+
+        def get_face(b, ax_, i_):
+            """Block ``b``'s face plane at global interface ``i_`` of
+            ``ax_`` (one its range holds), over the block's span."""
+            lo = sh.ranges[b][ax_][0]
+            if faces is not None:
+                return faces[b][ax_].select(1 + ax_, i_ - lo)
+            if (b, ax_, i_) not in _fcache:
+                j2 = pair_of[ax_].get(i_)
+                args = (on(dt, b), 2)
+                kw = dict(ch=on(ch, b), scma=scma)
+                if (j2 is not None and j2 != i_
+                        and lo <= j2 <= sh.ranges[b][ax_][1]
+                        and (b, ax_, j2) not in _fcache):
+                    j_lo, j_hi = sorted((i_, j2))
+                    (_fcache[(b, ax_, j_lo)],
+                     _fcache[(b, ax_, j_hi)]) = interface_flux_pair(
+                        pads[b], sh.cfg, sh.geoms[b], ax_, j_lo - lo,
+                        j_hi - lo, *args, **kw)
+                else:
+                    _fcache[(b, ax_, i_)] = interface_flux(
+                        pads[b], sh.cfg, sh.geoms[b], ax_, i_ - lo, *args,
+                        **kw)
+            return _fcache[(b, ax_, i_)]
+
+        if chem:
+            dU_f = chemistry(dU_f, Ph, dt)
+        fine_sums_2 = (self._advance_level(level + 1, half, Ph, tau_child,
+                                           later(t0, half), states, sp)
+                       if child else None)
+        if child:
+            sums = [(0.5 * (f1[0] + f2[0]), 0.5 * (f1[1] + f2[1]))
+                    for f1, f2 in zip(fine_sums_1, fine_sums_2)]
+            self._bc89_blocks(dU_f, get_face, sums, level, dt)
+        P_new = finish(dU_f, dt, dt, True)
+        if child:
+            P_new = self._restrict(P_new, states[level + 1], level + 1)
+        states[level] = P_new
+        if level == 0:
+            return None
+        return [tuple(self._face_sums(get_face, ax, side, level)
+                      for side in (0, 1)) for ax in range(cfg.ndim)]
+
+    def _face_sums(self, get_face, ax: int, side: int, level: int):
+        """The restricted boundary-plane flux of one face of a sharded
+        level (:meth:`_restrict_face_flux` of each block on that face),
+        assembled over the blocks on the first shard's device."""
+        cfg, sh, mesh = self.cfgs[level], self.shards[level], self.mesh
+        i = (0, cfg.shape[ax])[side]
+        out = None
+        for b, rng in enumerate(sh.ranges):
+            if mesh.coords[b][ax] != (0, mesh.factors[ax] - 1)[side]:
+                continue
+            part = self._restrict_face_flux(get_face(b, ax, i), ax, level,
+                                            rng)
+            if out is None:
+                out = part.new_empty((part.shape[0],) + tuple(
+                    n // 2 for bx, n in enumerate(cfg.shape) if bx != ax),
+                    device=self.device)
+            out[(slice(None),) + tuple(
+                slice(lo // 2, hi // 2) for bx, (lo, hi) in enumerate(rng)
+                if bx != ax)] = part.to(self.device, non_blocking=True)
+        return out
+
+    def _bc89_blocks(self, dU, get_face, fine_face_sums, level: int, dt):
+        """:meth:`_bc89_correct` of a sharded level: each block that holds
+        coarse cells just outside the child corrects its own, from its own
+        face plane and its part of the fine sums.  ``dU``: the blocks'
+        fresh tensors, written in place."""
+        cfg, sh = self.cfgs[level], self.shards[level]
+        nd = cfg.ndim
+        off_c = self.offs[level + 1]
+        for ax in range(nd):
+            n = cfg.shape[ax]
+            lo_i, hi_i = off_c[ax], off_c[ax] + n // 2
+            g = self.geoms[level].axes[ax]
+            for b, rng in enumerate(sh.ranges):
+                # the block's part of the child's footprint across ax
+                cut = [(max(lo, off_c[bx]),
+                        min(hi, off_c[bx] + cfg.shape[bx] // 2))
+                       for bx, (lo, hi) in enumerate(rng)]
+                if any(c0 >= c1 for bx, (c0, c1) in enumerate(cut)
+                       if bx != ax):
+                    continue
+                blo, bhi = rng[ax]
+                for side, cell, iface in ((0, lo_i - 1, lo_i),
+                                          (1, hi_i, hi_i)):
+                    if not (0 <= cell < n and blo <= cell < bhi):
+                        continue
+                    plane = get_face(b, ax, iface)[(slice(None),) + tuple(
+                        slice(c0 - lo, c1 - lo) for bx, ((c0, c1), (lo, _))
+                        in enumerate(zip(cut, rng)) if bx != ax)]
+                    fine = fine_face_sums[ax][side][(slice(None),) + tuple(
+                        slice(c0 - off_c[bx], c1 - off_c[bx])
+                        for bx, (c0, c1) in enumerate(cut) if bx != ax)]
+                    corr = plane - fine.to(plane.device, non_blocking=True)
+                    sl = (slice(None),) + tuple(
+                        cell - blo if bx == ax else slice(c0 - lo, c1 - lo)
+                        for bx, ((c0, c1), (lo, _))
+                        in enumerate(zip(cut, rng)))
+                    dtb = _on(dt, dU[b])
+                    if side == 0:
+                        dU[b][sl] += dtb * float(g.div_cp[cell]) * corr
+                    else:
+                        dU[b][sl] += -dtb * float(g.div_cn[cell]) * corr
+
+    def _face_pairs(self, level: int):
+        """The interface planes the corrector of ``level`` hands on (its
+        boundary planes, the child's), a dict an axis from each to its
+        partner: a known pair is computed two at a time from one 8-cell
+        slab."""
+        cfg = self.cfgs[level]
+        pair_of = [dict() for _ in range(cfg.ndim)]
+        if level > 0:
+            for ax in range(cfg.ndim):
+                pair_of[ax][0] = cfg.shape[ax]
+                pair_of[ax][cfg.shape[ax]] = 0
+        if level + 1 < self.n_levels:
+            for ax, o in enumerate(self.offs[level + 1]):
+                pair_of[ax].setdefault(o, o + cfg.shape[ax] // 2)
+                pair_of[ax].setdefault(o + cfg.shape[ax] // 2, o)
+        return pair_of
+
     def _dt_cap(self) -> float:
         """End-time / next-timed-output ceiling (reference:
         timestep_checking_and_limiting, calc_timestep.cpp:243-252)."""
@@ -849,8 +1263,10 @@ class NGHierarchy:
         (``Physics.update_sources``, then ``device_sp``), or None."""
         if self.physics is None or not self.physics.sources:
             return None
-        return self.physics.device_sp(self.physics.update_sources(self.t),
-                                      self.P[0])
+        sp = self.physics.update_sources(self.t)
+        if self.mesh is not None:
+            return sp      # host numbers: each shard takes them on its device
+        return self.physics.device_sp(sp, self.P[0])
 
     def _dt_and_advance(self, states, t, last_dt, cap, sp):
         """The step without its host work: the levels' dt, the growth limit
@@ -918,7 +1334,9 @@ class NGHierarchy:
     # -- snapshots / restart (reference: every snapshot is a full restart
     # file with one mesh per level, dataIO/dataio_silo.h:67) ---------------
     def _stacked_state(self) -> np.ndarray:
-        return torch.stack(self.P).detach().cpu().numpy()
+        """The levels' states, stacked (a sharded level gathered): what a
+        snapshot holds, on one mesh or none, in either package."""
+        return torch.stack([gather(p) for p in self.P]).detach().cpu().numpy()
 
     def _header_cfg(self) -> SimConfig:
         return self.cfg0.with_(nlevels=self.n_levels, ng_centre=self.centre)
@@ -954,7 +1372,8 @@ class NGHierarchy:
         carries the original parameter section and no ``physics`` is given,
         the full Physics (chemistry/RT/winds) is rebuilt from it
         (reference: sim_init.cpp:173-321 rebuilds MP/RT/winds from the
-        header registry)."""
+        header registry).  ``mesh=`` splits the levels over a mesh
+        (a snapshot holds the gathered levels, whatever wrote it)."""
         from .io.snapshot import load_snapshot_raw
 
         cfg, P, t, step, extra = load_snapshot_raw(path)
@@ -1003,6 +1422,9 @@ class NGHierarchy:
         ``chunk`` bit for bit, but that evolving sources are taken once a
         chunk (as the JAX package does, ng.py:1005-1007)."""
         tmax = self.cfgs[0].tmax if tmax is None else tmax
+        if chunk > 1 and self.mesh is not None:
+            raise NotImplementedError(
+                "run(chunk=k) on a sharded hierarchy is ROADMAP A20.5")
         self._tmax = tmax
         logger = StepLogger(self.log_freq)
         chunked = (chunk > 1 and self.opfreq_time == 0.0
@@ -1031,7 +1453,9 @@ class NGHierarchy:
             self._maybe_output()
             logger.log(self.step_count, self.t, dt, self.P[0])
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            for dev in ({self.device} if self.mesh is None
+                        else set(self.mesh.devices.flat)):
+                torch.cuda.synchronize(dev)
         if self.outfile is not None:
             self.save()
         self.flush_io()

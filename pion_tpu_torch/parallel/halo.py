@@ -12,10 +12,16 @@ block.  A strip crosses as a tensor copy: a peer copy between two cards
 copy when both shards share a device.  The dt is a min over the shards, the
 reference's MPI_Allreduce (sim_control_MPI.cpp:503-504).
 
-Scope, as the JAX package's: Cartesian grids and BCs whose ghosts derive
-from local edge data (periodic, outflow, one-way, reflecting, jetreflect,
-axisymmetric).  The time-stepping itself is ``stepper.make_step_fns`` with a
-mesh: the same partial update on every shard's block.
+A shard that owns a domain face fills its ghosts there as the whole grid
+does, from its own data and the whole grid's positions (its
+``BoundaryData.block``): the double-Mach shock's foot and moving top face,
+the jet's nozzle, the INFLOW/FIXED strips sliced to the block.  A
+cylindrical or spherical grid steps on its blocks with the whole grid's
+geometry sliced (``grid.block_geometry``).  ``halo="explicit"`` keeps the
+JAX package's guards of its explicit-halo mode (:func:`check_explicit`):
+pure dynamics, local-data BCs, Cartesian.  The time-stepping itself is
+``stepper.make_step_fns`` with a mesh: the same partial update on every
+shard's block.
 """
 from __future__ import annotations
 
@@ -38,19 +44,20 @@ def supports(cfg: SimConfig) -> bool:
     return all(lo in _LOCAL_BCS and hi in _LOCAL_BCS for lo, hi in cfg.bcs)
 
 
-def check_shardable(cfg: SimConfig):
-    """Raise ``NotImplementedError`` for what a sharded run does not take
-    yet (ROADMAP A20.5): a BC whose ghosts are not local edge data, a
-    non-Cartesian grid."""
+def check_explicit(cfg: SimConfig):
+    """The JAX package's guards of ``halo="explicit"``
+    (``pion_tpu/parallel/halo.py:41,113``): BCs whose ghosts are local edge
+    data and a Cartesian grid; a sharded run without that option takes
+    every face and geometry."""
     if not supports(cfg):
         raise NotImplementedError(
-            "a sharded run requires local-data BCs "
+            "halo='explicit' requires local-data BCs "
             "(periodic/outflow/oneway/reflecting/jetreflect/axisym); "
-            "DMACH, JET and fixed strips on a mesh are ROADMAP A20.5")
+            "without it a sharded run takes DMACH, JET and fixed strips")
     if cfg.coords is not Coord.CARTESIAN:
         raise NotImplementedError(
-            "a sharded run is Cartesian only (the radial metric is global); "
-            "ROADMAP A20.5")
+            "halo='explicit' is Cartesian only, as in the JAX package; "
+            "without it a sharded run takes cylindrical and spherical grids")
 
 
 def local_config(cfg: SimConfig, mesh: Mesh) -> SimConfig:
@@ -72,7 +79,7 @@ def local_config(cfg: SimConfig, mesh: Mesh) -> SimConfig:
 
 
 def _pad_axis_sharded(blocks: List[torch.Tensor], cfg: SimConfig, axis: int,
-                      bdata, mesh: Mesh, t) -> List[torch.Tensor]:
+                      bdatas, mesh: Mesh, t) -> List[torch.Tensor]:
     """Pad one axis of every block: a shard's low ghosts are its lower
     neighbour's top ``ng`` planes and its high ghosts its upper neighbour's
     bottom ones (round the ring, so a periodic face wraps); a shard that
@@ -87,7 +94,7 @@ def _pad_axis_sharded(blocks: List[torch.Tensor], cfg: SimConfig, axis: int,
         own_lo = i == 0 and lo_kind is not BC.PERIODIC
         own_hi = i == m - 1 and hi_kind is not BC.PERIODIC
         if own_lo or own_hi:
-            lo_bc, hi_bc = axis_ghosts(blk, cfg, axis, bdata, t=t)
+            lo_bc, hi_bc = axis_ghosts(blk, cfg, axis, bdatas[b], t=t)
         if own_lo:
             lo = lo_bc
         else:
@@ -103,21 +110,31 @@ def _pad_axis_sharded(blocks: List[torch.Tensor], cfg: SimConfig, axis: int,
     return out
 
 
-def apply_bcs_sharded(P: Sharded, cfg: SimConfig,
-                      bdata: Optional[BoundaryData] = None,
+def block_bdatas(bdata: Optional[BoundaryData], cfg: SimConfig,
+                 mesh: Mesh) -> List[BoundaryData]:
+    """``bdata`` of the whole grid of config ``cfg`` as one
+    ``BoundaryData.block`` a shard."""
+    bdata = BoundaryData() if bdata is None else bdata
+    return [bdata.block(cfg, r) for r in mesh.ranges(cfg.shape)]
+
+
+def apply_bcs_sharded(P: Sharded, cfg: SimConfig, bdata=None,
                       mesh: Optional[Mesh] = None, t=0.0) -> List[torch.Tensor]:
     """Every shard's block padded with ``ng`` ghost layers on each face
-    (``cfg`` is the blocks' config, :func:`local_config`).  Axes are padded
-    in order, each from the blocks padded along the axes before it, so edge
-    and corner ghosts arrive as ``boundaries.apply_bcs`` fills them on the
+    (``cfg`` is the blocks' config, :func:`local_config`; ``bdata`` one
+    ``BoundaryData`` a shard, :func:`block_bdatas`, or one for every shard
+    where no face reads positions or strips).  Axes are padded in order,
+    each from the blocks padded along the axes before it, so edge and
+    corner ghosts arrive as ``boundaries.apply_bcs`` fills them on the
     whole grid: the result is that of the whole grid, sliced."""
     mesh = P.mesh if mesh is None else mesh
-    if bdata is None:
-        bdata = BoundaryData()
+    if not isinstance(bdata, (list, tuple)):
+        bdata = [BoundaryData() if bdata is None else bdata] * mesh.size
     out = list(P.blocks)
     for axis in range(cfg.ndim):
         if mesh.factors[axis] == 1:
-            out = [_pad_axis(blk, cfg, axis, bdata, t=t) for blk in out]
+            out = [_pad_axis(blk, cfg, axis, bd, t=t)
+                   for blk, bd in zip(out, bdata)]
         else:
             out = _pad_axis_sharded(out, cfg, axis, bdata, mesh, t)
     return out

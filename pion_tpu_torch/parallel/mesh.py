@@ -15,6 +15,12 @@ stand for every shard: ``make_mesh(cfg, devices=[dev] * 8)``, how one card or
 the CPU holds a 2x2x2 mesh, as the JAX tests hold it on eight virtual CPU
 devices) or from the visible cards; never silently from the CPU.
 
+Across blocks, :func:`region` assembles any box of the global grid from
+the blocks that overlap it and :func:`write_regions` writes boxes back into
+them: the nested-grid hierarchy's prolongation, restriction and BC89 planes
+cross the shards through them, wherever a child block's window falls among
+the parent's blocks.
+
 Not ported: the JAX package's placement through ``mesh_utils`` (TPU
 topology) and ``maybe_distributed_init`` (multi-host), ROADMAP A20.5.
 """
@@ -133,18 +139,26 @@ def _device(d) -> torch.device:
     return d
 
 
+def visible_devices() -> List[torch.device]:
+    """The devices a mesh takes when its caller names none: every visible
+    CUDA device (none without a card).  The one place that lists them, so
+    that a test can stand eight CPU devices in for eight cards."""
+    if not torch.cuda.is_available():
+        return []
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def make_mesh(cfg, n_devices: Optional[int] = None, devices=None) -> Mesh:
     """The spatial mesh of ``cfg``'s grid over ``devices`` (a list, in which
     one device may stand several times), else over the first ``n_devices``
-    (all, by default) visible CUDA devices; without a card and without
-    ``devices`` it raises.  The factors are :func:`decompose`'s."""
+    (all, by default) of :func:`visible_devices`; without a card and
+    without ``devices`` it raises.  The factors are :func:`decompose`'s."""
     if devices is None:
-        if not torch.cuda.is_available():
+        devices = visible_devices()
+        if not devices:
             raise RuntimeError(
                 "no CUDA device for the mesh; give its devices "
                 "(make_mesh(cfg, devices=['cpu'] * 8) for CPU shards)")
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
         if n_devices is not None:
             if not 1 <= n_devices <= len(devices):
                 raise ValueError(f"{n_devices} devices asked, "
@@ -161,13 +175,14 @@ def make_mesh(cfg, n_devices: Optional[int] = None, devices=None) -> Mesh:
 
 
 def mesh_requested(cfg) -> bool:
-    """Whether ``cfg.mesh`` shards a run over the visible cards (the JAX
-    package's gate): never with one visible device; "on" with several;
+    """Whether ``cfg.mesh`` shards a run over :func:`visible_devices` (the
+    JAX package's gate): never with one visible device; "on" with several;
     "auto" with several cards (the JAX package's accelerator backends)."""
-    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if n <= 1:
+    devs = visible_devices()
+    if len(devs) <= 1:
         return False
-    return cfg.mesh in ("on", "auto")
+    return cfg.mesh == "on" or (cfg.mesh == "auto"
+                                and all(d.type == "cuda" for d in devs))
 
 
 class Sharded:
@@ -259,3 +274,76 @@ def gather(S, device=None) -> torch.Tensor:
             joined[idx] = torch.cat(list(parts[idx]), dim=lead + a)
         parts = joined
     return parts[()]
+
+
+def _box_parts(shape, box):
+    """``box`` (a ``(lo, hi)`` a grid axis, which may reach past the grid
+    but overlaps it) as the part inside the grid and the number of edge
+    cells it repeats past each end."""
+    inside, clamp = [], []
+    for n, (lo, hi) in zip(shape, box):
+        a, b = max(lo, 0), min(hi, n)
+        if a >= b:
+            raise ValueError(f"box {tuple(box)} lies outside a grid of "
+                             f"{tuple(shape)}")
+        inside.append((a, b))
+        clamp.append((a - lo, hi - b))
+    return inside, clamp
+
+
+def region(S: Sharded, box, device=None) -> torch.Tensor:
+    """The box of the global grid (``box``: a ``(lo, hi)`` a grid axis, in
+    global cell indices; past the grid's edges the edge cells repeat) as a
+    new tensor on ``device`` (the first shard's by default), its leading
+    axes whole, assembled from the blocks that overlap it, each overlap
+    copied once."""
+    lead = len(S.shape) - len(S.mesh.factors)
+    inside, clamp = _box_parts(S.grid_shape, box)
+    dev = S.device if device is None else _device(device)
+    out = torch.empty(tuple(S.shape[:lead]) + tuple(
+        b - a for a, b in inside), dtype=S.dtype, device=dev)
+    for blk, rng in zip(S.blocks, S.ranges()):
+        cut = [(max(a, lo), min(b, hi)) for (a, b), (lo, hi)
+               in zip(inside, rng)]
+        if any(c0 >= c1 for c0, c1 in cut):
+            continue
+        src = blk[(slice(None),) * lead + tuple(
+            slice(c0 - lo, c1 - lo) for (c0, c1), (lo, _) in zip(cut, rng))]
+        out[(slice(None),) * lead + tuple(
+            slice(c0 - a, c1 - a) for (c0, c1), (a, _) in zip(cut, inside))
+            ] = src.to(dev, non_blocking=True)
+    for ax, (c_lo, c_hi) in enumerate(clamp):
+        if not (c_lo or c_hi):
+            continue
+        a = lead + ax
+        n = out.shape[a]
+        parts = [out.narrow(a, 0, 1)] * c_lo + [out] + \
+            [out.narrow(a, n - 1, 1)] * c_hi
+        out = torch.cat(parts, dim=a)
+    return out
+
+
+def write_regions(S: Sharded, writes) -> Sharded:
+    """``S`` with each ``(box, value)`` of ``writes`` written in (boxes
+    inside the grid, in global cell indices; ``value`` a tensor of the
+    box's shape on any device): a new :class:`Sharded` whose blocks that no
+    box overlaps are ``S``'s own, and whose others are copies, written."""
+    nd = len(S.mesh.factors)
+    lead = len(S.shape) - nd
+    blocks = list(S.blocks)
+    copied = set()
+    for box, value in writes:
+        for b, rng in enumerate(S.ranges()):
+            cut = [(max(a, lo), min(c, hi)) for (a, c), (lo, hi)
+                   in zip(box, rng)]
+            if any(c0 >= c1 for c0, c1 in cut):
+                continue
+            if b not in copied:
+                blocks[b] = blocks[b].clone()
+                copied.add(b)
+            part = value[(slice(None),) * lead + tuple(
+                slice(c0 - a, c1 - a) for (c0, c1), (a, _) in zip(cut, box))]
+            blocks[b][(slice(None),) * lead + tuple(
+                slice(c0 - lo, c1 - lo) for (c0, c1), (lo, _) in zip(cut, rng))
+                ] = part.to(blocks[b].device, non_blocking=True)
+    return Sharded(blocks, S.mesh, S.shape)

@@ -258,26 +258,46 @@ class Physics:
             self._rate_cache[key] = (nv, sv)
         return self._rate_cache[key]
 
-    def raytrace_sharded(self, Ph, blocks: List["Physics"],
-                         sp: Optional[Dict] = None) -> List[Dict]:
-        """The rt dict of every block of a sharded state ``Ph``
+    def trace_taus_sharded(self, Ph, blocks: List["Physics"],
+                           tau_in: Optional[Dict] = None) -> Dict:
+        """:meth:`trace_taus` of a sharded state ``Ph``
         (:class:`.parallel.mesh.Sharded`), ``blocks`` being this physics
-        restricted to each (:meth:`for_block`): each source's optical depths
-        made block by block, its columns traced across the shards
-        (``Raytracer.trace_sharded``), each block's dict assembled from its
-        part of them."""
+        restricted to each of its blocks (:meth:`for_block`): each source's
+        entry optical depths as a :class:`.parallel.mesh.Sharded`, its
+        optical depths made block by block and its columns traced across
+        the shards (``Raytracer.trace_sharded``), with the upstream offsets
+        ``tau_in`` (the whole level's, :func:`block_tau_in`) added."""
         from .parallel.mesh import Sharded
 
-        taus = [dict() for _ in blocks]
+        out: Dict = {}
         for i, src in enumerate(self.sources):
             dtau = Sharded([bp.dtau_for(src, b, bp._ds0(i, src, b))
                             for bp, b in zip(blocks, Ph.blocks)],
                            Ph.mesh, Ph.grid_shape)
             tau = self.raytracer.trace_sharded(i, dtau)
-            for t_b, tau_b in zip(taus, tau.blocks):
-                t_b[i] = tau_b
-        return [bp.raytrace(b, sp=sp, taus=t_b)
-                for bp, b, t_b in zip(blocks, Ph.blocks, taus)]
+            if tau_in is not None and i in tau_in:
+                tau = Sharded([t + block_tau_in(tau_in, bp, t.device)[i]
+                               for t, bp in zip(tau.blocks, blocks)],
+                              tau.mesh, tau.shape)
+            out[i] = tau
+        return out
+
+    def raytrace_sharded(self, Ph, blocks: List["Physics"],
+                         sp: Optional[Dict] = None,
+                         tau_in: Optional[Dict] = None) -> List[Dict]:
+        """The rt dict of every block of a sharded state ``Ph``
+        (:class:`.parallel.mesh.Sharded`), ``blocks`` being this physics
+        restricted to each (:meth:`for_block`): each source's optical depths
+        made block by block, its columns traced across the shards
+        (``Raytracer.trace_sharded``), each block's dict assembled from its
+        part of them.  ``tau_in``: a nested level's upstream offsets for
+        its sources at infinity, the whole level's (each block takes its
+        part, :func:`block_tau_in`)."""
+        taus = self.trace_taus_sharded(Ph, blocks)
+        return [bp.raytrace(b, tau_in=block_tau_in(tau_in, bp, b.device),
+                            sp=sp,
+                            taus={i: t.blocks[k] for i, t in taus.items()})
+                for k, (bp, b) in enumerate(zip(blocks, Ph.blocks))]
 
     def raytrace(self, Ph, tau_in: Optional[Dict] = None,
                  sp: Optional[Dict] = None,
@@ -449,3 +469,16 @@ class Physics:
             if s.vinf > 0.0:
                 cap = min(cap, 0.1 * cfg.cfl * geom.dx / s.vinf)
         return cap
+
+
+def block_tau_in(tau_in: Optional[Dict], block: Physics,
+                 device) -> Optional[Dict]:
+    """A nested level's upstream offsets (each source's plane, of size 1
+    along its rays and the whole level along the other axes) restricted to
+    the block of ``block`` (:meth:`Physics.for_block`), on ``device``."""
+    if tau_in is None or block._block is None:
+        return tau_in
+    return {i: plane[tuple(slice(None) if n == 1 else sl for n, sl
+                           in zip(plane.shape, block._block))].to(
+                               device, non_blocking=True)
+            for i, plane in tau_in.items()}

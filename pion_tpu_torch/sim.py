@@ -20,7 +20,7 @@ import torch
 
 from .boundaries import BoundaryData, make_fixed_strips
 from .config import SimConfig
-from .constants import Coord
+from .constants import BC
 from .grid import Geometry, make_geometry
 from .stepper import make_step_fns
 from .utils import StepLogger, resolve_device
@@ -98,12 +98,11 @@ class Simulation:
 
     def _sharded(self) -> bool:
         """Whether the run steps on a mesh: a sharded ``P``, a ``mesh``,
-        ``halo="explicit"``, or ``mesh`` "on"/"auto" with several visible
-        cards and no device named (``parallel.mesh.mesh_requested``; "auto"
-        only where the shard stepper takes the config and the grid splits
-        evenly over the cards)."""
-        from .parallel.halo import supports
-        from .parallel.mesh import Sharded, decompose, mesh_requested
+        ``halo="explicit"``, or ``mesh`` "on"/"auto" over several visible
+        devices and no device named (``parallel.mesh.mesh_requested``;
+        "auto" only where the grid splits evenly over them)."""
+        from .parallel.mesh import (Sharded, decompose, mesh_requested,
+                                    visible_devices)
 
         cfg = self.cfg
         if (isinstance(self.P, Sharded) or self.mesh is not None
@@ -111,36 +110,46 @@ class Simulation:
             return True
         if self.device is not None or not mesh_requested(cfg):
             return False
-        factors = decompose(torch.cuda.device_count(), cfg.ndim, cfg.shape)
-        return cfg.mesh == "on" or (
-            supports(cfg) and cfg.coords is Coord.CARTESIAN
-            and all(n % f == 0 for n, f in zip(cfg.shape, factors)))
+        factors = decompose(len(visible_devices()), cfg.ndim, cfg.shape)
+        return cfg.mesh == "on" or all(
+            n % f == 0 for n, f in zip(cfg.shape, factors))
 
     def _setup_sharded(self):
         """A run on a mesh of shards (ROADMAP A20): ``P`` split over the
-        mesh (its own, a given one, or one of the visible cards — the
+        mesh (its own, a given one, or one of the visible devices — the
         one device named by ``device`` when the caller names one), stepped
-        by ``make_step_fns`` with the mesh.  ``halo="explicit"`` keeps the
-        JAX package's guards: pure dynamics only."""
-        from .parallel.halo import check_shardable
+        by ``make_step_fns`` with the mesh.  Every face and geometry takes
+        a mesh; ``halo="explicit"`` keeps the JAX package's guards: pure
+        dynamics, local-data faces, Cartesian."""
+        from .parallel.halo import check_explicit
         from .parallel.mesh import Sharded, make_mesh, shard_state
 
         cfg = self.cfg
-        if cfg.halo == "explicit" and self.physics is not None:
-            raise NotImplementedError(
-                "halo='explicit' supports pure dynamics only (a sharded "
-                "state with physics steps without it)")
-        check_shardable(cfg)
+        if cfg.halo == "explicit":
+            if self.physics is not None:
+                raise NotImplementedError(
+                    "halo='explicit' supports pure dynamics only (a sharded "
+                    "state with physics steps without it)")
+            check_explicit(cfg)
         if isinstance(self.P, Sharded):
             self.mesh = self.P.mesh
         elif self.mesh is None:
             self.mesh = make_mesh(cfg, devices=None if self.device is None
                                   else [self.device])
+        # the frozen inflow/fixed strips are the whole grid's, taken from
+        # the state as given before it is cast
+        self.bdata = BoundaryData()
+        if any(k in (BC.INFLOW, BC.FIXED) for face in cfg.bcs for k in face):
+            P_host = (self.P.gather() if isinstance(self.P, Sharded)
+                      else torch.as_tensor(self.P)).detach().cpu().numpy()
+            self.bdata = make_fixed_strips(P_host.astype(cfg.np_dtype), cfg)
         self.P = shard_state(self.P, self.mesh)
         self.P = self.P.map(lambda b: b.to(cfg.torch_dtype).contiguous())
         self.device = self.P.device
         self.geom = make_geometry(cfg)
-        self.bdata = BoundaryData()
+        if self.jet is not None:
+            self.bdata = dataclasses.replace(
+                self.bdata, jet=(float(self.jet[0]), np.asarray(self.jet[1])))
         if self.physics is not None:
             self.physics.setup(cfg, self.geom)
             # carve the wind regions into the initial state, block by block

@@ -191,29 +191,33 @@ def _on(x, like: torch.Tensor):
 
 
 class _Shards:
-    """The per-shard side of a step on a mesh (ROADMAP A20.2-A20.3): a
-    sharded state (:class:`.parallel.mesh.Sharded`) steps as one grid does,
-    every shard's block through :func:`_partial_update` with the blocks'
-    config and geometry, its ghosts from the exchange
+    """The per-shard side of a step on a mesh (ROADMAP A20.2-A20.3, A20.5's
+    faces and geometries): a sharded state
+    (:class:`.parallel.mesh.Sharded`) steps as one grid does, every shard's
+    block through :func:`_partial_update` with the blocks' config, its own
+    slice of the whole grid's geometry (``grid.block_geometry``) and
+    boundary data (``BoundaryData.block``), its ghosts from the exchange
     (:func:`.parallel.halo.apply_bcs_sharded`), its physics restricted to
     the block (``Physics.for_block``: wind regions sliced from the whole
     grid's).  What couples the shards is reduced over them: the dt (a min),
     the plain chemistry ladder's stiffness (a max, ``MPv3.update_blocks``)
     and the point-source columns (``Physics.raytrace_sharded``: the sharded
-    octant trace B6, or a gathered trace)."""
+    octant trace B6, or a gathered trace).  A nested-grid hierarchy keeps
+    one of these a level (``ng.NGHierarchy`` on a mesh)."""
 
     def __init__(self, cfg: SimConfig, mesh, bdata=None, physics=None):
-        from .grid import make_geometry
-        from .parallel.halo import check_shardable, local_config
+        from .grid import block_geometry, make_geometry
+        from .parallel.halo import block_bdatas, local_config
 
-        check_shardable(cfg)
         self.mesh = mesh
+        self.ranges = mesh.ranges(cfg.shape)
         self.cfg = local_config(cfg, mesh)
-        self.geom = make_geometry(self.cfg)
-        self.bdata = BoundaryData() if bdata is None else bdata
+        whole = make_geometry(cfg)
+        self.geoms = [block_geometry(whole, cfg, r) for r in self.ranges]
+        self.bdatas = block_bdatas(bdata, cfg, mesh)
         self.physics = physics
         self.phys = [None] * mesh.size if physics is None else [
-            physics.for_block(r) for r in mesh.ranges(cfg.shape)]
+            physics.for_block(r) for r in self.ranges]
 
     def state(self, P, dtype):
         """``P`` as a sharded state of ``dtype`` on this mesh."""
@@ -235,11 +239,13 @@ class _Shards:
     def pads(self, P, t=0.0):
         from .parallel.halo import apply_bcs_sharded
 
-        return apply_bcs_sharded(P, self.cfg, self.bdata, self.mesh, t)
+        return apply_bcs_sharded(P, self.cfg, self.bdatas, self.mesh, t)
 
-    def raytrace(self, Ph, sp=None):
-        """Each block's rt dict from columns traced across the shards."""
-        return self.physics.raytrace_sharded(Ph, self.phys, sp=sp)
+    def raytrace(self, Ph, sp=None, tau_in=None):
+        """Each block's rt dict from columns traced across the shards
+        (``tau_in``: a nested level's upstream offsets, the whole level's)."""
+        return self.physics.raytrace_sharded(Ph, self.phys, sp=sp,
+                                             tau_in=tau_in)
 
     def chemistry(self, P, dt, rt):
         """Every block's chemistry update where the module's plain ladder
@@ -271,7 +277,7 @@ class _Shards:
         for i, blk in enumerate(P.blocks):
             out.append(_partial_update(
                 blk, Ph.blocks[i], _on(dt, blk), order_space, self.cfg,
-                self.geom, self.bdata, _on(ch, blk), self.phys[i], t,
+                self.geoms[i], self.bdatas[i], _on(ch, blk), self.phys[i], t,
                 rt=None if rt is None else rt[i], sp=sp, Ppad=pads[i],
                 mp_new=None if new is None else new[i]))
         return Sharded(out, self.mesh, P.shape)
@@ -327,7 +333,7 @@ def make_step_fns(cfg: SimConfig, geom: Geometry,
         pads = shards.pads(P) if cfg.conduction else [None] * mesh.size
         return shards.reduce([
             _dt_expr(blk, None if rt0 is None else rt0[i], shards.cfg,
-                     shards.geom, shards.phys[i], pads[i])
+                     shards.geoms[i], shards.phys[i], pads[i])
             for i, blk in enumerate(P.blocks)], torch.min)
 
     partial = _partial_update if shards is None else shards.partial

@@ -301,8 +301,9 @@ def test_restart_rebuilds_physics_from_the_header(tmp_path):
 
 def test_entry_points_need_a_card_or_the_cpu(tmp_path):
     """Without a card and without ``--device cpu`` every entry point raises;
-    a bad flag and ``mesh on`` over several cards are refused; MPv7/MPv8 are built from the
-    parameters; the usage text comes back with 2."""
+    a bad flag is refused; ``mesh on`` and ``halo explicit`` over several
+    visible devices run sharded, as the one device runs; MPv7/MPv8 are
+    built from the parameters; the usage text comes back with 2."""
     pf, _ = _write(tmp_path, PARAMS, "port")
     if not torch.cuda.is_available():
         for argv in (["icgen", pf], ["run", pf]):
@@ -310,15 +311,21 @@ def test_entry_points_need_a_card_or_the_cpu(tmp_path):
                 cli.main(argv)
     with pytest.raises(ValueError, match="--device"):
         cli.run_main([pf, "--device", "tpu"])
-    # mesh on is refused only where a mesh is really requested: several
-    # visible cards (ROADMAP A20.4); with none it runs the one device
-    cli._check_mesh({"mesh": "on"})
+    # with one visible device mesh on runs the one device; with several
+    # (two CPU devices standing in for two cards) mesh on and halo explicit
+    # shard the run (ROADMAP A20.4), which ends as the one device's does
+    from pion_tpu_torch.parallel import Sharded, mesh
+
+    one = cli.run_main([pf, "mesh=on", "max_steps=3", "--device", "cpu"])
+    assert not isinstance(one.P, Sharded)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(torch.cuda, "is_available", lambda: True)
-        mp.setattr(torch.cuda, "device_count", lambda: 2)
+        mp.setattr(mesh, "visible_devices",
+                   lambda: [torch.device("cpu")] * 2)
         for key, val in (("mesh", "on"), ("halo", "explicit")):
-            with pytest.raises(NotImplementedError, match="A20.4"):
-                cli.run_main([pf, f"{key}={val}", "--device", "cpu"])
+            sim = cli.run_main([pf, f"{key}={val}", "max_steps=3",
+                                "--device", "cpu"])
+            assert isinstance(sim.P, Sharded) and sim.mesh.size == 2
+            assert sim.t == one.t and torch.equal(sim.P.gather(), one.P)
     cfg = cli.config_from_params({"ndim": "1", "NGridX": "8", "ntracer": "1"})
     for chem in ("MPv7", "MPv8"):
         phys = cli.physics_from_params(cfg, {"chem_code": chem,

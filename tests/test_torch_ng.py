@@ -147,18 +147,26 @@ def test_what_is_not_ported_raises():
     assert hier.step_count == one.step_count == 4 and hier.t == one.t
     assert all(torch.equal(a, b) for a, b in zip(hier.P, one.P))
     cfg = convert.config_from_reference(dataclasses.asdict(rcfg))
-    # a mesh really requested (mesh="on" with several visible cards) is
-    # ROADMAP A20.4; without a card, and with halo="explicit" (which the
+    # without several visible devices, and with halo="explicit" (which the
     # JAX package's hierarchy does not read), the hierarchy runs one device
     for kw in (dict(mesh="on"), dict(halo="explicit")):
-        NGHierarchy(dataclasses.replace(cfg, **kw),
-                    device="cpu").set_states(states)
+        h = NGHierarchy(dataclasses.replace(cfg, **kw), device="cpu")
+        h.set_states(states)
+        assert h.mesh is None
+    # a mesh really requested (mesh="on" with several visible devices, here
+    # two CPU devices standing in for two cards) splits every level over
+    # them (ROADMAP A20.4): four steps equal the one-device run's
+    from pion_tpu_torch.parallel import Sharded, mesh
+
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(torch.cuda, "is_available", lambda: True)
-        mp.setattr(torch.cuda, "device_count", lambda: 2)
+        mp.setattr(mesh, "visible_devices",
+                   lambda: [torch.device("cpu")] * 2)
         h = NGHierarchy(dataclasses.replace(cfg, mesh="on"), device="cpu")
-        with pytest.raises(NotImplementedError, match="A20.4"):
-            h.set_states(states)
+        h.set_states(states)
+    assert h.mesh.size == 2 and all(isinstance(p, Sharded) for p in h.P)
+    h.run(max_steps=4)
+    assert h.step_count == 4 and h.t == one.t
+    assert all(torch.equal(p.gather(), b) for p, b in zip(h.P, one.P))
     with pytest.raises(ValueError, match="levels"):
         NGHierarchy(cfg, device="cpu").set_states(states[:1])
     with pytest.raises(ValueError, match="shape"):

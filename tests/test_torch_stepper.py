@@ -138,11 +138,11 @@ def test_no_silent_cpu_run():
     ("nlevels", 2), ("halo", "explicit"), ("mesh", "on")])
 def test_unported_options_raise(field, value, monkeypatch):
     """What each option still refuses: a nested grid through
-    ``Simulation``; ``halo="explicit"`` with physics (the JAX package's
-    guard); a sharded run, by ``halo`` or by ``mesh="on"`` over several
-    cards, with a face whose ghosts are not local edge data (ROADMAP
-    A20.5).  Both options run where the port takes them
-    (``tests/test_torch_halo.py``)."""
+    ``Simulation``; ``halo="explicit"`` with physics, or with a face whose
+    ghosts are not local edge data (the JAX package's guards of that
+    mode).  ``mesh="on"`` over several visible devices takes such a face
+    (ROADMAP A20.5's first item): the sharded run equals the one-device
+    run; chunking it still raises (A20.5)."""
     from pion_tpu_torch.physics import Physics
 
     rcfg = ref_config("glm3d")
@@ -158,15 +158,23 @@ def test_unported_options_raise(field, value, monkeypatch):
         with pytest.raises(NotImplementedError, match="pure dynamics"):
             Simulation(cfg, torch.from_numpy(P), physics=Physics(),
                        device="cpu")
-        with pytest.raises(NotImplementedError, match="A20.5"):
+        with pytest.raises(NotImplementedError, match="local-data"):
             Simulation(inflow, torch.from_numpy(P), device="cpu")
         return
-    # several visible cards: mesh="on" shards the run, and refuses the face
-    # before it touches a card
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    # several visible devices (two CPU devices standing in for two cards):
+    # mesh="on" shards the run, the INFLOW face's strips sliced to the
+    # blocks that own it
+    from pion_tpu_torch.parallel import Sharded, mesh
+
+    monkeypatch.setattr(mesh, "visible_devices",
+                        lambda: [torch.device("cpu")] * 2)
+    sim = Simulation(inflow, torch.from_numpy(P)).run(max_steps=3)
+    one = Simulation(inflow, torch.from_numpy(P), device="cpu").run(
+        max_steps=3)
+    assert isinstance(sim.P, Sharded) and sim.mesh.size == 2
+    assert sim.t == one.t and torch.equal(sim.P.gather(), one.P)
     with pytest.raises(NotImplementedError, match="A20.5"):
-        Simulation(inflow, torch.from_numpy(P))
+        sim.run(max_steps=5, chunk=2)
 
 
 def test_unported_io_and_physics_raise(tmp_path):
