@@ -42,7 +42,10 @@ double Mach reflection, the axisymmetric jet and the 3-level cylindrical
 wind hierarchy sharded, bit for bit their single-device runs.  Then each
 path again through
 ``run(chunk=k)``, k steps as one CUDA graph replay: bit for bit the run of k
-single steps, and timed beside it.
+single steps, and timed beside it; and the same on the one-card mesh (the
+blast, the Euler wind, the coupled hierarchy and DMR sharded, the k steps of
+the per-shard loop as one graph; an evolving source chunked on the mesh
+against one device), timed beside one device's chunked runs.
 Every phase prints one JSON line; any failed
 check raises, and the process then exits non-zero without the closing
 ``{"ok": true, ...}`` line.
@@ -2185,19 +2188,30 @@ def states_of(run):
     return run.P if isinstance(run.P, list) else [run.P]
 
 
+def cloned(x):
+    """A copy of a state, block by block where it is sharded."""
+    return x.map(torch.clone) if hasattr(x, "blocks") else x.clone()
+
+
+def as_tensor(x) -> torch.Tensor:
+    """A state, gathered where it is sharded."""
+    return x.gather() if hasattr(x, "blocks") else x
+
+
 def same_run(a, b, what: str) -> dict:
     """``a`` (chunked) against ``b`` (one step at a time): every state bit
     for bit, the same clock and step count; raises otherwise."""
-    diff = max(float((x.double() - y.double()).abs().max())
-               for x, y in zip(states_of(a), states_of(b)))
-    same = all(torch.equal(x, y) for x, y in zip(states_of(a), states_of(b)))
+    pairs = [(as_tensor(x), as_tensor(y))
+             for x, y in zip(states_of(a), states_of(b))]
+    diff = max(float((x.double() - y.double()).abs().max()) for x, y in pairs)
+    same = all(torch.equal(x, y) for x, y in pairs)
     if not (same and a.t == b.t and a.step_count == b.step_count
             and a.last_dt == b.last_dt):
         raise AssertionError(
             f"{what}: run(chunk) differs from single steps: max |diff| "
             f"{diff:.3e}, t {a.t!r} vs {b.t!r}, steps {a.step_count} vs "
             f"{b.step_count}")
-    for x in states_of(a):
+    for x, _ in pairs:
         if not bool(torch.isfinite(x).all()):
             raise AssertionError(f"{what}: non-finite values")
     return {"max_abs_diff": diff, "t": a.t, "steps": a.step_count}
@@ -2228,12 +2242,13 @@ def chunk_graph(run):
     return next(iter(graphs.values()))
 
 
-def chunk_case(make, what, per_step, first=0, **run):
+def chunk_case(make, what, per_step, first=0, seeded=None, **run):
     """``make()`` twice: one run with ``chunk``, one without, from the same
     state, compared bit for bit.  Before them, one eager step of a third
     under the sync check.  The chunked run's launches are counted: its
     ``first`` single steps, the graph's warm-up (one chunk, run for real)
-    and one chunk a replay; the capture launches nothing."""
+    and one chunk a replay; the capture launches nothing.  ``seeded``: the
+    updates seeded with ``f0`` a step, where a hierarchy seeds them."""
     from pion_tpu_torch.microphysics import fused_mpv3 as fm
 
     probe = make()
@@ -2255,7 +2270,7 @@ def chunk_case(make, what, per_step, first=0, **run):
     a.run(**run)
     sec = time.perf_counter() - t0
     counts = read_counts()
-    seeded = fm.update.launches_seeded
+    n_seeded = fm.update.launches_seeded
     b.run(**{k: v for k, v in run.items() if k != "chunk"})
     rec = same_run(a, b, what)
     k = run["chunk"]
@@ -2267,9 +2282,9 @@ def chunk_case(make, what, per_step, first=0, **run):
         raise AssertionError(f"{what}: launch counts {counts}, expected "
                              f"{want} ({a.step_count} steps, {first} alone, "
                              f"a warm-up chunk of {k})")
-    if per_step is NG_LAUNCHES and seeded != NG_SEEDED * body:
-        raise AssertionError(f"{what}: {seeded} updates seeded, expected "
-                             f"{NG_SEEDED * body}")
+    if seeded is not None and n_seeded != seeded * body:
+        raise AssertionError(f"{what}: {n_seeded} updates seeded, expected "
+                             f"{seeded * body}")
     g = chunk_graph(a)
     rec.update(chunk=k, launches=counts, first_run_s=sec,
                capture_s=g.capture_s, graph_pool_bytes=g.pool_bytes)
@@ -2342,7 +2357,8 @@ def chunk_checks(device):
             return hier
 
         rec, a, b = chunk_case(make_hier, f"coupled {dtype}", NG_LAUNCHES,
-                               first=1, max_steps=steps, chunk=k)
+                               first=1, seeded=NG_SEEDED, max_steps=steps,
+                               chunk=k)
         check_hierarchy(a, f"coupled {dtype}, chunked")
         recs[f"coupled_{dtype}"] = rec
         if dtype == "float32":
@@ -2350,7 +2366,7 @@ def chunk_checks(device):
     return recs, runs
 
 
-def chunk_timing(runs, rounds: int = 4) -> dict:
+def chunk_timing(runs, rounds: int = 4, single: bool = False) -> dict:
     """For each path, in this call: the host clock a step one step at a time
     and ``chunk`` steps at a time (``rounds`` chunks, the graph recorded
     already), the device time a step and the kernels a replay launches (the
@@ -2359,7 +2375,10 @@ def chunk_timing(runs, rounds: int = 4) -> dict:
     (1 - device time over the unprofiled host clock), the capture's seconds
     and the graph pool's bytes.  Each wrapper's
     launches over the timed chunks must be its launches a step times the
-    steps (replays counted)."""
+    steps (replays counted).  ``single``: also the device time a step of
+    the same steps taken one at a time from the same state (the profiler
+    on the device only: a step of the mesh hierarchy queues ~64k host
+    operators)."""
     from pion_tpu_torch.microphysics import fused_mpv3 as fm
 
     out = {}
@@ -2375,7 +2394,7 @@ def chunk_timing(runs, rounds: int = 4) -> dict:
 
         n = rounds * k
         step_ms = timed(b, n)
-        start = ([x.clone() for x in states_of(a)], a.t, a.step_count,
+        start = ([cloned(x) for x in states_of(a)], a.t, a.step_count,
                  a.last_dt)
         reset_counts()
         chunk_ms = timed(a, n, k)
@@ -2385,7 +2404,8 @@ def chunk_timing(runs, rounds: int = 4) -> dict:
             raise AssertionError(f"{path}: launches over {rounds} replays "
                                  f"{counts}, expected {want}")
         P0, a.t, a.step_count, a.last_dt = start
-        a.P = P0 if isinstance(a.P, list) else P0[0]
+        a.P = [cloned(x) for x in P0] if isinstance(a.P, list) \
+            else cloned(P0[0])
         prof = device_time_by_kernel(
             lambda: a.run(max_steps=a.step_count + n, chunk=k), n)
         rec = {
@@ -2398,11 +2418,20 @@ def chunk_timing(runs, rounds: int = 4) -> dict:
                 prof["device_ms_per_step_by_group"],
             "wrapper_launches_per_replay": dict(zip(
                 ("sweep_axis", "final_axis", "mpv3_ydot", "mpv3_update",
-                 "mpv3_update_seeded", "octant_trace"), g.per_replay)),
+                 "mpv3_update_seeded", "octant_trace",
+                 "sharded_octant_trace"), g.per_replay)),
             "capture_s": g.capture_s, "graph_pool_bytes": g.pool_bytes}
         if prof["device_ms_per_step"] is not None:
             rec["device_idle_share_chunked"] = max(
                 0.0, 1.0 - prof["device_ms_per_step"] / chunk_ms)
+        if single:
+            P0, b.t, b.step_count, b.last_dt = start
+            b.P = P0 if isinstance(b.P, list) else P0[0]
+            one = device_time_by_kernel(
+                lambda: b.run(max_steps=b.step_count + n), n, cpu=False)
+            rec["device_ms_per_step_single"] = one["device_ms_per_step"]
+            rec["device_ms_per_step_single_by_group"] = \
+                one["device_ms_per_step_by_group"]
         out[path] = rec
     fm.update.launches_seeded = 0
     return out
@@ -2519,13 +2548,15 @@ def solver_agreement(sim, solvers, agree_tol: float) -> dict:
 # the photoionised Euler wind bubble
 # ---------------------------------------------------------------------------
 
-def euler_wind_problem(n: int, dtype: str, kernels: str = "auto", **cfg_kw):
+def euler_wind_problem(n: int, dtype: str, kernels: str = "auto",
+                       evolution=None, **cfg_kw):
     """The reference's sharded smoke step (``__graft_entry__.py:176-205``) at
     n^3: Euler + HLL (configuration 1's other settings), a 3e18 cm box, MPv3
     monochromatic photoionisation (1e48 s^-1) from a point source at the
     centre, a stellar wind from the same place (radius 2.5 cells, 1e-7
     Msun/yr, 2000 km/s, 3e4 K, tracer 1), nH = 10 at 100 K, x = 1e-6, the
-    chemistry dt limit on; ``cfg_kw`` overrides fields of the config (the
+    chemistry dt limit on; ``evolution``: the source's evolution table
+    (a ``StarEvolution``); ``cfg_kw`` overrides fields of the config (the
     conduction path).  Returns (cfg, P0, make_physics);
     ``make_physics(mp_cls)`` builds the chemistry from ``mp_cls`` (MPv3 by
     default)."""
@@ -2546,7 +2577,8 @@ def euler_wind_problem(n: int, dtype: str, kernels: str = "auto", **cfg_kw):
     def make_physics(mp_cls=MPv3):
         return Physics(
             mp=mp_cls(mpc),
-            sources=[Source(position=ctr, strength=1.0e48, effect="mono")],
+            sources=[Source(position=ctr, strength=1.0e48, effect="mono",
+                            evolution=evolution)],
             wind_sources=[WindSource(position=ctr, radius=2.5 * cfg.dx,
                                      mdot=1.0e-7 * MSUN / YEAR, vinf=2.0e8,
                                      t_wind=3.0e4, tracers=(1.0,))],
@@ -4201,7 +4233,7 @@ def mesh_ng_path(device, n: int = 128, steps: int = 6):
     states: launches a step MESH_NG_LAUNCHES (B1, B3, B4 8x one device's,
     B6 on both levels), the dt sequence and every level within
     MESH_NG_TOL; ``check_hierarchy`` on the gathered levels; host ms a
-    step, device ms a step (the profiler over 2 steps), and the glue timed
+    step, device ms a step (the profiler over 1 step), and the glue timed
     alone (``mesh_glue_ms``), each beside one device's.  The profiler
     records the device only: with the host's operators it took 81 s over
     the mesh's two steps on an H100.  Returns the
@@ -4261,11 +4293,10 @@ def mesh_ng_path(device, n: int = 128, steps: int = 6):
         raise AssertionError(f"mesh hierarchy: dt sequence {dt_err:.3e} "
                              f"from one device's")
 
-    def two(h):
-        return lambda: [h.step() for _ in range(2)]
-
+    # one step each: the profiler reads ~64k kernels a mesh step at ~0.2
+    # ms an event, and mesh_chunk_timing profiles single steps again
     t0 = time.perf_counter()
-    prof, prof_one = (device_time_by_kernel(two(h), 2, cpu=False)
+    prof, prof_one = (device_time_by_kernel(h.step, 1, cpu=False)
                       for h in (sh, one))
     profile_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -4463,6 +4494,155 @@ def mesh_faces_path(d: str, device, steps: int = 4):
                      "host_ms_per_step_single_device": sec_one / steps * 1e3}
     counts_all["cyl_ng"] = counts
     return rec, counts_all
+
+
+# ---------------------------------------------------------------------------
+# run(chunk=k) on the one-card mesh: the k steps of the per-shard loop as one
+# CUDA graph replay
+# ---------------------------------------------------------------------------
+
+# the coupled hierarchy's chunk on the mesh: ~64k launches a step, so the
+# capture records ~64k x k nodes (a step recorded takes the host ~1.3 s),
+# and a profile of a replay reads them all (~0.2 ms an event)
+MESH_NG_CHUNK = 2
+
+
+def mesh_chunk_checks(d: str, device):
+    """``run(chunk=k)`` on the one-card 2x2x2 mesh (8 shards for DMR)
+    against the same mesh stepped singly, bit for bit (``chunk_case``: an
+    eager mesh step under the sync check first; the launches of B1-B6
+    those of a mesh step times the body's steps; exactly one graph): the
+    blast at 128^3 float32 (the default ``halo``, k = 5, 10 steps) and
+    64^3 float64 (k = 2, 4 steps), the Euler wind at 128^3 float32 (one
+    step alone, then k = 5), the coupled hierarchy at 2 x 128^3 float32
+    (one step alone, then k = MESH_NG_CHUNK), DMR (1920 x 480, the moving
+    DMACH face on the blocks, k = 5); then an evolving source (the Euler
+    wind's, its luminosity doubling over twice the run's time), chunked
+    on the mesh against chunked on one device within EULER_WIND_TOL (ROADMAP
+    C8): a chunk that kept its first source would part from it.  Returns
+    the records, the chunked and single runs by path (for
+    ``chunk_timing``) and the chunked runs' launch counts."""
+    from pion_tpu_torch import NGHierarchy, Simulation
+    from pion_tpu_torch.constants import PG, RO, RSUN, VX
+    from pion_tpu_torch.ics import blast_wave
+    from pion_tpu_torch.io.snapshot import load_snapshot_raw
+    from pion_tpu_torch.parallel import shard_state
+    from pion_tpu_torch.raytracing import StarEvolution
+
+    t_start = time.perf_counter()
+    recs, runs, counts = {}, {}, {}
+
+    def keep(path, rec, a, b, k, per_step):
+        recs[path] = rec
+        counts[path] = rec["launches"]
+        runs[path] = (a, b, k, per_step)
+
+    def blast(shape, dtype):
+        cfg = main_cfg(shape, dtype)
+        P0 = torch.as_tensor(blast_wave(cfg, B0=(0.1, 0.05, 0.0)),
+                             device=device)
+        mesh = one_card_mesh(cfg, device)
+        return lambda: Simulation(cfg, shard_state(P0, mesh))
+
+    rec, a, b = chunk_case(blast(MESH_SHAPE, "float32"),
+                           "mesh blast float32", MESH_BLAST_LAUNCHES,
+                           max_steps=10, chunk=5)
+    keep("blast", rec, a, b, 5, MESH_BLAST_LAUNCHES)
+    recs["blast_float64_64"] = chunk_case(
+        blast((64,) * 3, "float64"), "mesh blast float64",
+        MESH_BLAST_LAUNCHES, max_steps=4, chunk=2)[0]
+
+    wcfg, wP0, make_wphys = euler_wind_problem(MESH_SHAPE[0], "float32")
+    wmesh = one_card_mesh(wcfg, device)
+    wP0t = torch.as_tensor(wP0, dtype=torch.float32, device=device)
+    rec, a, b = chunk_case(
+        lambda: Simulation(wcfg, shard_state(wP0t, wmesh),
+                           physics=make_wphys()),
+        "mesh Euler wind", MESH_WIND_LAUNCHES, first=1, max_steps=11,
+        chunk=5)
+    rec["state"] = check_euler_wind(gathered(a), "mesh Euler wind, chunked")
+    keep("euler_wind", rec, a, b, 5, MESH_WIND_LAUNCHES)
+    t_wind = a.t
+
+    ccfg, states, make_cphys = coupled_problem(MESH_SHAPE[0], "float32")
+    cmesh = one_card_mesh(ccfg, device)
+
+    def make_hier():
+        hier = NGHierarchy(ccfg, 2, physics=make_cphys(), mesh=cmesh)
+        hier.set_states(states)
+        return hier
+
+    k = MESH_NG_CHUNK
+    rec, a, b = chunk_case(make_hier, "mesh coupled hierarchy",
+                           MESH_NG_LAUNCHES, first=1, seeded=MESH_NG_SEEDED,
+                           max_steps=1 + k, chunk=k)
+    rec["ranges"] = check_hierarchy(gathered_hierarchy(a),
+                                    "mesh coupled hierarchy, chunked")
+    keep("coupled", rec, a, b, k, MESH_NG_LAUNCHES)
+
+    pf = write_params(d, "mesh_chunk_dmr", dmr_params(DMR_ROWS[0], "float32"))
+    cli_main("icgen", pf)
+    ic = snap_path(pf, 0)
+    dmesh = mesh8(load_snapshot_raw(ic)[0], device)
+    per_dmr = {n: 8 * v for n, v in CLI_2D_LAUNCHES.items()}
+    rec, a, b = chunk_case(lambda: Simulation.restart(ic, mesh=dmesh),
+                           "mesh DMR", per_dmr, max_steps=10, chunk=5)
+    rec["state"] = check_dmr(a.P.gather().cpu().numpy(), "mesh DMR, chunked")
+    keep("dmr", rec, a, b, 5, per_dmr)
+
+    # an evolving source: its parameters go into each replay as inputs
+    evo = StarEvolution(time=np.array([0.0, 2.0 * t_wind]),
+                        log_L=np.log10(np.array([1.0e48, 2.0e48])),
+                        log_T=np.log10(np.array([4.0e4, 4.0e4])),
+                        log_R=np.log10(np.array([10.0, 10.0]) * RSUN))
+    ecfg, eP0, make_ephys = euler_wind_problem(MESH_SHAPE[0], "float32",
+                                               evolution=evo)
+    sh = Simulation(ecfg, shard_state(wP0t, wmesh), physics=make_ephys())
+    one = Simulation(ecfg, eP0, physics=make_ephys())
+    sh.run(max_steps=6, chunk=5)
+    t_mid = sh.t
+    sh.run(max_steps=11, chunk=5)
+    one.run(max_steps=11, chunk=5)
+    probe = make_ephys()
+    rels = [probe.update_sources(t)["0"]["rel"] for t in (0.0, t_mid)]
+    if not (sh.step_count == one.step_count == 11 and rels[1] > 1.01):
+        raise AssertionError(f"evolving source: {sh.step_count} / "
+                             f"{one.step_count} steps, rel {rels}")
+    chunk_graph(sh)                          # one graph each
+    chunk_graph(one)
+    G = sh.P.gather()
+    groups = {"mass": [RO], "velocity": [VX, VX + 1, VX + 2],
+              "pressure": [PG], "tracer": [ecfg.eqn.nbase]}
+    errs = {g: grouped_err(G, one.P, [v]) for g, v in groups.items()}
+    for g, e in errs.items():
+        if not e <= EULER_WIND_TOL[g]:
+            raise AssertionError(f"evolving source, mesh chunk against one "
+                                 f"device's in {g}: {e:.3e} > "
+                                 f"{EULER_WIND_TOL[g]:.1e}")
+    recs["evolving_source"] = {
+        "vs_one_device_chunked": errs, "tol": EULER_WIND_TOL,
+        "t": sh.t, "t_one_device": one.t, "rel_at_chunk_starts": rels,
+        "dt_rel_diff": abs(sh.last_dt - one.last_dt) / one.last_dt}
+    del sh, one
+    recs["seconds"] = time.perf_counter() - t_start
+    return recs, runs, counts
+
+
+def mesh_chunk_timing(runs, one_device: dict) -> dict:
+    """``chunk_timing`` of the mesh paths, single steps against chunks
+    (host ms a step of each, device ms a step of each from the same state,
+    the idle share, capture seconds and pool bytes; 3 chunks, the
+    hierarchy's one: its profiles read ~64k kernels a step), each beside
+    ``one_device``'s record of the same problem chunked on one device
+    (``chunk_timing`` of ``chunk_checks``'s runs, this call)."""
+    out = {}
+    for path, run in runs.items():
+        rec = chunk_timing({path: run}, rounds=1 if path == "coupled" else 3,
+                           single=True)[path]
+        rec["one_device_chunked"] = one_device.get(
+            {"dmr": "cli_dmr"}.get(path, path))
+        out[path] = rec
+    return out
 
 
 def mpv8_params(n: int) -> dict:
@@ -4961,8 +5141,19 @@ def main(argv=None):
     rec_chunk, chunk_runs = chunk_checks(device)
     emit("chunk_checks", cases=rec_chunk)
     chunk_runs.update(cyl_runs)
-    emit("chunk_timing", **chunk_timing(chunk_runs))
+    timing_one = chunk_timing(chunk_runs)
+    emit("chunk_timing", **timing_one)
     del chunk_runs, cyl_runs
+
+    # the same on the one-card mesh: k steps of the per-shard loop as one
+    # graph, bit for bit the mesh's single steps, then timed beside one
+    # device's chunked runs
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+        rec_mc, mesh_chunk_runs, counts_mc = mesh_chunk_checks(d, device)
+    emit("mesh_chunk_checks", cases=rec_mc)
+    emit("mesh_chunk_timing",
+         **mesh_chunk_timing(mesh_chunk_runs, timing_one))
+    del mesh_chunk_runs
 
     # launches on the main paths: each kernel's count from the run of the
     # path its numbers were measured for (B1 and B2: the blast wave, and B1
@@ -5029,7 +5220,9 @@ def main(argv=None):
                                        mesh_wind=counts_mw[row["name"]],
                                        mesh_ng=counts_mn[row["name"]],
                                        **{f"mesh_{k}": c[row["name"]]
-                                          for k, c in counts_mf.items()})
+                                          for k, c in counts_mf.items()},
+                                       **{f"mesh_chunk_{k}": c[row["name"]]
+                                          for k, c in counts_mc.items()})
     # B4 and B3 on the MPv6 mix: launches from the StarBench run, the
     # numbers from ``mpv6_kernels`` (128^3, and the 32^3 copy)
     for row in rows:
@@ -5066,12 +5259,15 @@ def main(argv=None):
                 ("conduction_wind", counts_cw2), ("cli_mpv8", counts_m8),
                 ("cli_mpv7", counts_m7), ("mesh_blast", counts_mb),
                 ("mesh_wind", counts_mw), ("mesh_ng", counts_mn),
-                *((f"mesh_{k}", c) for k, c in counts_mf.items()))}
+                *((f"mesh_{k}", c) for k, c in counts_mf.items()),
+                *((f"mesh_chunk_{k}", c) for k, c in counts_mc.items()))}
     b6_row.update(launches=counts_mw["sharded_octant_trace"],
                   launches_by_path=by_path)
-    if b6_row["launches"] < 1 or by_path["mesh_ng"] < 1:
+    if min(b6_row["launches"], by_path["mesh_ng"], by_path[
+            "mesh_chunk_euler_wind"], by_path["mesh_chunk_coupled"]) < 1:
         raise AssertionError("sharded_octant_trace was not launched on the "
-                             "sharded wind bubble and hierarchy")
+                             "sharded wind bubble and hierarchy, single and "
+                             "chunked")
     rows.append(b6_row)
     if args.out:
         with open(os.path.join(args.out, "kernels.json"), "w") as f:

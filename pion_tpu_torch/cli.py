@@ -27,8 +27,9 @@ a mesh of them, as the JAX package's CLI does; ``halo explicit`` takes the
 explicit exchange on one level (pure dynamics) and a hierarchy ignores it.
 With one device, and with ``mesh off``, the run takes the one device.
 Snapshots hold the gathered state, so they restart on a mesh or without
-one, in either package.  ``run(chunk=k)`` on a mesh and multi-host runs
-are ROADMAP A20.5.
+one, in either package.  ``chunk k`` takes k steps at a time on a mesh as
+on one device (one CUDA graph a chunk where every shard lies on one card).
+Multi-host runs are ROADMAP A20.5.
 """
 from __future__ import annotations
 

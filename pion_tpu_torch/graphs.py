@@ -20,6 +20,13 @@ Each kernel wrapper counts its launches in its ``launches`` attribute.  The
 wrappers are called while the graph is recorded, when nothing is launched:
 what they add then is taken back, kept as the graph's launches a replay, and
 added at every replay.
+
+A sharded state (:class:`.parallel.mesh.Sharded`) is an input and an output
+like a tuple of its blocks.  A mesh whose shards all lie on one card (one
+card standing for every shard) is recorded as one graph; a mesh over
+several devices runs its chunk eagerly (:func:`on_one_card`), with one
+read-back a chunk as on the CPU: a capture that spans several cards is not
+recorded (ROADMAP A20.5).
 """
 from __future__ import annotations
 
@@ -35,10 +42,12 @@ def _counters():
     from .microphysics import fused_mpv3 as fm
     from .ops import fused_sweep as fs
     from .raytracing import fused_trace as ft
+    from .raytracing import sharded_trace as st
 
     return ((fs.sweep_axis, "launches"), (fs.final_axis, "launches"),
             (fm.ydot, "launches"), (fm.update, "launches"),
-            (fm.update, "launches_seeded"), (ft.octant_trace, "launches"))
+            (fm.update, "launches_seeded"), (ft.octant_trace, "launches"),
+            (st.sharded_octant_trace, "launches"))
 
 
 def _read_counts() -> List[int]:
@@ -61,9 +70,14 @@ def clock(device, t: float, last_dt: float, t_target: float):
 
 
 def _flatten(tree, out: list) -> list:
-    """The tensors of a nesting of tuples, lists and dicts, in order."""
+    """The tensors of a nesting of tuples, lists, dicts and sharded
+    tensors (their blocks), in order."""
+    from .parallel.mesh import Sharded
+
     if isinstance(tree, torch.Tensor):
         out.append(tree)
+    elif isinstance(tree, Sharded):
+        out.extend(tree.blocks)
     elif isinstance(tree, (tuple, list)):
         for v in tree:
             _flatten(v, out)
@@ -77,9 +91,15 @@ def _flatten(tree, out: list) -> list:
 
 
 def _rebuild(tree, leaves):
-    """``tree`` with its tensors replaced, in order, from ``leaves``."""
+    """``tree`` with its tensors replaced, in order, from ``leaves`` (a
+    sharded tensor keeps its mesh and shape)."""
+    from .parallel.mesh import Sharded
+
     if isinstance(tree, torch.Tensor):
         return next(leaves)
+    if isinstance(tree, Sharded):
+        return Sharded([next(leaves) for _ in tree.blocks], tree.mesh,
+                       tree.shape)
     if isinstance(tree, (tuple, list)):
         return tuple(_rebuild(v, leaves) for v in tree)
     if isinstance(tree, dict):
@@ -89,9 +109,15 @@ def _rebuild(tree, leaves):
 
 def layout(tree):
     """What a graph is specialised on besides K: the nesting, and the
-    shape and dtype of each tensor."""
+    shape and dtype of each tensor (of a sharded tensor: its mesh's
+    factors and each block's)."""
+    from .parallel.mesh import Sharded
+
     if isinstance(tree, torch.Tensor):
         return (tuple(tree.shape), tree.dtype)
+    if isinstance(tree, Sharded):
+        return ("sharded", tree.mesh.factors,
+                tuple(layout(b) for b in tree.blocks))
     if isinstance(tree, (tuple, list)):
         return tuple(layout(v) for v in tree)
     if isinstance(tree, dict):
@@ -99,22 +125,31 @@ def layout(tree):
     return tree
 
 
+def on_one_card(tree) -> bool:
+    """Whether every tensor of ``tree`` lies on one CUDA device: what a
+    chunk must hold to be recorded as one graph."""
+    leaves = _flatten(tree, [])
+    return bool(leaves) and all(x.is_cuda and x.device == leaves[0].device
+                                for x in leaves)
+
+
 class ChunkGraph:
     """``body(*args)`` recorded once as a CUDA graph and replayed.
 
     ``args`` is a tuple of tensors and nestings of them (tuples, dicts,
-    None), all on one CUDA device; ``body`` returns the same kind of
-    nesting.  Calling the graph with arguments of the same layout copies
-    them into its input buffers, replays it and returns clones of its
-    outputs.  ``capture_s``: seconds of the capture (recording and
+    sharded tensors, None), all on one CUDA device; ``body`` returns the
+    same kind of nesting.  Calling the graph with arguments of the same
+    layout copies them into its input buffers, replays it and returns
+    clones of its outputs.  ``capture_s``: seconds of the capture (recording and
     instantiation); ``pool_bytes``: device memory reserved by it, the
     graph's pool; ``per_replay``: the launch counts a replay adds, by
     wrapper."""
 
     def __init__(self, body: Callable, args: tuple, name: str = "chunk"):
+        if not on_one_card(args):
+            raise ValueError("a CUDA graph is recorded from CUDA tensors on "
+                             "one device")
         leaves = _flatten(args, [])
-        if not leaves or not all(x.is_cuda for x in leaves):
-            raise ValueError("a CUDA graph is recorded from CUDA tensors")
         dev = leaves[0].device
         self.name = name
         # the input buffers, outside the graph's pool

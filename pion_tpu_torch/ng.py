@@ -43,7 +43,9 @@ the level's outer faces (:func:`.parallel.mesh.region`, prolonged as on
 one device) and from the domain BC on root-domain faces; the restriction
 and BC89 write into whichever parent blocks hold the cells
 (:func:`.parallel.mesh.write_regions`); each cell takes the one-device
-value.  ``run(chunk=k)`` on a mesh raises (ROADMAP A20.5).
+value.  ``run(chunk=k)`` on a mesh selects the levels block by block; where
+every shard lies on one card a chunk is one CUDA graph, over several
+devices it runs eagerly.
 """
 from __future__ import annotations
 
@@ -64,7 +66,7 @@ from .ops.sweep import dynamics_dU, interface_flux, interface_flux_pair
 from .ops.timestep import dynamics_dt
 from .parallel.mesh import Sharded, gather, region, write_regions
 from .stepper import (_on, _scma_flag, _Shards, cell_advance, glm_psi_damp,
-                      later, limit_dt)
+                      later, limit_dt, select)
 from .utils import StepLogger, resolve_device
 
 def snap_ng_centre(cfg0: SimConfig) -> Tuple[float, ...]:
@@ -1063,7 +1065,8 @@ class NGHierarchy:
                                      pb.mp.set_temp(Pn, cfg.max_temperature,
                                                     sh.cfg), Pn)
                 if pb is not None and pb.winds:
-                    Pn = pb.apply_internal_bcs(Pn, later(t0, on(t_end, b)))
+                    Pn = pb.apply_internal_bcs(Pn, later(on(t0, b),
+                                                         on(t_end, b)))
                 out.append(Pn)
             return Sharded(out, P.mesh, P.shape)
 
@@ -1263,10 +1266,8 @@ class NGHierarchy:
         (``Physics.update_sources``, then ``device_sp``), or None."""
         if self.physics is None or not self.physics.sources:
             return None
-        sp = self.physics.update_sources(self.t)
-        if self.mesh is not None:
-            return sp      # host numbers: each shard takes them on its device
-        return self.physics.device_sp(sp, self.P[0])
+        return self.physics.device_sp(self.physics.update_sources(self.t),
+                                      self.P[0])
 
     def _dt_and_advance(self, states, t, last_dt, cap, sp):
         """The step without its host work: the levels' dt, the growth limit
@@ -1296,8 +1297,7 @@ class NGHierarchy:
             live = t < t_stop
             st, dtv = self._dt_and_advance(
                 states, t, last_dt, torch.where(live, t_target - t, 1.0), sp)
-            states = tuple(torch.where(live, a, b)
-                           for a, b in zip(st, states))
+            states = tuple(select(live, a, b) for a, b in zip(st, states))
             dt64 = dtv.to(torch.float64)
             dt_eff = torch.where(live, dt64, 0.0)
             t = t + dt_eff
@@ -1314,13 +1314,14 @@ class NGHierarchy:
         kernels on, one replay of a CUDA graph recorded at the first call
         for each K and ``sp`` layout (raising if the recording fails); with
         ``kernels="off"``, whose plain chemistry reads the host, and on the
-        CPU, eagerly, step after step."""
+        CPU, eagerly, step after step.  On a mesh the same: one graph when
+        every shard lies on one card, eagerly over several devices."""
         from . import graphs
 
         def run_k(states, t, last_dt, t_target, sp=None):
             states = tuple(states)
             clock = graphs.clock(self.device, t, last_dt, t_target)
-            if self.device.type == "cuda" and self.cfg0.kernels != "off":
+            if graphs.on_one_card(states) and self.cfg0.kernels != "off":
                 key = (K, graphs.layout(sp))
                 if key not in self._graphs:
                     self._graphs[key] = graphs.ChunkGraph(
@@ -1415,16 +1416,14 @@ class NGHierarchy:
         :meth:`_multi_step_fn` when there is no timed output and the output,
         checkpoint and log cadences are multiples of the chunk (the JAX
         package's gate, ng.py:992-995): one CUDA
-        graph replay on the card, the same steps eagerly with
-        ``kernels="off"`` or on the CPU.  A chunk ends early at ``tmax``;
+        graph replay on the card (on a mesh: every shard on one card), the
+        same steps eagerly with ``kernels="off"``, on the CPU or on a mesh
+        over several devices.  A chunk ends early at ``tmax``;
         ``max_steps`` is never passed; a run with winds takes its first step
         alone (the first-step wind cap).  The result equals the run without
         ``chunk`` bit for bit, but that evolving sources are taken once a
         chunk (as the JAX package does, ng.py:1005-1007)."""
         tmax = self.cfgs[0].tmax if tmax is None else tmax
-        if chunk > 1 and self.mesh is not None:
-            raise NotImplementedError(
-                "run(chunk=k) on a sharded hierarchy is ROADMAP A20.5")
         self._tmax = tmax
         logger = StepLogger(self.log_freq)
         chunked = (chunk > 1 and self.opfreq_time == 0.0

@@ -34,6 +34,7 @@ from ..boundaries import BC, BoundaryData, _pad_axis, axis_ghosts
 from ..config import SimConfig
 from ..constants import Coord
 from ..grid import Geometry
+from ..stepper import _on
 from .mesh import Mesh, Sharded
 
 _LOCAL_BCS = (BC.PERIODIC, BC.OUTFLOW, BC.ONEWAY_OUT, BC.REFLECTING,
@@ -94,7 +95,8 @@ def _pad_axis_sharded(blocks: List[torch.Tensor], cfg: SimConfig, axis: int,
         own_lo = i == 0 and lo_kind is not BC.PERIODIC
         own_hi = i == m - 1 and hi_kind is not BC.PERIODIC
         if own_lo or own_hi:
-            lo_bc, hi_bc = axis_ghosts(blk, cfg, axis, bdatas[b], t=t)
+            lo_bc, hi_bc = axis_ghosts(blk, cfg, axis, bdatas[b],
+                                       t=_on(t, blk))
         if own_lo:
             lo = lo_bc
         else:
@@ -133,7 +135,7 @@ def apply_bcs_sharded(P: Sharded, cfg: SimConfig, bdata=None,
     out = list(P.blocks)
     for axis in range(cfg.ndim):
         if mesh.factors[axis] == 1:
-            out = [_pad_axis(blk, cfg, axis, bd, t=t)
+            out = [_pad_axis(blk, cfg, axis, bd, t=_on(t, blk))
                    for blk, bd in zip(out, bdata)]
         else:
             out = _pad_axis_sharded(out, cfg, axis, bdata, mesh, t)

@@ -22,7 +22,8 @@ cross the shards through them, wherever a child block's window falls among
 the parent's blocks.
 
 Not ported: the JAX package's placement through ``mesh_utils`` (TPU
-topology) and ``maybe_distributed_init`` (multi-host), ROADMAP A20.5.
+topology, which a card has none of) and ``maybe_distributed_init``: a mesh
+lives in one process (multi-host is ROADMAP A20.5).
 """
 from __future__ import annotations
 

@@ -202,18 +202,26 @@ class Physics:
 
     def device_sp(self, sp: Optional[Dict], like: torch.Tensor):
         """``sp`` of :meth:`update_sources` on ``like``'s device in its
-        dtype, as :meth:`raytrace` reads it inside a step: ``rel`` a 0-d
-        tensor (a fill, not a copy), ``tau_stack`` a tensor kept while
-        ``update_sources`` hands the same table.  None stays None."""
+        dtype (``like``: a tensor, or a sharded state, whose first shard's
+        device it takes), as :meth:`raytrace` reads it inside a step:
+        ``rel`` a 0-d tensor (a fill, not a copy), ``tau_stack`` a tensor
+        kept while ``update_sources`` hands the same table.  Entries that
+        are such tensors already are kept; None stays None."""
         if sp is None:
             return None
         if not hasattr(self, "_sp_kept"):
             self._sp_kept = {}
         out: Dict = {}
         for k, e in sp.items():
-            d = {"rel": torch.full((), float(e["rel"]), dtype=like.dtype,
-                                   device=like.device)}
-            if "tau_stack" in e:
+            rel = e["rel"]
+            if not (isinstance(rel, torch.Tensor) and rel.dtype == like.dtype
+                    and rel.device == like.device):
+                rel = torch.full((), float(rel), dtype=like.dtype,
+                                 device=like.device)
+            d = {"rel": rel}
+            if isinstance(e.get("tau_stack"), torch.Tensor):
+                d["tau_stack"] = e["tau_stack"]
+            elif "tau_stack" in e:
                 key = (k, like.dtype, like.device)
                 kept = self._sp_kept.get(key)
                 if kept is None or kept[0] is not e["tau_stack"]:
@@ -308,8 +316,9 @@ class Physics:
         nested-grid levels whose domain does not reach the ray origin).
         ``sp``: evolving-source parameters from :meth:`update_sources`, with
         host numbers and numpy tables, or from :meth:`device_sp`, which
-        copies nothing inside a step.  ``taus``: each source's entry optical
-        depths, already traced (a block of a sharded state)."""
+        copies nothing inside a step on its device (a block on another
+        device takes its tensors there).  ``taus``: each source's entry
+        optical depths, already traced (a block of a sharded state)."""
         rt: Dict = {}
         g0_uv = None
         g0_ir = None
@@ -321,8 +330,8 @@ class Physics:
             rel = None
             if sp is not None and str(i) in sp:
                 rel = sp[str(i)]["rel"]
-                if not isinstance(rel, torch.Tensor):
-                    rel = float(rel)
+                rel = (rel.to(Ph.device, non_blocking=True)
+                       if isinstance(rel, torch.Tensor) else float(rel))
             if taus is None:
                 if self._block is not None:
                     raise RuntimeError(

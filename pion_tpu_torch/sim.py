@@ -161,6 +161,10 @@ class Simulation:
                     self.mesh, self.P.shape)
         self.fns = make_step_fns(cfg, self.geom, self.bdata,
                                  physics=self.physics, mesh=self.mesh)
+        if cfg.halo == "explicit":
+            # the JAX package's explicit-halo step fns have no multi_step
+            # (pion_tpu/sim.py:115-128): run(chunk=k) steps one at a time
+            self.fns = self.fns._replace(multi_step=None)
         self._ckpt_flip = 0
         self._writer = None
         self._next_optime = self.t + self.opfreq_time
@@ -272,10 +276,8 @@ class Simulation:
         (``Physics.update_sources``, then ``device_sp``), or None."""
         if self.physics is None or not self.physics.sources:
             return None
-        sp = self.physics.update_sources(self.t)
-        if self.mesh is not None:
-            return sp      # host numbers: each shard takes them on its device
-        return self.physics.device_sp(sp, self.P)
+        return self.physics.device_sp(self.physics.update_sources(self.t),
+                                      self.P)
 
     def step(self) -> float:
         Pn, dt, dt_raw = self.fns.step(self.P, self.t, self.last_dt,
@@ -319,21 +321,22 @@ class Simulation:
         nothing has to run on the host between them: no timed output, no
         callback, and output, checkpoint and log cadences that are multiples
         of the chunk (the JAX package's gate, sim.py:255-262).  On a CUDA
-        state with the kernels on,
+        state with the kernels on (on a mesh: every shard on one card),
         one replay of a CUDA graph recorded at the first chunk (raising if
-        the recording fails); with ``kernels="off"`` and on the CPU, the
-        same steps eagerly.  A chunk ends early at ``tmax``; ``max_steps``
-        is never passed (the steps short of a whole chunk go one by one); a
-        run with winds takes its first step alone, for the first-step wind
-        cap.  The result equals the run without ``chunk`` bit for bit, but
-        that evolving sources are taken once a chunk."""
+        the recording fails); with ``kernels="off"``, on the CPU and on a
+        mesh over several devices, the same steps eagerly.
+        ``halo="explicit"`` has no ``multi_step`` and steps one at a time
+        (as the JAX package's explicit-halo run does).  A chunk ends early
+        at ``tmax``; ``max_steps`` is never passed (the steps short of a
+        whole chunk go one by one); a run with winds takes its first step
+        alone, for the first-step wind cap.  The result equals the run
+        without ``chunk`` bit for bit, but that evolving sources are taken
+        once a chunk."""
         tmax = self.cfg.tmax if tmax is None else tmax
-        if chunk > 1 and self.mesh is not None:
-            raise NotImplementedError(
-                "run(chunk=k) on a sharded state is ROADMAP A20.5")
         self._tmax = tmax
         logger = StepLogger(self.log_freq)
-        chunked = (chunk > 1 and self.opfreq_time == 0.0 and callback is None
+        chunked = (chunk > 1 and self.fns.multi_step is not None
+                   and self.opfreq_time == 0.0 and callback is None
                    and self.opfreq % chunk == 0
                    and self.checkpoint_freq % chunk == 0
                    and (self.log_freq == 0 or self.log_freq % chunk == 0))

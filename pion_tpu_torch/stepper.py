@@ -190,6 +190,18 @@ def _on(x, like: torch.Tensor):
     return x
 
 
+def select(live, a, b):
+    """``torch.where(live, a, b)`` of two states, block by block where they
+    are sharded (``live``: a 0-d bool tensor, taken to each block's
+    device)."""
+    from .parallel.mesh import Sharded
+
+    if isinstance(a, Sharded):
+        return Sharded([torch.where(_on(live, x), x, y)
+                        for x, y in zip(a.blocks, b.blocks)], a.mesh, a.shape)
+    return torch.where(live, a, b)
+
+
 class _Shards:
     """The per-shard side of a step on a mesh (ROADMAP A20.2-A20.3, A20.5's
     faces and geometries): a sharded state
@@ -277,7 +289,8 @@ class _Shards:
         for i, blk in enumerate(P.blocks):
             out.append(_partial_update(
                 blk, Ph.blocks[i], _on(dt, blk), order_space, self.cfg,
-                self.geoms[i], self.bdatas[i], _on(ch, blk), self.phys[i], t,
+                self.geoms[i], self.bdatas[i], _on(ch, blk), self.phys[i],
+                _on(t, blk),
                 rt=None if rt is None else rt[i], sp=sp, Ppad=pads[i],
                 mp_new=None if new is None else new[i]))
         return Sharded(out, self.mesh, P.shape)
@@ -293,8 +306,9 @@ def make_step_fns(cfg: SimConfig, geom: Geometry,
     when the caller asks for it.  With a ``mesh``
     (:class:`.parallel.mesh.Mesh`) they step a sharded state, each shard on
     its mesh device (``device`` is not read), through the same partial
-    update a block (:class:`_Shards`); ``multi_step`` then raises (ROADMAP
-    A20.5)."""
+    update a block (:class:`_Shards`), and ``multi_step`` takes K of those
+    steps (one CUDA graph where every shard lies on one card, else
+    eagerly)."""
     dtype = cfg.torch_dtype
     shards = None
     if mesh is None:
@@ -387,8 +401,9 @@ def make_step_fns(cfg: SimConfig, geom: Geometry,
             dt = limit_dt(dt_raw, last_dt, t_target - t, cfg.max_dt_growth)
             live = t < t_stop
             Pn = advance(P, torch.where(live, dt, 1.0), cfg, geom, bdata,
-                         physics=physics, t=t, rt0=rt0, sp=sp)
-            P = torch.where(live, Pn, P)
+                         physics=physics, t=t, rt0=rt0, sp=sp,
+                         partial=partial)
+            P = select(live, Pn, P)
             dt64 = dt.to(torch.float64)
             dt_eff = torch.where(live, dt64, 0.0)
             t = t + dt_eff
@@ -407,16 +422,16 @@ def make_step_fns(cfg: SimConfig, geom: Geometry,
         steps are one replay of a CUDA graph, captured at the first call for
         each K and ``sp`` layout (and raising if the capture fails);
         with ``kernels="off"``, whose plain chemistry reads the host, and on
-        the CPU they run eagerly, step after step."""
+        the CPU they run eagerly, step after step.  On a mesh the same:
+        one graph when every shard lies on one card, eagerly when the
+        shards span several devices (the clock, the dt and ``sp`` on the
+        first shard's device, taken to the others)."""
         from . import graphs
 
-        if shards is not None:
-            raise NotImplementedError(
-                "run(chunk=k) on a sharded state is ROADMAP A20.5")
         P = _state(P)
         spt = physics.device_sp(sp, P) if physics is not None else None
         clock = graphs.clock(P.device, t, last_dt, t_target)
-        if P.is_cuda and cfg.kernels != "off":
+        if graphs.on_one_card(P) and cfg.kernels != "off":
             key = (K, graphs.layout(spt))
             if key not in recorded:
                 recorded[key] = graphs.ChunkGraph(

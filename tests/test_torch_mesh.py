@@ -141,7 +141,8 @@ def test_sharded_entry_points_need_a_card_or_the_cpu():
     """A sharded run takes its devices from the caller or the visible
     cards, never silently from the CPU: ``halo="explicit"`` raises without
     a card and without ``device="cpu"``, and runs a mesh of the CPU with
-    it; a state sharded over CPU shards runs on them."""
+    it; a state sharded over CPU shards runs on them, and with ``chunk``
+    (single steps: ``halo="explicit"`` has no ``multi_step``) as without."""
     _, cfg = _cfg()
     cfg = cfg.with_(halo="explicit")
     P = blast_wave(cfg)
@@ -156,8 +157,10 @@ def test_sharded_entry_points_need_a_card_or_the_cpu():
     sim8.run(max_steps=2)
     assert sim.t == sim8.t
     assert torch.equal(sim8.P.gather(), sim.P.gather())
-    with pytest.raises(NotImplementedError, match="A20.5"):
-        sim8.run(max_steps=4, chunk=2)
+    sim8.run(tmax=4.0, max_steps=4, chunk=2)
+    sim.run(tmax=4.0, max_steps=4)
+    assert sim8.step_count == 4 and sim8.t == sim.t
+    assert torch.equal(sim8.P.gather(), sim.P.gather())
 
 
 def test_sharded_run_snapshot_restarts_in_both_packages(tmp_path):

@@ -284,22 +284,33 @@ def test_cli_mesh_on_runs_a_hierarchy_on_eight_devices(tmp_path,
     """A 2-level parameter file with ``mesh on``, the visible devices
     patched to eight CPU devices: the run is sharded, its snapshot is the
     one-device run's bit for bit and the JAX CLI's (``mesh on``, its eight
-    devices) to 1e-12; a restart with ``mesh on`` re-shards the levels and
-    continues as the one-device restart does."""
+    devices) to 1e-12, and with ``chunk 2`` (a chunk of two steps, then
+    one step) bit for bit the run without it; a restart with ``mesh on``
+    re-shards the levels and continues as the one-device restart does."""
     monkeypatch.setattr(mesh, "visible_devices", lambda: [torch.device(
         "cpu")] * 8)
+    chunks = []
+    body = NGHierarchy._chunk
+    monkeypatch.setattr(NGHierarchy, "_chunk", lambda self, *a: chunks.append(
+        a[-1]) or body(self, *a))
     text = _ng_blast_text()
     runs = {}
-    for who, extra in (("one", []), ("mesh", ["mesh=on"])):
+    for who, extra in (("one", []), ("mesh", ["mesh=on"]),
+                       ("chunk", ["mesh=on", "chunk=2"])):
         pf, d = _write(tmp_path, text, who)
         runs[who] = cli.run_main([pf, "max_steps=3", *extra,
                                   "--device", "cpu"])
+    chunked = runs.pop("chunk")
     assert runs["mesh"].mesh is not None and runs["one"].mesh is None
-    assert runs["mesh"].mesh.size == 8
+    assert runs["mesh"].mesh.size == chunked.mesh.size == 8
+    assert chunks == [2] and chunked.step_count == 3
     rpf, _ = _write(tmp_path, text, "ref")
     ref = ref_cli.run_main([rpf, "max_steps=3", "mesh=on"])
     snaps = {w: load_snapshot_raw(_snap(r, 3))[1] for w, r in runs.items()}
     assert np.array_equal(snaps["mesh"], snaps["one"])
+    assert np.array_equal(load_snapshot_raw(_snap(chunked, 3))[1],
+                          snaps["mesh"])
+    assert chunked.t == runs["mesh"].t
     np.testing.assert_allclose(snaps["mesh"], ref_load(_snap(ref, 3))[1],
                                rtol=1e-12, atol=1e-13)
     again = {w: cli.run_main([_snap(r, 3), "max_steps=5",
@@ -405,13 +416,16 @@ def test_cylindrical_wind_hierarchy_on_a_mesh():
 
 
 def test_what_a_mesh_still_refuses():
-    """``run(chunk=k)`` on a sharded hierarchy raises naming A20.5; levels
-    that are not all sharded over one mesh are refused, naming them."""
+    """``run(chunk=k)`` on a sharded hierarchy runs (ROADMAP A20.5), bit
+    for bit the one-device run stepped singly; levels that are not all
+    sharded over one mesh are refused, naming them."""
     rcfg = _glm_blast((16, 16))
     states = _blast_states(rcfg, RefHierarchy(rcfg))
     one, sh = _pair(rcfg, states, 4)
-    with pytest.raises(NotImplementedError, match="A20.5"):
-        sh.run(max_steps=4, chunk=2)
+    sh.run(max_steps=4, chunk=2)
+    one.run(max_steps=4)
+    assert sh.step_count == 4
+    _equal(one, sh)
     cfg = sh.cfg0
     other = _cpu_mesh(cfg, 4)
     with pytest.raises(ValueError, match="levels 1"):

@@ -142,7 +142,7 @@ def test_unported_options_raise(field, value, monkeypatch):
     ghosts are not local edge data (the JAX package's guards of that
     mode).  ``mesh="on"`` over several visible devices takes such a face
     (ROADMAP A20.5's first item): the sharded run equals the one-device
-    run; chunking it still raises (A20.5)."""
+    run, and so does its run with ``chunk=2`` (A20.5)."""
     from pion_tpu_torch.physics import Physics
 
     rcfg = ref_config("glm3d")
@@ -173,8 +173,10 @@ def test_unported_options_raise(field, value, monkeypatch):
         max_steps=3)
     assert isinstance(sim.P, Sharded) and sim.mesh.size == 2
     assert sim.t == one.t and torch.equal(sim.P.gather(), one.P)
-    with pytest.raises(NotImplementedError, match="A20.5"):
-        sim.run(max_steps=5, chunk=2)
+    sim.run(max_steps=5, chunk=2)
+    one.run(max_steps=5)
+    assert sim.step_count == 5 and sim.t == one.t
+    assert torch.equal(sim.P.gather(), one.P)
 
 
 def test_unported_io_and_physics_raise(tmp_path):
