@@ -45,7 +45,12 @@ path again through
 single steps, and timed beside it; and the same on the one-card mesh (the
 blast, the Euler wind, the coupled hierarchy and DMR sharded, the k steps of
 the per-shard loop as one graph; an evolving source chunked on the mesh
-against one device), timed beside one device's chunked runs.
+against one device), timed beside one device's chunked runs.  Then a mesh
+across processes: two ranks of four shards each on the one card, on gloo
+(the script's own workers, ``--mp-worker``), run the mesh blast, the Euler
+wind, the coupled hierarchy at 2 x 64^3 and the blast chunked, each bit for
+bit the one-process mesh with the launches summed over the ranks equal to
+its own, timed beside it; and a world of one on NCCL runs the blast.
 Every phase prints one JSON line; any failed
 check raises, and the process then exits non-zero without the closing
 ``{"ok": true, ...}`` line.
@@ -4645,6 +4650,340 @@ def mesh_chunk_timing(runs, one_device: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# a mesh across processes: two ranks on the one card, on gloo
+# ---------------------------------------------------------------------------
+
+# the multi-process cases: the mesh blast (config 1, 128^3 f32, 10 steps),
+# the Euler wind (128^3 f32, 10), the coupled hierarchy (2 x 64^3 f32, 3
+# steps) and the blast chunked (k = 5, eager across processes); each
+# process holds 4 of the 8 shards of a 2x2x2 mesh, all on the one card
+MP_STEPS = {"blast": 10, "wind": 10, "coupled": 3, "chunk": 10}
+MP_CHUNK = 5
+MP_NG_N = 64
+MP_TIMEOUT_S = 420.0
+
+
+def mp_make(case: str, mesh_of, device):
+    """A fresh run of ``case`` on the mesh ``mesh_of(cfg)`` gives."""
+    from pion_tpu_torch import NGHierarchy, Simulation
+    from pion_tpu_torch.parallel import shard_state
+
+    if case in ("blast", "chunk"):
+        cfg = main_cfg(MESH_SHAPE, "float32")
+        P0 = torch.as_tensor(noisy_state(cfg, 72), device=device)
+        return Simulation(cfg, shard_state(P0, mesh_of(cfg)))
+    if case == "wind":
+        cfg, P0, make_physics = euler_wind_problem(MESH_SHAPE[0], "float32")
+        P0 = torch.as_tensor(P0, dtype=torch.float32, device=device)
+        return Simulation(cfg, shard_state(P0, mesh_of(cfg)),
+                          physics=make_physics())
+    cfg, states, make_physics = coupled_problem(MP_NG_N, "float32")
+    hier = NGHierarchy(cfg, 2, physics=make_physics(), mesh=mesh_of(cfg))
+    hier.set_states(states)
+    return hier
+
+
+def mp_advance(run, case: str, steps: int):
+    if case == "chunk":
+        run.run(max_steps=run.step_count + steps, chunk=MP_CHUNK)
+    elif case == "coupled":
+        for _ in range(steps):
+            run.step()
+    else:
+        run.run(max_steps=run.step_count + steps)
+
+
+def mp_run(case: str, mesh_of, device):
+    """``case`` as each process runs it: a warm-up run (2 steps, the
+    hierarchy 1, the chunk one chunk) dropped, then a fresh run of
+    MP_STEPS[case] steps on the host clock (``torch.cuda.synchronize`` on
+    both ends), its launches (B1-B6, the updates seeded with ``f0``) and
+    the bytes this process sent through the transport
+    (``parallel.comm.stats``) counted.  Returns the run and the record."""
+    from pion_tpu_torch.microphysics import fused_mpv3 as fm
+    from pion_tpu_torch.parallel import comm
+
+    warm = mp_make(case, mesh_of, device)
+    mp_advance(warm, case, {"coupled": 1, "chunk": MP_CHUNK}.get(case, 2))
+    del warm
+    run = mp_make(case, mesh_of, device)
+    n = MP_STEPS[case]
+    reset_counts()
+    fm.update.launches_seeded = 0
+    sent0, msg0 = comm.stats["bytes_sent"], comm.stats["messages"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mp_advance(run, case, n)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    return run, {"steps": n, "wall_ms_per_step": sec / n * 1e3,
+                 "launches": read_counts(),
+                 "updates_seeded": fm.update.launches_seeded,
+                 "bytes_sent": comm.stats["bytes_sent"] - sent0,
+                 "messages": comm.stats["messages"] - msg0}
+
+
+def mp_profile(run, case: str) -> dict:
+    """Device ms a step of this process's kernels over 2 more steps (the
+    hierarchy 1), by the profiler, the device only."""
+    steps = 1 if case == "coupled" else 2
+    return device_time_by_kernel(lambda: mp_advance(run, case, steps),
+                                 steps, cpu=False)
+
+
+def mp_worker(argv) -> int:
+    """One rank of a launch of :func:`mp_start` (``--mp-worker OUT BACKEND
+    SHARDS CASE...``, under a launcher's environment): the process group
+    on ``BACKEND`` with this rank on ``cuda:0``, ``SHARDS`` shards of each
+    case's mesh here; once the kernels are loaded and the group is up, it
+    waits for the file ``OUT/go``, then runs the cases; rank 0 writes each
+    case's gathered state and clock to ``OUT/CASE.npz``; every rank its
+    records to ``OUT/rankR.json``.  Prints no closing line."""
+    from pion_tpu_torch import _build
+    from pion_tpu_torch.parallel import comm, make_mesh
+
+    out, backend, shards, cases = argv[0], argv[1], int(argv[2]), argv[3:]
+    device = torch.device("cuda", 0)
+    _build.load_all()
+    comm.init_distributed(backend=backend, device=device,
+                          timeout_s=MP_TIMEOUT_S)
+    try:
+        while not os.path.exists(os.path.join(out, "go")):
+            time.sleep(0.05)
+
+        def mesh_of(cfg):
+            mesh = make_mesh(cfg, devices=[device] * shards)
+            if not (mesh.distributed and mesh.size == 8
+                    and len(mesh.local) == shards):
+                raise AssertionError(f"mesh {mesh} is not 8 shards over "
+                                     f"{comm.world_size()} processes")
+            return mesh
+
+        recs = {"rank": comm.rank(), "backend": comm.backend()}
+        for case in cases:
+            run, rec = mp_run(case, mesh_of, device)
+            got = [p.gather(dst=0) for p in states_of(run)]
+            if comm.rank() == 0:
+                np.savez(os.path.join(out, f"{case}.npz"),
+                         clock=np.array([run.t, run.step_count,
+                                         run.last_dt]),
+                         **{f"level{l}": g.cpu().numpy()
+                            for l, g in enumerate(got)})
+            del got
+            if case != "chunk":
+                rec["device"] = mp_profile(run, case)
+            recs[case] = rec
+            del run
+        with open(os.path.join(out, f"rank{comm.rank()}.json"), "w") as f:
+            json.dump(recs, f)
+    finally:
+        comm.destroy()
+    return 0
+
+
+def mp_start(d: str, name: str, backend: str, world: int, shards: int,
+             cases) -> dict:
+    """Start ``world`` ranks of this script's :func:`mp_worker` (a
+    launcher's environment on a free local port), each rank on ``cuda:0``;
+    they load and join the group, then wait for :func:`mp_go`."""
+    import socket
+
+    out = os.path.join(d, name)
+    os.makedirs(out, exist_ok=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port), LOCAL_RANK="0")
+    procs, logs = [], []
+    for r in range(world):
+        log = open(os.path.join(out, f"rank{r}.log"), "w+")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mp-worker", out,
+             backend, str(shards)] + list(cases),
+            env=dict(env, RANK=str(r)), stdout=log,
+            stderr=subprocess.STDOUT))
+    return {"name": f"{name} ({backend}, {world} ranks)", "out": out,
+            "procs": procs, "logs": logs, "world": world, "deadline": None}
+
+
+def mp_go(launch: dict):
+    """Let a launch's ranks run their cases, within MP_TIMEOUT_S."""
+    open(os.path.join(launch["out"], "go"), "w").close()
+    launch["deadline"] = time.monotonic() + MP_TIMEOUT_S
+
+
+def mp_wait(launch: dict):
+    """Wait for every rank of a launch, killing them all as soon as one
+    fails or its time runs out (then raising with the ranks' last output).
+    Returns the ranks' records and the directory of their results."""
+    procs, failed = launch["procs"], None
+    try:
+        while failed is None and any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs)
+                   if p.poll() not in (None, 0)]
+            if bad:
+                failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+            elif time.monotonic() > launch["deadline"]:
+                failed = f"timed out after {MP_TIMEOUT_S:.0f} s"
+            else:
+                time.sleep(0.1)
+        bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+        if failed is None and bad:
+            failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+    finally:
+        mp_kill(launch)
+    texts = []
+    for log in launch["logs"]:
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+    if failed:
+        raise AssertionError(f"{launch['name']}: {failed}\n" + "\n".join(
+            f"--- rank {r}\n{t[-3000:]}" for r, t in enumerate(texts)))
+    recs = []
+    for r in range(launch["world"]):
+        with open(os.path.join(launch["out"], f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs, launch["out"]
+
+
+def mp_kill(launch: dict):
+    for p in launch["procs"]:
+        if p.poll() is None:
+            p.kill()
+    for p in launch["procs"]:
+        p.wait()
+
+
+def mp_same(out: str, case: str, one: dict, what: str) -> dict:
+    """The launch's gathered result of ``case`` against the one-process
+    mesh's (``one``: its levels on the host and its clock): bit for bit,
+    the same ``t``, step count and ``last_dt``; raises otherwise."""
+    with np.load(os.path.join(out, f"{case}.npz")) as f:
+        clock = f["clock"]
+        levels = [f[f"level{l}"] for l in range(len(one["levels"]))]
+    diff = max(float(np.abs(a.astype(np.float64) - b.astype(np.float64))
+                     .max()) for a, b in zip(levels, one["levels"]))
+    same = all(np.array_equal(a, b) for a, b in zip(levels, one["levels"]))
+    if not (same and np.array_equal(clock, one["clock"])):
+        raise AssertionError(f"{what}: differs from the one-process mesh: "
+                             f"max |diff| {diff:.3e}, clock {clock.tolist()} "
+                             f"vs {one['clock'].tolist()}")
+    if not all(np.isfinite(a).all() for a in levels):
+        raise AssertionError(f"{what}: non-finite values")
+    return {"max_abs_diff": diff, "t": float(clock[0]),
+            "steps": int(clock[1])}
+
+
+def multiprocess_checks(d: str, device):
+    """A mesh across processes (ROADMAP A20.5's multi-host item): each case
+    of MP_STEPS run on the one-process 2x2x2 mesh of the card here, then by
+    two processes of 4 shards each on ``cuda:0`` (:func:`mp_start`), on gloo (NCCL refuses two
+    ranks on one device; gloo stages the strips through the host), and the
+    blast by a world of one on NCCL (its collectives on device tensors, its
+    moves local).  Every launch's result bit for bit the one-process
+    mesh's (the chunk's: the blast's single steps), its launches summed
+    over the ranks equal to the one-process mesh's (B1-B6 and the seeded
+    updates; the chunk's: the blast's 10 steps); wall ms a step (rank 0's
+    host clock) and device ms a step (each rank's profile, summed) for two
+    processes against one; the bytes the ranks sent a step.  Returns the
+    record and the summed launch counts by case."""
+    from pion_tpu_torch.parallel import make_mesh
+
+    t_start = time.perf_counter()
+
+    def one_mesh_of(cfg):
+        return make_mesh(cfg, devices=[device] * 8)
+
+    ones = {}
+    for case in ("blast", "wind", "coupled"):
+        run, rec = mp_run(case, one_mesh_of, device)
+        rec["levels"] = [as_tensor(p).cpu().numpy() for p in states_of(run)]
+        rec["clock"] = np.array([run.t, run.step_count, run.last_dt])
+        rec["device"] = mp_profile(run, case)
+        ones[case] = rec
+        del run
+    ones["chunk"] = ones["blast"]
+    one_s = time.perf_counter() - t_start
+
+    # the world of one starts beside the pair (its start-up overlaps
+    # theirs) and runs after them, so that nothing shares the card with a
+    # timed run
+    t0 = time.perf_counter()
+    pair = mp_start(d, "gloo2", "gloo", 2, 4, list(MP_STEPS))
+    alone = mp_start(d, "nccl1", "nccl", 1, 8, ["blast"])
+    try:
+        mp_go(pair)
+        recs, out = mp_wait(pair)
+        gloo_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mp_go(alone)
+        recs1, out1 = mp_wait(alone)
+        nccl_s = time.perf_counter() - t0
+    finally:
+        mp_kill(pair)
+        mp_kill(alone)
+    if not (recs[0]["backend"] == "gloo" and recs1[0]["backend"] == "nccl"):
+        raise AssertionError(f"backends {recs[0]['backend']}, "
+                             f"{recs1[0]['backend']}")
+
+    cases, summed = {}, {}
+    for case in MP_STEPS:
+        one = ones[case]
+        what = f"multiprocess {case}"
+        rec = {"vs_one_process": mp_same(out, case, one, what)}
+        counts = {k: sum(r[case]["launches"][k] for r in recs)
+                  for k in recs[0][case]["launches"]}
+        seeded = sum(r[case]["updates_seeded"] for r in recs)
+        if counts != one["launches"] or seeded != one["updates_seeded"]:
+            raise AssertionError(
+                f"{what}: launches over the ranks {counts} ({seeded} "
+                f"seeded), one process {one['launches']} "
+                f"({one['updates_seeded']})")
+        n = one["steps"]
+        sent = sum(r[case]["bytes_sent"] for r in recs)
+        rec.update(
+            steps=n, launches=counts, updates_seeded=seeded,
+            launches_by_rank=[r[case]["launches"] for r in recs],
+            wall_ms_per_step={"two_processes": recs[0][case][
+                "wall_ms_per_step"], "one_process": one["wall_ms_per_step"],
+                "by_rank": [r[case]["wall_ms_per_step"] for r in recs]},
+            transport={"bytes_per_step": sent / n,
+                       "messages_per_step": sum(
+                           r[case]["messages"] for r in recs) / n})
+        if case != "chunk":
+            dev = [r[case]["device"]["device_ms_per_step"] for r in recs]
+            rec["device_ms_per_step"] = {
+                "two_processes": (sum(dev) if all(v is not None for v in dev)
+                                  else None),
+                "by_rank": dev,
+                "one_process": one["device"]["device_ms_per_step"],
+                "by_group_rank0": recs[0][case]["device"][
+                    "device_ms_per_step_by_group"],
+                "by_group_one_process": one["device"][
+                    "device_ms_per_step_by_group"]}
+        cases[case] = rec
+        summed[case] = counts
+    nccl = {"vs_one_process": mp_same(out1, "blast", ones["blast"],
+                                      "NCCL world of one, blast"),
+            "launches": recs1[0]["blast"]["launches"],
+            "wall_ms_per_step": recs1[0]["blast"]["wall_ms_per_step"],
+            "bytes_sent": recs1[0]["blast"]["bytes_sent"]}
+    if nccl["launches"] != ones["blast"]["launches"]:
+        raise AssertionError(f"NCCL world of one: launches "
+                             f"{nccl['launches']}, one process "
+                             f"{ones['blast']['launches']}")
+    return ({"ranks": 2, "shards_per_rank": 4, "backend": "gloo",
+             "card": "cuda:0 for every rank", "cases": cases,
+             "nccl_world_of_one": nccl,
+             "seconds": {"one_process": one_s, "gloo_launch": gloo_s,
+                         "nccl_launch": nccl_s,
+                         "phase": time.perf_counter() - t_start}}, summed)
+
+
 def mpv8_params(n: int) -> dict:
     """``starbench_params`` with ``chem_code MPv8`` (the StarBench module,
     reference MPv8.cpp): the same medium as MPv8 counts it, with helium
@@ -5155,6 +5494,12 @@ def main(argv=None):
          **mesh_chunk_timing(mesh_chunk_runs, timing_one))
     del mesh_chunk_runs
 
+    # a mesh across processes: two ranks on this card on gloo and a world
+    # of one on NCCL, each case bit for bit the one-process mesh
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+        rec_mp, counts_mp = multiprocess_checks(d, device)
+    emit("multiprocess_checks", **rec_mp)
+
     # launches on the main paths: each kernel's count from the run of the
     # path its numbers were measured for (B1 and B2: the blast wave, and B1
     # again under "hii" and "ng"; the rest: the H II run); every path's
@@ -5222,7 +5567,9 @@ def main(argv=None):
                                        **{f"mesh_{k}": c[row["name"]]
                                           for k, c in counts_mf.items()},
                                        **{f"mesh_chunk_{k}": c[row["name"]]
-                                          for k, c in counts_mc.items()})
+                                          for k, c in counts_mc.items()},
+                                       **{f"multiprocess_{k}": c[row["name"]]
+                                          for k, c in counts_mp.items()})
     # B4 and B3 on the MPv6 mix: launches from the StarBench run, the
     # numbers from ``mpv6_kernels`` (128^3, and the 32^3 copy)
     for row in rows:
@@ -5260,14 +5607,17 @@ def main(argv=None):
                 ("cli_mpv7", counts_m7), ("mesh_blast", counts_mb),
                 ("mesh_wind", counts_mw), ("mesh_ng", counts_mn),
                 *((f"mesh_{k}", c) for k, c in counts_mf.items()),
-                *((f"mesh_chunk_{k}", c) for k, c in counts_mc.items()))}
+                *((f"mesh_chunk_{k}", c) for k, c in counts_mc.items()),
+                *((f"multiprocess_{k}", c) for k, c in counts_mp.items()))}
     b6_row.update(launches=counts_mw["sharded_octant_trace"],
                   launches_by_path=by_path)
     if min(b6_row["launches"], by_path["mesh_ng"], by_path[
-            "mesh_chunk_euler_wind"], by_path["mesh_chunk_coupled"]) < 1:
+            "mesh_chunk_euler_wind"], by_path["mesh_chunk_coupled"],
+            by_path["multiprocess_wind"],
+            by_path["multiprocess_coupled"]) < 1:
         raise AssertionError("sharded_octant_trace was not launched on the "
-                             "sharded wind bubble and hierarchy, single and "
-                             "chunked")
+                             "sharded wind bubble and hierarchy, single, "
+                             "chunked and across processes")
     rows.append(b6_row)
     if args.out:
         with open(os.path.join(args.out, "kernels.json"), "w") as f:
@@ -5281,4 +5631,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mp-worker"]:
+        sys.exit(mp_worker(sys.argv[2:]))
     sys.exit(main())

@@ -29,7 +29,15 @@ With one device, and with ``mesh off``, the run takes the one device.
 Snapshots hold the gathered state, so they restart on a mesh or without
 one, in either package.  ``chunk k`` takes k steps at a time on a mesh as
 on one device (one CUDA graph a chunk where every shard lies on one card).
-Multi-host runs are ROADMAP A20.5.
+
+Several processes, one a card (the JAX package's multi-host run)::
+
+    torchrun --nproc-per-node N -m pion_tpu_torch run params.txt mesh=on
+
+``run`` starts the process group from the launcher's environment first
+(``parallel.comm.maybe_distributed_init``: NCCL on cards, gloo with
+``--device cpu``, where each rank brings one CPU device), the mesh spans
+every process's devices, and only rank 0 writes snapshots and logs.
 """
 from __future__ import annotations
 
@@ -550,10 +558,10 @@ def equilibrate_mp(P: np.ndarray, cfg: SimConfig, params,
     return out.astype(cfg.np_dtype)
 
 
-def _split_device(argv: List[str], device=None):
+def _split_device(argv: List[str], device=None, resolve: bool = True):
     """``argv`` without its ``--device X`` / ``--device=X`` flag, and the
     device: the flag's, else ``device``, resolved (the CUDA device when
-    None, raising where there is none)."""
+    None, raising where there is none; as given with ``resolve`` off)."""
     rest = []
     it = iter(argv)
     for a in it:
@@ -568,14 +576,15 @@ def _split_device(argv: List[str], device=None):
     if device is not None and str(device) not in ("cuda", "cpu") \
             and not str(device).startswith("cuda:"):
         raise ValueError(f"--device must be cuda or cpu, got {device!r}")
-    return rest, resolve_device(device)
+    return rest, resolve_device(device) if resolve else device
 
 
 def _mesh_for(cfg: SimConfig, nlevels: int):
     """The mesh a run of ``cfg`` takes (the JAX package's rule): over the
-    visible devices when ``cfg.mesh`` asks for one
-    (``parallel.mesh.mesh_requested``) or, on one level, ``halo
-    explicit`` with several of them; else None, one device."""
+    visible devices (every process's, under a process group) when
+    ``cfg.mesh`` asks for one (``parallel.mesh.mesh_requested``) or, on
+    one level, ``halo explicit`` with several of them; else None, one
+    device."""
     from .parallel.mesh import make_mesh, mesh_requested, visible_devices
 
     if nlevels > 1:
@@ -660,11 +669,33 @@ def run_main(argv: List[str], device=None) -> "object":
     binary, reference: main_NG.cpp) and rebuilds chemistry/RT/winds from the
     snapshot header on restart (reference: main.cpp:62-158 with restart
     detect at :99-112; sim_init.cpp:173-321).  Runs on ``device`` (or
-    ``--device`` in ``argv``): the CUDA device when None."""
+    ``--device`` in ``argv``): the CUDA device when None.  Under a
+    launcher of several processes (torchrun's ``WORLD_SIZE`` > 1) it starts
+    the process group first (``parallel.comm.maybe_distributed_init``, as
+    ``pion_tpu/cli.py:601-603`` does) and takes it down at the end, also
+    when the run raises."""
+    from .parallel import comm
+
+    argv, device = _split_device(argv, device, resolve=False)
+    if device is None:
+        resolve_device(None)            # no card and no --device: raise
+    started = not comm.initialized() and comm.maybe_distributed_init(device)
+    try:
+        if comm.initialized() and (device is None or torch.device(
+                device).type == comm.local_device().type):
+            device = comm.local_device()
+        return _run(argv, resolve_device(device))
+    finally:
+        if started:
+            comm.destroy()
+
+
+def _run(argv: List[str], device) -> "object":
+    """:func:`run_main` on ``device``, the group (if any) up."""
     from .ng import NGHierarchy
+    from .parallel import comm
     from .sim import Simulation
 
-    argv, device = _split_device(argv, device)
     target = argv[0]
     overrides = argv[1:]
     if _is_snapshot(target):
@@ -732,7 +763,9 @@ def run_main(argv: List[str], device=None) -> "object":
     max_steps = int(params.get("max_steps", 10**9) or 10**9)
     chunk = int(params.get("chunk", 1) or 1)
     sim.run(max_steps=max_steps, chunk=chunk)
-    print(f"run: finished at t={sim.t:.6e} after {sim.step_count} steps")
+    if comm.rank() == 0:
+        print(f"run: finished at t={sim.t:.6e} after {sim.step_count} "
+              f"steps")
     return sim
 
 

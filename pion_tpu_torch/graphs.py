@@ -24,9 +24,10 @@ added at every replay.
 A sharded state (:class:`.parallel.mesh.Sharded`) is an input and an output
 like a tuple of its blocks.  A mesh whose shards all lie on one card (one
 card standing for every shard) is recorded as one graph; a mesh over
-several devices runs its chunk eagerly (:func:`on_one_card`), with one
-read-back a chunk as on the CPU: a capture that spans several cards is not
-recorded (ROADMAP A20.5).
+several devices or processes runs its chunk eagerly (:func:`on_one_card`),
+with one read-back a chunk as on the CPU: a capture that spans several cards
+is not recorded, nor one whose collectives cross processes (ROADMAP A20.5:
+a graph a process with NCCL inside it is open).
 """
 from __future__ import annotations
 
@@ -77,7 +78,7 @@ def _flatten(tree, out: list) -> list:
     if isinstance(tree, torch.Tensor):
         out.append(tree)
     elif isinstance(tree, Sharded):
-        out.extend(tree.blocks)
+        out.extend(b for b in tree.blocks if b is not None)
     elif isinstance(tree, (tuple, list)):
         for v in tree:
             _flatten(v, out)
@@ -98,8 +99,8 @@ def _rebuild(tree, leaves):
     if isinstance(tree, torch.Tensor):
         return next(leaves)
     if isinstance(tree, Sharded):
-        return Sharded([next(leaves) for _ in tree.blocks], tree.mesh,
-                       tree.shape)
+        return Sharded([None if b is None else next(leaves)
+                        for b in tree.blocks], tree.mesh, tree.shape)
     if isinstance(tree, (tuple, list)):
         return tuple(_rebuild(v, leaves) for v in tree)
     if isinstance(tree, dict):
@@ -117,7 +118,7 @@ def layout(tree):
         return (tuple(tree.shape), tree.dtype)
     if isinstance(tree, Sharded):
         return ("sharded", tree.mesh.factors,
-                tuple(layout(b) for b in tree.blocks))
+                tuple(None if b is None else layout(b) for b in tree.blocks))
     if isinstance(tree, (tuple, list)):
         return tuple(layout(v) for v in tree)
     if isinstance(tree, dict):
@@ -125,12 +126,28 @@ def layout(tree):
     return tree
 
 
+def _distributed(tree) -> bool:
+    """Whether ``tree`` holds a sharded tensor on a mesh of several
+    processes."""
+    from .parallel.mesh import Sharded
+
+    if isinstance(tree, Sharded):
+        return tree.mesh.distributed
+    if isinstance(tree, (tuple, list)):
+        return any(_distributed(v) for v in tree)
+    if isinstance(tree, dict):
+        return any(_distributed(v) for v in tree.values())
+    return False
+
+
 def on_one_card(tree) -> bool:
-    """Whether every tensor of ``tree`` lies on one CUDA device: what a
-    chunk must hold to be recorded as one graph."""
+    """Whether every tensor of ``tree`` lies on one CUDA device, and none
+    is sharded over several processes: what a chunk must hold to be
+    recorded as one graph."""
     leaves = _flatten(tree, [])
-    return bool(leaves) and all(x.is_cuda and x.device == leaves[0].device
-                                for x in leaves)
+    return (bool(leaves) and not _distributed(tree)
+            and all(x.is_cuda and x.device == leaves[0].device
+                    for x in leaves))
 
 
 class ChunkGraph:

@@ -452,7 +452,8 @@ class MPv3(MicrophysicsBase):
         return omx_dot, Edot
 
     # -- integration (reference: MPv3.cpp:1146-1235 + cvode_integrator) ----
-    def _stiff_solve(self, bufs, dt, n_sub=32, n_newton=8, stiffness=None):
+    def _stiff_solve(self, bufs, dt, n_sub=32, n_newton=8, stiffness=None,
+                     mesh=None):
         """Backward-Euler ladder with vectorized, bound-limited 2x2 Newton
         solves on ``bufs``: the cells to step, ``(1-x, E, nH, rt)`` a
         device, stepped as one set; returns ``(1-x, E)`` a buffer.
@@ -469,12 +470,15 @@ class MPv3(MicrophysicsBase):
         stiffness (every cell shares the count) and each substep's Newton
         iteration stops on convergence, the largest correction over every
         buffer's cells.  The stopping test is read back to the host every
-        iteration."""
+        iteration.  ``mesh``: a mesh of several processes whose ladders
+        step together (``stiffness`` already reduced over them): the test
+        is a max over the processes, which may hold no buffer."""
         if stiffness is not None:
             n_eff = int(torch.clamp(torch.ceil(4.0 * stiffness), 2, n_sub))
         else:
             n_eff = n_sub
-        dev0 = bufs[0][0].device
+        dev0 = bufs[0][0].device if bufs else stiffness.device
+        dtype = bufs[0][1].dtype if bufs else stiffness.dtype
 
         def newton_step(rhs, h, y, y_prev):
             omx, E = y
@@ -509,7 +513,7 @@ class MPv3(MicrophysicsBase):
         # convergence tolerance tracks the working precision: 1e-11 is
         # below f32 resolution and would force every Newton loop to the
         # n_newton cap
-        tol = 1.0e-11 if bufs[0][1].dtype == torch.float64 else 1.0e-6
+        tol = 1.0e-11 if dtype == torch.float64 else 1.0e-6
 
         def newton_converged(ys):
             """Newton to convergence (or n_newton), global max criterion."""
@@ -518,11 +522,17 @@ class MPv3(MicrophysicsBase):
             while i < n_newton and err > tol:
                 ys_n = [newton_step(rhs, h, y, yp) for (rhs, h), y, yp
                         in zip(steps, ys, ys_prev)]
-                err = float(torch.max(torch.stack([torch.maximum(
+                errs = [torch.maximum(
                     torch.max(torch.abs(yn[0] - y[0])),
                     torch.max(torch.abs((yn[1] - y[1])
                                         / torch.clamp(y[1], min=1e-300))))
-                    .to(dev0) for yn, y in zip(ys_n, ys)])))
+                    .to(dev0) for yn, y in zip(ys_n, ys)]
+                err = (torch.max(torch.stack(errs)) if errs else
+                       torch.full((), -float("inf"), dtype=dtype,
+                                  device=dev0))
+                if mesh is not None:
+                    err = mesh.reduce(err, "max")
+                err = float(err)
                 ys = ys_n
                 i += 1
             return ys
@@ -561,10 +571,12 @@ class MPv3(MicrophysicsBase):
         return omx + dt * d_omx, Eint + dt * d_E, use_euler, stiffness
 
     @staticmethod
-    def _ladder_sets(use_eulers):
+    def _ladder_sets(use_eulers, mesh=None):
         """The cells the plain ladder steps, a block each (the blocks of a
         grid in C order, so the last holds the grid's last cell; one block:
-        the grid): None when no cell is past the Euler cutoff, else
+        the grid; None at the blocks of other processes of ``mesh``, over
+        whose processes the counts are summed): None when no cell is past
+        the Euler cutoff, else
         ``(idx, gidx)`` a block.  Stiff-cell compaction: the stiff cells are
         typically a thin shell (the ionization front), a few % of the grid,
         so they are gathered into a buffer (``idx``, flat) and the Newton
@@ -576,17 +588,20 @@ class MPv3(MicrophysicsBase):
         with copies of that cell, whose Newton error enters the stopping
         test; the copies are identical, and one reproduces that).  The copy
         is dropped at the scatter."""
-        ncell = sum(u.numel() for u in use_eulers)
-        cap = min(ncell, max(4096, ncell // 8))
-        idxs = [torch.nonzero((~u).reshape(-1)).reshape(-1)
+        ncell = sum(u.numel() for u in use_eulers if u is not None)
+        idxs = [None if u is None
+                else torch.nonzero((~u).reshape(-1)).reshape(-1)
                 for u in use_eulers]
-        n_stiff = sum(i.numel() for i in idxs)
+        n_stiff = sum(i.numel() for i in idxs if i is not None)
+        if mesh is not None:
+            ncell, n_stiff = mesh.reduce_ints([ncell, n_stiff], "sum")
+        cap = min(ncell, max(4096, ncell // 8))
         if n_stiff == 0:
             return None
         if cap >= ncell or n_stiff > cap:
             return [(None, None)] * len(idxs)
         sets = [(i, i) for i in idxs]
-        if n_stiff < cap:
+        if n_stiff < cap and idxs[-1] is not None:
             last = idxs[-1]
             sets[-1] = (last, torch.cat([
                 last, last.new_tensor([use_eulers[-1].numel() - 1])]))
@@ -634,7 +649,7 @@ class MPv3(MicrophysicsBase):
                                      f0=rt.get("f0"))
         return self._finish_update(P, nH, omx1, E1)
 
-    def update_blocks(self, Ps, dts, cfg: SimConfig, rts):
+    def update_blocks(self, Ps, dts, cfg: SimConfig, rts, mesh=None):
         """The plain ladder's update (``kernels="off"``) of the blocks of a
         grid (``Ps``, ``dts`` and ``rts`` a block each, in the mesh's C
         order; one block: the grid).  The blocks step as the whole grid
@@ -643,27 +658,37 @@ class MPv3(MicrophysicsBase):
         max, ``mpv3.py:600``), the compaction's choice and capacity are the
         whole grid's (:meth:`_ladder_sets`), and one Newton stopping test
         reads every block's ladder cells.  The blocks of a device share
-        one buffer, so a mesh costs the host one ladder a device."""
-        parts = []
-        for P, dt, rt in zip(Ps, dts, rts):
-            dt = torch.as_tensor(dt, dtype=P.dtype, device=P.device)
+        one buffer, so a mesh costs the host one ladder a device.  On a
+        ``mesh`` of several processes ``Ps`` holds None at the other
+        processes' blocks (and so does the result): the counts, the
+        stiffness and the stopping test are reduced over the processes, and
+        the copy of the grid's last cell goes to the last shard's owner."""
+        mesh = mesh if mesh is not None and mesh.distributed else None
+        own = [i for i, P in enumerate(Ps) if P is not None]
+        parts = [None] * len(Ps)
+        for i in own:
+            P, rt = Ps[i], rts[i]
+            dt = torch.as_tensor(dts[i], dtype=P.dtype, device=P.device)
             omx, Eint, nH = self.local_state(P)
             first = self.ydot(omx, Eint, nH, rt)
             # global short-circuit: when NO cell is past the Euler cutoff
             # the implicit ladder is skipped entirely (reference: the
             # per-cell Euler-vs-CVODE branch, MPv3.cpp:1146-1235
             # EULER_CUTOFF)
-            parts.append((omx, Eint, nH) + self._euler_part(
-                omx, Eint, dt, first))
-        st = [(p[0], p[1]) for p in parts]
-        sets = self._ladder_sets([p[5] for p in parts])
+            parts[i] = (omx, Eint, nH) + self._euler_part(
+                omx, Eint, dt, first)
+        st = [None if p is None else (p[0], p[1]) for p in parts]
+        sets = self._ladder_sets([None if p is None else p[5]
+                                  for p in parts], mesh)
         if sets is not None:
-            dev0 = Ps[0].device
-            stiffness = torch.max(torch.stack([p[6].to(dev0)
-                                               for p in parts]))
+            dev0 = Ps[own[0]].device
+            stiffness = torch.max(torch.stack([parts[i][6].to(dev0)
+                                               for i in own]))
+            if mesh is not None:
+                stiffness = mesh.reduce(stiffness, "max")
             groups, bufs = [], []
-            for dev in dict.fromkeys(P.device for P in Ps):
-                members = [i for i, P in enumerate(Ps) if P.device == dev
+            for dev in dict.fromkeys(Ps[i].device for i in own):
+                members = [i for i in own if Ps[i].device == dev
                            and (sets[i][1] is None or sets[i][1].numel())]
                 if not members:
                     continue
@@ -674,7 +699,8 @@ class MPv3(MicrophysicsBase):
                     self._take([parts[i][k] for i in members], gidxs, shape)
                     for k in (0, 1, 2))
                     + (self._take([rts[i] for i in members], gidxs, shape),))
-            outs = self._stiff_solve(bufs, dts[0], stiffness=stiffness)
+            outs = self._stiff_solve(bufs, dts[own[0]], stiffness=stiffness,
+                                     mesh=mesh)
             for members, (o1, e1) in zip(groups, outs):
                 sizes = [parts[i][0].numel() if sets[i][1] is None
                          else sets[i][1].numel() for i in members]
@@ -683,12 +709,13 @@ class MPv3(MicrophysicsBase):
                     idx = sets[i][0]
                     st[i] = (self._put(parts[i][0], o, idx),
                              self._put(parts[i][1], e, idx))
-        out = []
-        for P, p, (omx_st, E_st) in zip(Ps, parts, st):
-            omx, Eint, nH, omx_eul, E_eul, use_euler, _ = p
-            out.append(self._finish_update(
-                P, nH, torch.where(use_euler, omx_eul, omx_st),
-                torch.where(use_euler, E_eul, E_st)))
+        out = [None] * len(Ps)
+        for i in own:
+            omx, Eint, nH, omx_eul, E_eul, use_euler, _ = parts[i]
+            omx_st, E_st = st[i]
+            out[i] = self._finish_update(
+                Ps[i], nH, torch.where(use_euler, omx_eul, omx_st),
+                torch.where(use_euler, E_eul, E_st))
         return out
 
     def _use_fused(self, cfg: SimConfig) -> bool:

@@ -45,7 +45,12 @@ and BC89 write into whichever parent blocks hold the cells
 (:func:`.parallel.mesh.write_regions`); each cell takes the one-device
 value.  ``run(chunk=k)`` on a mesh selects the levels block by block; where
 every shard lies on one card a chunk is one CUDA graph, over several
-devices it runs eagerly.
+devices it runs eagerly.  On a mesh of several processes each process
+steps its own blocks of every level, and the glue's boxes, strips and
+planes go between the processes through :mod:`.parallel.comm` (the
+parent's window to the ranks on the level's outer boundary, the fine sums
+to the ranks whose parent blocks BC89 corrects); ``save`` gathers to rank
+0, which alone writes.
 """
 from __future__ import annotations
 
@@ -64,6 +69,7 @@ from .ops.eqns import cons_to_prim, prim_to_cons
 from .ops.recon import van_albada
 from .ops.sweep import dynamics_dU, interface_flux, interface_flux_pair
 from .ops.timestep import dynamics_dt
+from .parallel.halo import neighbour_strips
 from .parallel.mesh import Sharded, gather, region, write_regions
 from .stepper import (_on, _scma_flag, _Shards, cell_advance, glm_psi_damp,
                       later, limit_dt, select)
@@ -160,7 +166,7 @@ class NGHierarchy:
         if n_levels is None:
             n_levels = cfg0.nlevels
         self.mesh = mesh
-        self.device = (mesh.device(0) if mesh is not None
+        self.device = (mesh.home if mesh is not None
                        else resolve_device(device))
         self.n_levels = n_levels
         self.cfg0 = cfg0
@@ -272,7 +278,7 @@ class NGHierarchy:
               and self.cfg0.halo != "explicit"):
             self.mesh = make_mesh(self.cfg0)
         if self.mesh is not None:
-            self.device = self.mesh.device(0)
+            self.device = self.mesh.home
         dtype = self.cfg0.torch_dtype
         # the strips of the frozen faces are taken from the states as given,
         # on the host, before they are cast
@@ -325,7 +331,7 @@ class NGHierarchy:
                 self.P[l] = self.phys[l].apply_internal_bcs(P, self.t)
             else:
                 self.P[l] = Sharded(
-                    [ph.apply_internal_bcs(b, self.t)
+                    [None if b is None else ph.apply_internal_bcs(b, self.t)
                      for ph, b in zip(self.shards[l].phys, P.blocks)],
                     P.mesh, P.shape)
 
@@ -448,11 +454,18 @@ class NGHierarchy:
         slabs of axis a padded along the axes before it
         (``slabs[a][side]``).  The prolongation is the same function of the
         cell whatever window holds it, so a block's part of a slab is the
-        one-device level's ghosts there."""
+        one-device level's ghosts there.  On a mesh of several processes
+        the window is assembled on every rank that owns a block on the
+        level's outer boundary (None elsewhere)."""
         cfg = self.cfgs[level]
         ng, n, off = cfg.ng, cfg.shape, self.offs[level]
         box = [(o - ng, o + m // 2 + ng) for o, m in zip(off, n)]
-        win = region(parent, box, self.device)
+        mesh = parent.mesh
+        outer = [mesh.owner(b) for b, c in enumerate(mesh.coords)
+                 if any(i in (0, f - 1) for i, f in zip(c, mesh.factors))]
+        win = region(parent, box, self.device, dst=outer)
+        if win is None:
+            return None
         base = [lo for lo, _ in box]
         slabs = []
         for a in range(cfg.ndim):
@@ -525,28 +538,32 @@ class NGHierarchy:
         for axis in range(cfg.ndim):
             a = 1 + axis
             last = mesh.factors[axis] - 1
-            padded = []
-            for b, blk in enumerate(out):
-                rng, i = sh.ranges[b], mesh.coords[b][axis]
+
+            def outer(b, side, axis=axis, last=last):
+                return mesh.coords[b][axis] == (0, last)[side]
+
+            strips = neighbour_strips(out, mesh, axis, ng,
+                                      lambda b, side: not outer(b, side))
+            padded = [None] * mesh.size
+            for b in mesh.local:
+                rng = sh.ranges[b]
                 sides = []
                 for side in (0, 1):
-                    if i == (0, last)[side]:
-                        sides.append(slabs[axis][side][(slice(None),) + tuple(
-                            slice(None) if bx == axis
-                            else slice(lo, hi + 2 * ng) if bx < axis
-                            else slice(lo, hi)
-                            for bx, (lo, hi) in enumerate(rng))]
-                            .to(blk.device, non_blocking=True))
+                    if not outer(b, side):
+                        sides.append(strips[(b, side)])
                         continue
-                    nb = out[mesh.neighbour(b, axis, 2 * side - 1)]
-                    sides.append((nb.narrow(a, nb.shape[a] - ng, ng)
-                                  if side == 0 else nb.narrow(a, 0, ng))
-                                 .to(blk.device, non_blocking=True))
-                padded.append(torch.cat([sides[0], blk, sides[1]], dim=a))
+                    sides.append(slabs[axis][side][(slice(None),) + tuple(
+                        slice(None) if bx == axis
+                        else slice(lo, hi + 2 * ng) if bx < axis
+                        else slice(lo, hi)
+                        for bx, (lo, hi) in enumerate(rng))]
+                        .to(out[b].device, non_blocking=True))
+                padded[b] = torch.cat([sides[0], out[b], sides[1]], dim=a)
             out = padded
         for ax, sd in self.dom_sides[level]:
             strip = self.level_strips[level].get((ax, sd))
-            for b, rng in enumerate(sh.ranges):
+            for b in mesh.local:
+                rng = sh.ranges[b]
                 if mesh.coords[b][ax] != (0, mesh.factors[ax] - 1)[sd]:
                     continue
                 part = None if strip is None else strip[(slice(None),) + tuple(
@@ -566,13 +583,15 @@ class NGHierarchy:
         nd = cfg_c.ndim
         off = self.offs[level_f]
         if isinstance(Pf, Sharded):
-            # each child block's average, written into whichever parent
-            # blocks hold its window
+            # each child block's average (made by its owner), written into
+            # whichever parent blocks hold its window
             return write_regions(Pc, [
                 (tuple((off[a] + lo // 2, off[a] + hi // 2)
                        for a, (lo, hi) in enumerate(rng)),
-                 self._restrict_window(blk, level_f, rng))
-                for blk, rng in zip(Pf.blocks, Pf.ranges())])
+                 None if blk is None
+                 else self._restrict_window(blk, level_f, rng),
+                 Pf.mesh.owner(b))
+                for b, (blk, rng) in enumerate(zip(Pf.blocks, Pf.ranges()))])
         # window-only conversion: uncovered coarse cells stay bitwise
         # untouched
         P_win = self._restrict_window(Pf, level_f)
@@ -823,8 +842,8 @@ class NGHierarchy:
         rts = sh.raytrace(S, sp) if limit and phys.sources else None
         keep = (limit and rt0_map is not None and phys.sources
                 and not any(s.at_infinity for s in phys.sources))
-        vals, kept = [], []
-        for b, blk in enumerate(S.blocks):
+        vals, kept = [], [None] * S.mesh.size
+        for b, blk in S.local():
             pb = sh.phys[b]
             excl = pb.wind_exclude_mask(blk) if pb is not None and pb.winds \
                 else None
@@ -837,14 +856,14 @@ class NGHierarchy:
                     r = dict(r)
                     if f0 is not None:
                         r["f0"] = f0
-                    kept.append(r)
+                    kept[b] = r
                 else:
                     ts = pb.timescale(blk, sh.cfg, rt=r, sp=sp)
                 d = torch.minimum(d, ts)
             vals.append(d)
         if keep:
             rt0_map[level] = kept
-        return _Shards.reduce(vals, torch.min)
+        return sh.reduce(vals, torch.min)
 
     def compute_dt(self, sp=None) -> float:
         dt0 = float(self._level_dt(self.P, sp))
@@ -1013,11 +1032,13 @@ class NGHierarchy:
         that hold the interface (with ``use_fast`` from 4-cell slabs of
         those blocks, two at a time where both lie in one), and the child's
         boundary planes are assembled over its blocks on the first
-        shard's device."""
+        shard's device.  On a mesh of several processes each process steps
+        its own blocks (the lists hold None at the others')."""
         cfg, geom, phys = self.cfgs[level], self.geoms[level], self.phys[level]
         sh = self.shards[level]
         P = states[level]
-        blocks = range(len(P.blocks))
+        blocks = P.mesh.local
+        nblk = P.mesh.size
         scma = _scma_flag(phys)
         glm = cfg.eqn is Eqn.GLM
         chem = phys is not None and phys.mp is not None
@@ -1031,28 +1052,36 @@ class NGHierarchy:
         def on(x, b):
             return _on(x, P.blocks[b])
 
+        def each(fn):
+            """``fn(b)`` of this process's blocks, None at the others'."""
+            out = [None] * nblk
+            for b in blocks:
+                out[b] = fn(b)
+            return out
+
         def sweep(pads, dt_, order, fused=fused):
             if fused:
-                return [fused_sweep.dynamics_dU_fused(
+                return each(lambda b: fused_sweep.dynamics_dU_fused(
                     pads[b], sh.cfg, sh.geoms[b], on(dt_, b), order,
-                    ch=on(ch, b), scma=scma) for b in blocks], None
-            outs = [dynamics_dU(pads[b], sh.cfg, sh.geoms[b], on(dt_, b),
-                                order, ch=on(ch, b), scma=scma)
-                    for b in blocks]
-            return [o[0] for o in outs], [o[1] for o in outs]
+                    ch=on(ch, b), scma=scma)), None
+            outs = each(lambda b: dynamics_dU(
+                pads[b], sh.cfg, sh.geoms[b], on(dt_, b), order,
+                ch=on(ch, b), scma=scma))
+            return ([None if o is None else o[0] for o in outs],
+                    [None if o is None else o[1] for o in outs])
 
         def chemistry(dU, state, dt_):
             rt = (rt0_map or {}).get(level) if state is P else None
             if rt is None and phys.sources:
                 rt = sh.raytrace(state, sp, tau_in)
             new = sh.chemistry(P, dt_, rt)
-            return [dU[b] + sh.phys[b].mp_delta_U(
+            return each(lambda b: dU[b] + sh.phys[b].mp_delta_U(
                 P.blocks[b], state.blocks[b], on(dt_, b), sh.cfg,
                 rt=None if rt is None else rt[b], sp=sp,
-                P_new=None if new is None else new[b]) for b in blocks]
+                P_new=None if new is None else new[b]))
 
         def finish(dU, dt_, t_end, ceiling):
-            out = []
+            out = [None] * nblk
             for b in blocks:
                 Pn = cell_advance(P.blocks[b], dU[b], sh.cfg)
                 if glm:
@@ -1067,7 +1096,7 @@ class NGHierarchy:
                 if pb is not None and pb.winds:
                     Pn = pb.apply_internal_bcs(Pn, later(on(t0, b),
                                                          on(t_end, b)))
-                out.append(Pn)
+                out[b] = Pn
             return Sharded(out, P.mesh, P.shape)
 
         # predictor half-step (1st-order space)
@@ -1121,7 +1150,9 @@ class NGHierarchy:
                                            later(t0, half), states, sp)
                        if child else None)
         if child:
-            sums = [(0.5 * (f1[0] + f2[0]), 0.5 * (f1[1] + f2[1]))
+            # (None on a side whose fine sums this process does not need)
+            sums = [tuple(None if a is None else 0.5 * (a + b)
+                          for a, b in zip(f1, f2))
                     for f1, f2 in zip(fine_sums_1, fine_sums_2)]
             self._bc89_blocks(dU_f, get_face, sums, level, dt)
         P_new = finish(dU_f, dt, dt, True)
@@ -1133,25 +1164,70 @@ class NGHierarchy:
         return [tuple(self._face_sums(get_face, ax, side, level)
                       for side in (0, 1)) for ax in range(cfg.ndim)]
 
+    def _bc89_targets(self, level: int, ax: int, side: int):
+        """The blocks of ``level`` (a parent) whose coarse cells just
+        outside the child, on ``side`` of axis ``ax``, BC89 corrects (each
+        with its part of the child's footprint and its cell), as
+        :meth:`_bc89_blocks` walks them."""
+        cfg, sh = self.cfgs[level], self.shards[level]
+        off_c = self.offs[level + 1]
+        n = cfg.shape[ax]
+        cell = (off_c[ax] - 1, off_c[ax] + n // 2)[side]
+        out = []
+        if not 0 <= cell < n:
+            return out
+        for b, rng in enumerate(sh.ranges):
+            # the block's part of the child's footprint across ax
+            cut = [(max(lo, off_c[bx]),
+                    min(hi, off_c[bx] + cfg.shape[bx] // 2))
+                   for bx, (lo, hi) in enumerate(rng)]
+            if any(c0 >= c1 for bx, (c0, c1) in enumerate(cut) if bx != ax):
+                continue
+            if rng[ax][0] <= cell < rng[ax][1]:
+                out.append((b, cut, cell))
+        return out
+
     def _face_sums(self, get_face, ax: int, side: int, level: int):
         """The restricted boundary-plane flux of one face of a sharded
         level (:meth:`_restrict_face_flux` of each block on that face),
-        assembled over the blocks on the first shard's device."""
+        assembled over the blocks on the first shard's device.  On a mesh
+        of several processes each block's part goes from its owner to each
+        rank whose parent blocks BC89 corrects there
+        (:meth:`_bc89_targets`), in one phase; elsewhere the result is
+        None."""
+        from .parallel.comm import Move
+
         cfg, sh, mesh = self.cfgs[level], self.shards[level], self.mesh
         i = (0, cfg.shape[ax])[side]
+        face = [(b, rng) for b, rng in enumerate(sh.ranges)
+                if mesh.coords[b][ax] == (0, mesh.factors[ax] - 1)[side]]
+        to = (sorted({mesh.owner(b) for b, _, _
+                      in self._bc89_targets(level - 1, ax, side)})
+              if mesh.distributed else [mesh.rank])
+        moves, where = [], []
+        for b, rng in face:
+            part = (self._restrict_face_flux(get_face(b, ax, i), ax, level,
+                                             rng) if mesh.owns(b) else None)
+            shape = (cfg.nvar,) + tuple((hi - lo) // 2 for bx, (lo, hi)
+                                        in enumerate(rng) if bx != ax)
+            for q in to:
+                where.append(rng)
+                moves.append(Move(mesh.owner(b), q, part, shape,
+                                  self.cfg0.torch_dtype, self.device))
+        got = mesh.transfer(moves)
+        if mesh.rank not in to:
+            return None
         out = None
-        for b, rng in enumerate(sh.ranges):
-            if mesh.coords[b][ax] != (0, mesh.factors[ax] - 1)[side]:
+        for rng, m, part in zip(where, moves, got):
+            if m.dst != mesh.rank:
                 continue
-            part = self._restrict_face_flux(get_face(b, ax, i), ax, level,
-                                            rng)
             if out is None:
                 out = part.new_empty((part.shape[0],) + tuple(
                     n // 2 for bx, n in enumerate(cfg.shape) if bx != ax),
                     device=self.device)
             out[(slice(None),) + tuple(
                 slice(lo // 2, hi // 2) for bx, (lo, hi) in enumerate(rng)
-                if bx != ax)] = part.to(self.device, non_blocking=True)
+                if bx != ax)] = part
         return out
 
     def _bc89_blocks(self, dU, get_face, fine_face_sums, level: int, dt):
@@ -1159,26 +1235,17 @@ class NGHierarchy:
         coarse cells just outside the child corrects its own, from its own
         face plane and its part of the fine sums.  ``dU``: the blocks'
         fresh tensors, written in place."""
-        cfg, sh = self.cfgs[level], self.shards[level]
-        nd = cfg.ndim
+        cfg, sh, mesh = self.cfgs[level], self.shards[level], self.mesh
         off_c = self.offs[level + 1]
-        for ax in range(nd):
-            n = cfg.shape[ax]
-            lo_i, hi_i = off_c[ax], off_c[ax] + n // 2
+        for ax in range(cfg.ndim):
             g = self.geoms[level].axes[ax]
-            for b, rng in enumerate(sh.ranges):
-                # the block's part of the child's footprint across ax
-                cut = [(max(lo, off_c[bx]),
-                        min(hi, off_c[bx] + cfg.shape[bx] // 2))
-                       for bx, (lo, hi) in enumerate(rng)]
-                if any(c0 >= c1 for bx, (c0, c1) in enumerate(cut)
-                       if bx != ax):
-                    continue
-                blo, bhi = rng[ax]
-                for side, cell, iface in ((0, lo_i - 1, lo_i),
-                                          (1, hi_i, hi_i)):
-                    if not (0 <= cell < n and blo <= cell < bhi):
+            for side in (0, 1):
+                iface = off_c[ax] + (0, cfg.shape[ax] // 2)[side]
+                for b, cut, cell in self._bc89_targets(level, ax, side):
+                    if not mesh.owns(b):
                         continue
+                    rng = sh.ranges[b]
+                    blo = rng[ax][0]
                     plane = get_face(b, ax, iface)[(slice(None),) + tuple(
                         slice(c0 - lo, c1 - lo) for bx, ((c0, c1), (lo, _))
                         in enumerate(zip(cut, rng)) if bx != ax)]
@@ -1334,33 +1401,48 @@ class NGHierarchy:
 
     # -- snapshots / restart (reference: every snapshot is a full restart
     # file with one mesh per level, dataIO/dataio_silo.h:67) ---------------
-    def _stacked_state(self) -> np.ndarray:
+    def _stacked_state(self) -> Optional[np.ndarray]:
         """The levels' states, stacked (a sharded level gathered): what a
-        snapshot holds, on one mesh or none, in either package."""
-        return torch.stack([gather(p) for p in self.P]).detach().cpu().numpy()
+        snapshot holds, on one mesh or none, in either package.  On a mesh
+        of several processes they are gathered to rank 0 (None on the
+        others)."""
+        levels = [gather(p, dst=0) for p in self.P]
+        if any(p is None for p in levels):
+            return None
+        return torch.stack(levels).detach().cpu().numpy()
 
     def _header_cfg(self) -> SimConfig:
         return self.cfg0.with_(nlevels=self.n_levels, ng_centre=self.centre)
 
     def save(self, path: Optional[str] = None, wait: bool = True) -> str:
+        """Write a snapshot of every level (``wait=False``: queued on the
+        background writer).  On a mesh of several processes only rank 0
+        writes, the levels gathered to it (with ``wait`` every rank returns
+        once it is written)."""
         if path is None:
             if not self.outfile:
                 raise ValueError("set NGHierarchy.outfile or pass a path")
             path = f"{self.outfile}.{self.step_count:08d}"
         extra = {"params": self.params} if self.params else None
+        state = self._stacked_state()
         if wait:
             from .io import save_snapshot
 
             self.flush_io()
-            return save_snapshot(path, self._stacked_state(),
-                                 self._header_cfg(), self.t, self.step_count,
-                                 extra=extra)
+            if state is not None:   # (else another process writes it)
+                path = save_snapshot(path, state, self._header_cfg(), self.t,
+                                     self.step_count, extra=extra)
+            if self.mesh is not None:
+                self.mesh.barrier()     # the file is there for every rank
+            return path
+        if state is None:
+            return path
         if self._writer is None:
             from .io.snapshot import AsyncSnapshotWriter
 
             self._writer = AsyncSnapshotWriter()
-        self._writer.submit(path, self._stacked_state(), self._header_cfg(),
-                            self.t, self.step_count, extra)
+        self._writer.submit(path, state, self._header_cfg(), self.t,
+                            self.step_count, extra)
         return path
 
     def flush_io(self):
@@ -1374,7 +1456,9 @@ class NGHierarchy:
         the full Physics (chemistry/RT/winds) is rebuilt from it
         (reference: sim_init.cpp:173-321 rebuilds MP/RT/winds from the
         header registry).  ``mesh=`` splits the levels over a mesh
-        (a snapshot holds the gathered levels, whatever wrote it)."""
+        (a snapshot holds the gathered levels, whatever wrote it; on a mesh
+        of several processes every rank reads the file and keeps its
+        blocks)."""
         from .io.snapshot import load_snapshot_raw
 
         cfg, P, t, step, extra = load_snapshot_raw(path)
@@ -1453,7 +1537,7 @@ class NGHierarchy:
             logger.log(self.step_count, self.t, dt, self.P[0])
         if self.device.type == "cuda":
             for dev in ({self.device} if self.mesh is None
-                        else set(self.mesh.devices.flat)):
+                        else self.mesh.local_devices()):
                 torch.cuda.synchronize(dev)
         if self.outfile is not None:
             self.save()

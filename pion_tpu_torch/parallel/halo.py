@@ -9,7 +9,9 @@ physical boundary conditions only where it owns a domain edge, and runs the
 sweep (the CUDA kernels B1/B2 on a card, as on one device) on its padded
 block.  A strip crosses as a tensor copy: a peer copy between two cards
 (``Tensor.to(device, non_blocking=True)``, on the current stream), a slice
-copy when both shards share a device.  The dt is a min over the shards, the
+copy when both shards share a device; between processes, a send and a
+receive of :mod:`.comm`, the strips of one axis in one phase
+(:func:`neighbour_strips`).  The dt is a min over the shards, the
 reference's MPI_Allreduce (sim_control_MPI.cpp:503-504).
 
 A shard that owns a domain face fills its ghosts there as the whole grid
@@ -79,36 +81,65 @@ def local_config(cfg: SimConfig, mesh: Mesh) -> SimConfig:
     return out
 
 
-def _pad_axis_sharded(blocks: List[torch.Tensor], cfg: SimConfig, axis: int,
-                      bdatas, mesh: Mesh, t) -> List[torch.Tensor]:
-    """Pad one axis of every block: a shard's low ghosts are its lower
-    neighbour's top ``ng`` planes and its high ghosts its upper neighbour's
-    bottom ones (round the ring, so a periodic face wraps); a shard that
-    owns a non-periodic domain face takes the physical BC's ghosts there."""
+def neighbour_strips(blocks: List[Optional[torch.Tensor]], mesh: Mesh,
+                     axis: int, ng: int, takes) -> dict:
+    """The ghost strips that cross between shards along ``axis``, in one
+    phase of moves (:meth:`.mesh.Mesh.transfer`): for every shard ``b`` and
+    side (0 low, 1 high) where ``takes(b, side)``, its lower neighbour's
+    top ``ng`` planes or its upper neighbour's bottom ones (round the
+    ring).  ``blocks``: one a shard (None at other processes' shards), all
+    of one shape.  Returns ``{(b, side): strip}`` for this process's
+    shards, each strip on its block's device."""
+    from .comm import Move
+
+    ax = 1 + axis
+    like = blocks[mesh.local[0]]
+    shape = tuple(ng if d == ax else n for d, n in enumerate(like.shape))
+    keys, moves = [], []
+    for b in range(mesh.size):
+        for side in (0, 1):
+            if not takes(b, side):
+                continue
+            nb = mesh.neighbour(b, axis, 2 * side - 1)
+            src = blocks[nb]
+            if src is not None:
+                src = (src.narrow(ax, src.shape[ax] - ng, ng) if side == 0
+                       else src.narrow(ax, 0, ng))
+            keys.append((b, side))
+            moves.append(Move(mesh.owner(nb), mesh.owner(b), src, shape,
+                              like.dtype, mesh.device(b)))
+    return {k: v for k, v in zip(keys, mesh.transfer(moves))
+            if v is not None}
+
+
+def _pad_axis_sharded(blocks: List[Optional[torch.Tensor]], cfg: SimConfig,
+                      axis: int, bdatas, mesh: Mesh, t) -> List:
+    """Pad one axis of every block of this process: a shard's low ghosts
+    are its lower neighbour's top ``ng`` planes and its high ghosts its
+    upper neighbour's bottom ones (round the ring, so a periodic face
+    wraps; :func:`neighbour_strips`); a shard that owns a non-periodic
+    domain face takes the physical BC's ghosts there."""
     ng = cfg.ng
     ax = 1 + axis
     m = mesh.factors[axis]
     lo_kind, hi_kind = cfg.bcs[axis]
-    out = []
-    for b, blk in enumerate(blocks):
+
+    def own(b, side):
         i = mesh.coords[b][axis]
-        own_lo = i == 0 and lo_kind is not BC.PERIODIC
-        own_hi = i == m - 1 and hi_kind is not BC.PERIODIC
-        if own_lo or own_hi:
+        return (i == 0 and lo_kind is not BC.PERIODIC if side == 0
+                else i == m - 1 and hi_kind is not BC.PERIODIC)
+
+    strips = neighbour_strips(blocks, mesh, axis, ng,
+                              lambda b, side: not own(b, side))
+    out = [None] * mesh.size
+    for b in mesh.local:
+        blk = blocks[b]
+        if own(b, 0) or own(b, 1):
             lo_bc, hi_bc = axis_ghosts(blk, cfg, axis, bdatas[b],
                                        t=_on(t, blk))
-        if own_lo:
-            lo = lo_bc
-        else:
-            nb = blocks[mesh.neighbour(b, axis, -1)]
-            lo = nb.narrow(ax, nb.shape[ax] - ng, ng).to(blk.device,
-                                                         non_blocking=True)
-        if own_hi:
-            hi = hi_bc
-        else:
-            nb = blocks[mesh.neighbour(b, axis, +1)]
-            hi = nb.narrow(ax, 0, ng).to(blk.device, non_blocking=True)
-        out.append(torch.cat([lo, blk, hi], dim=ax))
+        lo = lo_bc if own(b, 0) else strips[(b, 0)]
+        hi = hi_bc if own(b, 1) else strips[(b, 1)]
+        out[b] = torch.cat([lo, blk, hi], dim=ax)
     return out
 
 
@@ -122,8 +153,8 @@ def block_bdatas(bdata: Optional[BoundaryData], cfg: SimConfig,
 
 def apply_bcs_sharded(P: Sharded, cfg: SimConfig, bdata=None,
                       mesh: Optional[Mesh] = None, t=0.0) -> List[torch.Tensor]:
-    """Every shard's block padded with ``ng`` ghost layers on each face
-    (``cfg`` is the blocks' config, :func:`local_config`; ``bdata`` one
+    """Every block of this process padded with ``ng`` ghost layers on each
+    face, None at other processes' shards (``cfg`` is the blocks' config, :func:`local_config`; ``bdata`` one
     ``BoundaryData`` a shard, :func:`block_bdatas`, or one for every shard
     where no face reads positions or strips).  Axes are padded in order,
     each from the blocks padded along the axes before it, so edge and
@@ -135,7 +166,8 @@ def apply_bcs_sharded(P: Sharded, cfg: SimConfig, bdata=None,
     out = list(P.blocks)
     for axis in range(cfg.ndim):
         if mesh.factors[axis] == 1:
-            out = [_pad_axis(blk, cfg, axis, bd, t=_on(t, blk))
+            out = [None if blk is None
+                   else _pad_axis(blk, cfg, axis, bd, t=_on(t, blk))
                    for blk, bd in zip(out, bdata)]
         else:
             out = _pad_axis_sharded(out, cfg, axis, bdata, mesh, t)

@@ -21,9 +21,15 @@ them: the nested-grid hierarchy's prolongation, restriction and BC89 planes
 cross the shards through them, wherever a child block's window falls among
 the parent's blocks.
 
-Not ported: the JAX package's placement through ``mesh_utils`` (TPU
-topology, which a card has none of) and ``maybe_distributed_init``: a mesh
-lives in one process (multi-host is ROADMAP A20.5).
+A mesh may span several processes, one a card (or several on the CPU),
+under a ``torch.distributed`` group (:mod:`.comm`): each shard has an
+owning rank, a process holds only its own blocks (a :class:`Sharded`
+holds None for the others'), every process runs the same program on its
+blocks, and what crosses a process (a strip, a box, a gathered state, a
+reduction) goes through :mod:`.comm`.  The shards are placed as the JAX
+package's ``create_hybrid_device_mesh`` places them (:func:`placement`:
+the slowest axes across processes).  Not ported: the placement within a
+process by TPU topology, which a card has none of.
 """
 from __future__ import annotations
 
@@ -59,9 +65,9 @@ def decompose(n_devices: int, ndim: int, shape: Sequence[int]) -> Tuple[int, ...
 def _split_dcn(factors, nproc):
     """Factor the per-axis shard counts into (hosts, per-host) so the
     slowest axes cross hosts: the exchange is nearest-neighbour on the mesh,
-    so only the outermost slabs cross between hosts.  Kept for the
-    multi-host step (ROADMAP A20.5); None when ``nproc`` does not divide
-    the mesh that way."""
+    so only the outermost slabs cross between hosts (the JAX package's,
+    ``pion_tpu/parallel/mesh.py:50-67``); None when ``nproc`` does not
+    divide the mesh that way."""
     dcn = [1] * len(factors)
     ici = list(factors)
     rem = nproc
@@ -75,18 +81,66 @@ def _split_dcn(factors, nproc):
     return (dcn, ici) if rem == 1 else None
 
 
+def placement(factors: Sequence[int], counts: Sequence[int]):
+    """Each shard's owning rank and its index among that rank's devices,
+    as two int arrays of shape ``factors``, for ranks that bring
+    ``counts[r]`` devices each: the JAX package's multi-host placement
+    (``pion_tpu/parallel/mesh.py:93-98``).  Where :func:`_split_dcn` splits
+    the factors into ``(dcn, ici)``, shard coordinate ``c`` belongs to rank
+    ``ravel(c // ici)`` over the ``dcn`` grid and is its device
+    ``ravel(c % ici)`` (``mesh_utils.create_hybrid_device_mesh``'s layout);
+    else the devices are laid out rank-major in a plain reshape, as the
+    JAX package's fallback does."""
+    factors = tuple(int(f) for f in factors)
+    n = int(np.prod(factors))
+    if sum(counts) != n:
+        raise ValueError(f"{sum(counts)} devices for a mesh of {factors}")
+    nproc = len(counts)
+    split = (_split_dcn(factors, nproc)
+             if len(set(counts)) == 1 else None)
+    if split is None:
+        starts = np.cumsum([0] + list(counts))
+        flat = np.arange(n)
+        owner = np.searchsorted(starts, flat, side="right") - 1
+        return (owner.reshape(factors),
+                (flat - starts[owner]).reshape(factors))
+    dcn, ici = split
+    owner = np.empty(factors, dtype=np.int64)
+    local = np.empty(factors, dtype=np.int64)
+    for c in np.ndindex(*factors):
+        owner[c] = np.ravel_multi_index(
+            tuple(ci // ii for ci, ii in zip(c, ici)), dcn)
+        local[c] = np.ravel_multi_index(
+            tuple(ci % ii for ci, ii in zip(c, ici)), ici)
+    return owner, local
+
+
 class Mesh:
     """Devices laid out by the mesh factors (``devices``: a numpy object
-    array of ``torch.device``), with one axis name a grid axis.  Shards are
-    numbered in the array's C order."""
+    array of ``torch.device``, None at the shards of other processes), with
+    one axis name a grid axis.  Shards are numbered in the array's C order.
+    ``ranks``: each shard's owning rank (all 0 in one process); ``rank``:
+    this process's; ``distributed``: the mesh spans a process group, and
+    what crosses a process goes through :mod:`.comm`."""
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
+                 ranks: Optional[np.ndarray] = None, rank: int = 0,
+                 distributed: bool = False):
         if devices.ndim != len(axis_names):
             raise ValueError(f"mesh of shape {devices.shape} with axes "
                              f"{tuple(axis_names)}")
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.coords: List[Tuple[int, ...]] = list(np.ndindex(devices.shape))
+        self.ranks = (np.zeros(devices.shape, dtype=np.int64) if ranks is None
+                      else np.asarray(ranks, dtype=np.int64))
+        self.rank = int(rank)
+        self.distributed = bool(distributed)
+        # this process's shards, in the mesh's order
+        self.local: List[int] = [b for b, c in enumerate(self.coords)
+                                 if self.ranks[c] == self.rank]
+        if not self.local:
+            raise ValueError(f"rank {self.rank} owns no shard of the mesh")
 
     @property
     def factors(self) -> Tuple[int, ...]:
@@ -101,8 +155,30 @@ class Mesh:
     def size(self) -> int:
         return int(self.devices.size)
 
-    def device(self, b: int) -> torch.device:
+    @property
+    def process_ranks(self) -> List[int]:
+        """The ranks that own shards of the mesh."""
+        return sorted({int(r) for r in self.ranks.flat})
+
+    @property
+    def home(self) -> torch.device:
+        """The device of this process's first shard: where its reductions
+        over its shards land."""
+        return self.device(self.local[0])
+
+    def local_devices(self) -> List[torch.device]:
+        """The devices of this process's shards, each once."""
+        return list(dict.fromkeys(self.device(b) for b in self.local))
+
+    def device(self, b: int) -> Optional[torch.device]:
+        """Shard ``b``'s device (None where another process owns it)."""
         return self.devices[self.coords[b]]
+
+    def owner(self, b: int) -> int:
+        return int(self.ranks[self.coords[b]])
+
+    def owns(self, b: int) -> bool:
+        return self.owner(b) == self.rank
 
     def index(self, coord: Sequence[int]) -> int:
         return int(np.ravel_multi_index(tuple(coord), self.factors))
@@ -128,9 +204,45 @@ class Mesh:
         return [tuple((c * n, (c + 1) * n) for c, n in zip(coord, blk))
                 for coord in self.coords]
 
+    def transfer(self, moves):
+        """A phase of :class:`.comm.Move` s between the shards' processes
+        (:func:`.comm.transfer`; in one process, every move a
+        ``Tensor.to``)."""
+        if self.distributed:
+            from . import comm
+
+            return comm.transfer(moves)
+        return [m.send.to(m.device, non_blocking=True) for m in moves]
+
+    def reduce(self, x: torch.Tensor, op: str) -> torch.Tensor:
+        """``op`` ("min", "max" or "sum") of this process's reduction ``x``
+        over the mesh's processes (``x`` itself in one process)."""
+        if self.distributed:
+            from . import comm
+
+            return comm.all_reduce(x, op)
+        return x
+
+    def reduce_ints(self, values: Sequence[int], op: str) -> List[int]:
+        """:meth:`reduce` of a few host integers."""
+        if self.distributed:
+            from . import comm
+
+            return comm.all_reduce_ints(values, op)
+        return [int(v) for v in values]
+
+    def barrier(self):
+        """Wait for every process of the mesh (nothing in one process)."""
+        if self.distributed:
+            from . import comm
+
+            comm.barrier()
+
     def __repr__(self):
-        devs = sorted({str(d) for d in self.devices.flat})
-        return f"Mesh({self.shape}, devices={devs})"
+        devs = sorted({str(d) for d in self.devices.flat if d is not None})
+        procs = (f", ranks={self.process_ranks}, rank={self.rank}"
+                 if self.distributed else "")
+        return f"Mesh({self.shape}, devices={devs}{procs})"
 
 
 def _device(d) -> torch.device:
@@ -142,8 +254,14 @@ def _device(d) -> torch.device:
 
 def visible_devices() -> List[torch.device]:
     """The devices a mesh takes when its caller names none: every visible
-    CUDA device (none without a card).  The one place that lists them, so
-    that a test can stand eight CPU devices in for eight cards."""
+    CUDA device (none without a card); under a process group, every
+    process's device (:func:`.comm.local_device`), rank-major.  The one
+    place that lists them, so that a test can stand eight CPU devices in
+    for eight cards."""
+    from . import comm
+
+    if comm.initialized():
+        return [comm.local_device()] * comm.world_size()
     if not torch.cuda.is_available():
         return []
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
@@ -153,9 +271,17 @@ def make_mesh(cfg, n_devices: Optional[int] = None, devices=None) -> Mesh:
     """The spatial mesh of ``cfg``'s grid over ``devices`` (a list, in which
     one device may stand several times), else over the first ``n_devices``
     (all, by default) of :func:`visible_devices`; without a card and
-    without ``devices`` it raises.  The factors are :func:`decompose`'s."""
+    without ``devices`` it raises.  The factors are :func:`decompose`'s.
+
+    Under a process group (:mod:`.comm`) ``devices`` is this process's list
+    (by default its one device, :func:`.comm.local_device`), every rank
+    must give as many, and the mesh has the world size times that many
+    shards, placed as :func:`placement` says."""
+    from . import comm
+
+    multi = comm.initialized()
     if devices is None:
-        devices = visible_devices()
+        devices = [comm.local_device()] if multi else visible_devices()
         if not devices:
             raise RuntimeError(
                 "no CUDA device for the mesh; give its devices "
@@ -168,17 +294,32 @@ def make_mesh(cfg, n_devices: Optional[int] = None, devices=None) -> Mesh:
     devices = [_device(d) for d in devices]
     if not devices:
         raise ValueError("a mesh needs at least one device")
-    factors = decompose(len(devices), cfg.ndim, cfg.shape)
-    arr = np.empty(len(devices), dtype=object)
-    for i, d in enumerate(devices):
-        arr[i] = d
-    return Mesh(arr.reshape(factors), AXIS_NAMES[-cfg.ndim:])
+    names = AXIS_NAMES[-cfg.ndim:]
+    if not multi:
+        factors = decompose(len(devices), cfg.ndim, cfg.shape)
+        arr = np.empty(len(devices), dtype=object)
+        for i, d in enumerate(devices):
+            arr[i] = d
+        return Mesh(arr.reshape(factors), names)
+    world, me = comm.world_size(), comm.rank()
+    most, least = comm.all_reduce_ints([len(devices), -len(devices)], "max")
+    if most != -least:
+        raise ValueError(f"rank {me} brings {len(devices)} devices to the "
+                         f"mesh; every rank must bring as many (between "
+                         f"{-least} and {most} here)")
+    factors = decompose(world * len(devices), cfg.ndim, cfg.shape)
+    owner, local = placement(factors, [len(devices)] * world)
+    arr = np.empty(factors, dtype=object)
+    for c in np.ndindex(*factors):
+        arr[c] = devices[local[c]] if owner[c] == me else None
+    return Mesh(arr, names, ranks=owner, rank=me, distributed=True)
 
 
 def mesh_requested(cfg) -> bool:
     """Whether ``cfg.mesh`` shards a run over :func:`visible_devices` (the
-    JAX package's gate): never with one visible device; "on" with several;
-    "auto" with several cards (the JAX package's accelerator backends)."""
+    JAX package's gate; every process's devices under a group): never with
+    one device; "on" with several; "auto" with several cards (the JAX
+    package's accelerator backends)."""
     devs = visible_devices()
     if len(devs) <= 1:
         return False
@@ -190,9 +331,10 @@ class Sharded:
     """A tensor split over a mesh: its last ``len(mesh.factors)`` axes are
     the grid's, cut into equal contiguous blocks, one a shard (in the mesh's
     order), each on its shard's device; the leading axes (the variables of a
-    state) stay whole.  ``shape`` is the whole tensor's."""
+    state) stay whole.  ``shape`` is the whole tensor's.  On a mesh of
+    several processes ``blocks`` holds None at the shards of the others."""
 
-    def __init__(self, blocks: Sequence[torch.Tensor], mesh: Mesh,
+    def __init__(self, blocks: Sequence[Optional[torch.Tensor]], mesh: Mesh,
                  shape: Sequence[int]):
         if len(blocks) != mesh.size:
             raise ValueError(f"{len(blocks)} blocks for {mesh.size} shards")
@@ -205,31 +347,51 @@ class Sharded:
         return self.shape[len(self.shape) - len(self.mesh.factors):]
 
     @property
+    def block_shape(self) -> Tuple[int, ...]:
+        """Every block's shape."""
+        nd = len(self.mesh.factors)
+        return (self.shape[:len(self.shape) - nd]
+                + self.mesh.block_shape(self.grid_shape))
+
+    @property
+    def first(self) -> torch.Tensor:
+        """This process's first block."""
+        return self.blocks[self.mesh.local[0]]
+
+    @property
     def dtype(self) -> torch.dtype:
-        return self.blocks[0].dtype
+        return self.first.dtype
 
     @property
     def device(self) -> torch.device:
-        """The first shard's device: where reductions over the shards land."""
-        return self.blocks[0].device
+        """This process's first shard's device: where reductions over the
+        shards land."""
+        return self.first.device
 
     @property
     def is_cuda(self) -> bool:
-        return self.blocks[0].is_cuda
+        return self.first.is_cuda
+
+    def local(self):
+        """``(b, block)`` of this process's shards."""
+        return [(b, self.blocks[b]) for b in self.mesh.local]
 
     def ranges(self):
         """Each shard's global index range along every grid axis."""
         return self.mesh.ranges(self.grid_shape)
 
     def map(self, fn) -> "Sharded":
-        """``fn`` of every block (one that keeps the block's shape)."""
-        return Sharded([fn(b) for b in self.blocks], self.mesh, self.shape)
+        """``fn`` of every block of this process (one that keeps the
+        block's shape)."""
+        return Sharded([None if b is None else fn(b) for b in self.blocks],
+                       self.mesh, self.shape)
 
-    def gather(self, device=None) -> torch.Tensor:
-        return gather(self, device)
+    def gather(self, device=None, dst="all") -> Optional[torch.Tensor]:
+        return gather(self, device, dst)
 
     def all_finite(self) -> bool:
-        return all(bool(torch.isfinite(b).all()) for b in self.blocks)
+        ok = int(all(bool(torch.isfinite(b).all()) for _, b in self.local()))
+        return bool(self.mesh.reduce_ints([ok], "min")[0])
 
     def __repr__(self):
         return (f"Sharded(shape={self.shape}, dtype={self.dtype}, "
@@ -238,9 +400,11 @@ class Sharded:
 
 def shard_state(P, mesh: Mesh, cfg=None) -> Sharded:
     """``P`` (``(nvar, *shape)``, or any tensor whose last axes are the
-    grid's) split over ``mesh``: a copy of each block on its shard's device,
-    in ``P``'s dtype.  A :class:`Sharded` on another mesh is gathered
-    first; on this mesh it is returned as it is."""
+    grid's) split over ``mesh``: a copy of each block of this process on
+    its shard's device, in ``P``'s dtype (on a mesh of several processes
+    every rank holds the whole ``P`` and keeps its blocks).  A
+    :class:`Sharded` on another mesh is gathered first; on this mesh it is
+    returned as it is."""
     if isinstance(P, Sharded):
         if P.mesh is mesh:
             return P
@@ -248,27 +412,54 @@ def shard_state(P, mesh: Mesh, cfg=None) -> Sharded:
     P = torch.as_tensor(P)
     nd = len(mesh.factors)
     lead = (slice(None),) * (P.ndim - nd)
-    blocks = []
-    for b, rng in enumerate(mesh.ranges(P.shape[P.ndim - nd:])):
-        part = P[lead + tuple(slice(lo, hi) for lo, hi in rng)]
+    blocks = [None] * mesh.size
+    rngs = mesh.ranges(P.shape[P.ndim - nd:])
+    for b in mesh.local:
+        part = P[lead + tuple(slice(lo, hi) for lo, hi in rngs[b])]
         blk = torch.empty(part.shape, dtype=P.dtype, device=mesh.device(b))
         blk.copy_(part)
-        blocks.append(blk)
+        blocks[b] = blk
     return Sharded(blocks, mesh, P.shape)
 
 
-def gather(S, device=None) -> torch.Tensor:
+def _receivers(mesh: Mesh, dst):
+    """The ranks that receive a gathered tensor or a box: every rank of
+    the mesh for "all", else those listed (or the one given)."""
+    if dst == "all":
+        return mesh.process_ranks
+    if isinstance(dst, int):
+        return [dst]
+    return sorted({int(r) for r in dst})
+
+
+def gather(S, device=None, dst="all") -> Optional[torch.Tensor]:
     """The whole tensor of a :class:`Sharded` (a new tensor on ``device``,
-    the first shard's by default); anything else is returned as it is."""
+    this process's first shard's by default); anything else is returned as
+    it is.  On a mesh of several processes it arrives on the ranks ``dst``
+    ("all", a rank or a list of ranks) and is None on the others."""
     if not isinstance(S, Sharded):
         return S
+    mesh = S.mesh
     dev = S.device if device is None else _device(device)
-    nd = len(S.mesh.factors)
+    nd = len(mesh.factors)
     lead = len(S.shape) - nd
-    parts = np.empty(len(S.blocks), dtype=object)
-    for i, b in enumerate(S.blocks):
-        parts[i] = b.to(dev)
-    parts = parts.reshape(S.mesh.factors)
+    if mesh.distributed:
+        from .comm import Move
+
+        to = _receivers(mesh, dst)
+        moves = [Move(mesh.owner(b), q, S.blocks[b], S.block_shape, S.dtype,
+                      dev) for b in range(mesh.size) for q in to]
+        got = mesh.transfer(moves)
+        if mesh.rank not in to:
+            return None
+        blocks = [got[b * len(to) + to.index(mesh.rank)]
+                  for b in range(mesh.size)]
+    else:
+        blocks = [b.to(dev) for b in S.blocks]
+    parts = np.empty(len(blocks), dtype=object)
+    for i, b in enumerate(blocks):
+        parts[i] = b
+    parts = parts.reshape(mesh.factors)
     for a in reversed(range(nd)):
         joined = np.empty(parts.shape[:-1], dtype=object)
         for idx in np.ndindex(parts.shape[:-1]):
@@ -292,27 +483,51 @@ def _box_parts(shape, box):
     return inside, clamp
 
 
-def region(S: Sharded, box, device=None) -> torch.Tensor:
+def _overlap(box, rng):
+    """The part of ``box`` inside the block of range ``rng`` (None where
+    they do not overlap)."""
+    cut = [(max(a, lo), min(b, hi)) for (a, b), (lo, hi) in zip(box, rng)]
+    return None if any(c0 >= c1 for c0, c1 in cut) else cut
+
+
+def region(S: Sharded, box, device=None, dst="all") -> Optional[torch.Tensor]:
     """The box of the global grid (``box``: a ``(lo, hi)`` a grid axis, in
     global cell indices; past the grid's edges the edge cells repeat) as a
-    new tensor on ``device`` (the first shard's by default), its leading
-    axes whole, assembled from the blocks that overlap it, each overlap
-    copied once."""
-    lead = len(S.shape) - len(S.mesh.factors)
+    new tensor on ``device`` (this process's first shard's by default),
+    its leading axes whole, assembled from the blocks that overlap it, each
+    overlap copied once.  On a mesh of several processes the box arrives
+    on the ranks ``dst`` ("all", a rank or a list of ranks; each overlap
+    goes from its block's owner to each of them) and is None on the
+    others."""
+    from .comm import Move
+
+    mesh = S.mesh
+    lead = len(S.shape) - len(mesh.factors)
     inside, clamp = _box_parts(S.grid_shape, box)
     dev = S.device if device is None else _device(device)
+    to = _receivers(mesh, dst) if mesh.distributed else [mesh.rank]
+    cuts, moves = [], []
+    for b, rng in enumerate(S.ranges()):
+        cut = _overlap(inside, rng)
+        if cut is None:
+            continue
+        blk = S.blocks[b]
+        src = None if blk is None else blk[(slice(None),) * lead + tuple(
+            slice(c0 - lo, c1 - lo) for (c0, c1), (lo, _) in zip(cut, rng))]
+        shape = tuple(S.shape[:lead]) + tuple(c1 - c0 for c0, c1 in cut)
+        for q in to:
+            cuts.append(cut)
+            moves.append(Move(mesh.owner(b), q, src, shape, S.dtype, dev))
+    got = mesh.transfer(moves)
+    if mesh.rank not in to:
+        return None
     out = torch.empty(tuple(S.shape[:lead]) + tuple(
         b - a for a, b in inside), dtype=S.dtype, device=dev)
-    for blk, rng in zip(S.blocks, S.ranges()):
-        cut = [(max(a, lo), min(b, hi)) for (a, b), (lo, hi)
-               in zip(inside, rng)]
-        if any(c0 >= c1 for c0, c1 in cut):
-            continue
-        src = blk[(slice(None),) * lead + tuple(
-            slice(c0 - lo, c1 - lo) for (c0, c1), (lo, _) in zip(cut, rng))]
-        out[(slice(None),) * lead + tuple(
-            slice(c0 - a, c1 - a) for (c0, c1), (a, _) in zip(cut, inside))
-            ] = src.to(dev, non_blocking=True)
+    for cut, m, part in zip(cuts, moves, got):
+        if m.dst == mesh.rank:
+            out[(slice(None),) * lead + tuple(
+                slice(c0 - a, c1 - a) for (c0, c1), (a, _)
+                in zip(cut, inside))] = part
     for ax, (c_lo, c_hi) in enumerate(clamp):
         if not (c_lo or c_hi):
             continue
@@ -325,26 +540,46 @@ def region(S: Sharded, box, device=None) -> torch.Tensor:
 
 
 def write_regions(S: Sharded, writes) -> Sharded:
-    """``S`` with each ``(box, value)`` of ``writes`` written in (boxes
-    inside the grid, in global cell indices; ``value`` a tensor of the
-    box's shape on any device): a new :class:`Sharded` whose blocks that no
-    box overlaps are ``S``'s own, and whose others are copies, written."""
-    nd = len(S.mesh.factors)
+    """``S`` with each ``(box, value)`` or ``(box, value, rank)`` of
+    ``writes`` written in (boxes inside the grid, in global cell indices;
+    ``value`` a tensor of the box's shape on any device, held by ``rank``
+    and None on the other ranks, or by every rank where no rank is named):
+    a new :class:`Sharded` whose blocks that no box overlaps are ``S``'s
+    own, and whose others are copies, written.  Each overlap goes from the
+    value's rank to the block's owner, every write's overlaps in one
+    phase."""
+    from .comm import Move
+
+    mesh = S.mesh
+    nd = len(mesh.factors)
     lead = len(S.shape) - nd
     blocks = list(S.blocks)
     copied = set()
-    for box, value in writes:
+    targets, moves = [], []
+    for w in writes:
+        box, value = w[0], w[1]
+        src = w[2] if len(w) > 2 else None
         for b, rng in enumerate(S.ranges()):
-            cut = [(max(a, lo), min(c, hi)) for (a, c), (lo, hi)
-                   in zip(box, rng)]
-            if any(c0 >= c1 for c0, c1 in cut):
+            cut = _overlap(box, rng)
+            if cut is None:
                 continue
-            if b not in copied:
-                blocks[b] = blocks[b].clone()
-                copied.add(b)
-            part = value[(slice(None),) * lead + tuple(
-                slice(c0 - a, c1 - a) for (c0, c1), (a, _) in zip(cut, box))]
-            blocks[b][(slice(None),) * lead + tuple(
-                slice(c0 - lo, c1 - lo) for (c0, c1), (lo, _) in zip(cut, rng))
-                ] = part.to(blocks[b].device, non_blocking=True)
+            owner = mesh.owner(b)
+            frm = owner if src is None else src
+            part = None if value is None else value[
+                (slice(None),) * lead + tuple(
+                    slice(c0 - a, c1 - a) for (c0, c1), (a, _)
+                    in zip(cut, box))]
+            targets.append((b, cut, rng))
+            moves.append(Move(frm, owner, part, tuple(S.shape[:lead]) + tuple(
+                c1 - c0 for c0, c1 in cut), S.dtype, mesh.device(b)))
+    got = mesh.transfer(moves)
+    for (b, cut, rng), part in zip(targets, got):
+        if part is None:
+            continue
+        if b not in copied:
+            blocks[b] = blocks[b].clone()
+            copied.add(b)
+        blocks[b][(slice(None),) * lead + tuple(
+            slice(c0 - lo, c1 - lo) for (c0, c1), (lo, _) in zip(cut, rng))
+            ] = part
     return Sharded(blocks, S.mesh, S.shape)

@@ -279,12 +279,14 @@ class Physics:
 
         out: Dict = {}
         for i, src in enumerate(self.sources):
-            dtau = Sharded([bp.dtau_for(src, b, bp._ds0(i, src, b))
+            dtau = Sharded([None if b is None
+                            else bp.dtau_for(src, b, bp._ds0(i, src, b))
                             for bp, b in zip(blocks, Ph.blocks)],
                            Ph.mesh, Ph.grid_shape)
             tau = self.raytracer.trace_sharded(i, dtau)
             if tau_in is not None and i in tau_in:
-                tau = Sharded([t + block_tau_in(tau_in, bp, t.device)[i]
+                tau = Sharded([None if t is None
+                               else t + block_tau_in(tau_in, bp, t.device)[i]
                                for t, bp in zip(tau.blocks, blocks)],
                               tau.mesh, tau.shape)
             out[i] = tau
@@ -300,11 +302,15 @@ class Physics:
         (``Raytracer.trace_sharded``), each block's dict assembled from its
         part of them.  ``tau_in``: a nested level's upstream offsets for
         its sources at infinity, the whole level's (each block takes its
-        part, :func:`block_tau_in`)."""
+        part, :func:`block_tau_in`).  On a mesh of several processes only
+        this process's blocks (``blocks`` and the result hold None at the
+        others')."""
         taus = self.trace_taus_sharded(Ph, blocks)
-        return [bp.raytrace(b, tau_in=block_tau_in(tau_in, bp, b.device),
-                            sp=sp,
-                            taus={i: t.blocks[k] for i, t in taus.items()})
+        return [None if b is None
+                else bp.raytrace(b, tau_in=block_tau_in(tau_in, bp, b.device),
+                                 sp=sp,
+                                 taus={i: t.blocks[k]
+                                       for i, t in taus.items()})
                 for k, (bp, b) in enumerate(zip(blocks, Ph.blocks))]
 
     def raytrace(self, Ph, tau_in: Optional[Dict] = None,

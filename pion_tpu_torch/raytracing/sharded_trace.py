@@ -16,7 +16,8 @@ dropped.  The values are the single-device trace's.
 The TPU kernel flips every block so that one SPMD program serves all shards;
 B5 takes the source in any cell, so here each block is traced with its own
 corner as the source and nothing is flipped.  The planes cross as tensor
-copies (a peer copy between two cards, a slice copy on one).  The eight
+copies (a peer copy between two cards, a slice copy on one), or between
+processes as sends and receives of :mod:`..parallel.comm`.  The eight
 launches run one after another on the current stream.
 
 :func:`sharded_octant_trace` launches B5 per shard for CUDA blocks (and
@@ -26,7 +27,7 @@ per block.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -44,22 +45,39 @@ def supports_sharded(shape: Sequence[int], src_idx: Sequence[int],
                for a in range(3))
 
 
-def _exchange(blocks: Sequence[torch.Tensor], mesh):
-    """Every block with the source planes it needs: per axis in turn, each
-    upper shard takes its lower neighbour's top plane as a ghost plane in
-    front.  Returns the padded blocks and each one's source cell."""
+def _exchange(blocks: Sequence[Optional[torch.Tensor]], mesh):
+    """Every block of this process with the source planes it needs: per
+    axis in turn, each upper shard takes its lower neighbour's top plane as
+    a ghost plane in front, from the neighbour's block as padded along the
+    axes before (the planes of one axis in one phase of moves,
+    :meth:`..parallel.mesh.Mesh.transfer`).  Returns the padded blocks
+    (None at other processes' shards) and each one's source cell."""
+    from ..parallel.comm import Move
+
     cubes = list(blocks)
+    base = blocks[mesh.local[0]]
     for a in range(3):
+        keys, moves = [], []
         for b, coord in enumerate(mesh.coords):
-            if coord[a] == 1:
-                nb = cubes[mesh.neighbour(b, a, -1)]
-                top = nb.narrow(a, nb.shape[a] - 1, 1)
-                cubes[b] = torch.cat(
-                    [top.to(cubes[b].device, non_blocking=True), cubes[b]],
-                    dim=a)
-    srcs = [tuple(0 if c else blocks[b].shape[a] - 1
+            if coord[a] != 1:
+                continue
+            nb = mesh.neighbour(b, a, -1)
+            # the neighbour's shape so far: one plane more along each
+            # earlier axis where it (as ``b``) lies above the source
+            shape = tuple(1 if x == a else n + (x < a and coord[x] == 1)
+                          for x, n in enumerate(base.shape))
+            top = cubes[nb]
+            if top is not None:
+                top = top.narrow(a, top.shape[a] - 1, 1)
+            keys.append(b)
+            moves.append(Move(mesh.owner(nb), mesh.owner(b), top, shape,
+                              base.dtype, mesh.device(b)))
+        for b, plane in zip(keys, mesh.transfer(moves)):
+            if plane is not None:
+                cubes[b] = torch.cat([plane, cubes[b]], dim=a)
+    srcs = [tuple(0 if c else base.shape[a] - 1
                   for a, c in enumerate(coord))
-            for b, coord in enumerate(mesh.coords)]
+            for coord in mesh.coords]
     return cubes, srcs
 
 
@@ -74,10 +92,12 @@ def _check(blocks, mesh):
     if len(blocks) != 8 or tuple(mesh.factors) != (2, 2, 2):
         raise ValueError("the sharded octant trace takes the 8 blocks of a "
                          "2x2x2 mesh")
-    shape = tuple(blocks[0].shape)
-    if len(shape) != 3 or any(tuple(b.shape) != shape for b in blocks):
+    own = [blocks[b] for b in mesh.local]
+    shape = tuple(own[0].shape)
+    if len(shape) != 3 or any(tuple(b.shape) != shape for b in own):
         raise ValueError("the blocks must be 3D and of one shape, got "
-                         f"{[tuple(b.shape) for b in blocks]}")
+                         f"{[tuple(b.shape) for b in own]}")
+    return own
 
 
 def sharded_octant_trace(blocks: Sequence[torch.Tensor], mesh,
@@ -87,20 +107,24 @@ def sharded_octant_trace(blocks: Sequence[torch.Tensor], mesh,
     the 8 shards, in the mesh's order): one B5 launch a shard on its device
     and current stream.  CPU blocks take
     :func:`sharded_octant_trace_plain`; a mesh of CUDA blocks launches or
-    raises."""
-    _check(blocks, mesh)
-    if not blocks[0].is_cuda:
+    raises.  On a mesh of several processes each launches B5 on its own
+    blocks (None at the others'), and the trace counts as launched on the
+    process that owns shard 0, so that the counts summed over the
+    processes are one process's."""
+    own = _check(blocks, mesh)
+    if not own[0].is_cuda:
         return sharded_octant_trace_plain(blocks, mesh, tau_min)
-    if not all(b.is_cuda for b in blocks):
+    if not all(b.is_cuda for b in own):
         raise ValueError("the shards of a sharded trace are all on CUDA "
                          "devices or all on the CPU")
     cubes, srcs = _exchange(blocks, mesh)
-    out = []
-    for cube, src, coord in zip(cubes, srcs, mesh.coords):
-        with torch.cuda.device(cube.device):
-            col = fused_trace.octant_trace(cube, src, tau_min)
-        out.append(_drop_ghosts(col, coord))
-    sharded_octant_trace.launches += 1
+    out = [None] * mesh.size
+    for b in mesh.local:
+        with torch.cuda.device(cubes[b].device):
+            col = fused_trace.octant_trace(cubes[b], srcs[b], tau_min)
+        out[b] = _drop_ghosts(col, mesh.coords[b])
+    if mesh.owns(0):
+        sharded_octant_trace.launches += 1
     return out
 
 
@@ -113,6 +137,6 @@ def sharded_octant_trace_plain(blocks: Sequence[torch.Tensor], mesh,
     exchange, :func:`.fused_trace.octant_trace_plain` per block."""
     _check(blocks, mesh)
     cubes, srcs = _exchange(blocks, mesh)
-    return [_drop_ghosts(fused_trace.octant_trace_plain(cube, src, tau_min),
-                         coord)
-            for cube, src, coord in zip(cubes, srcs, mesh.coords)]
+    return [None if cube is None else _drop_ghosts(
+        fused_trace.octant_trace_plain(cube, src, tau_min), coord)
+        for cube, src, coord in zip(cubes, srcs, mesh.coords)]

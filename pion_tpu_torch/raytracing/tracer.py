@@ -393,7 +393,10 @@ class Raytracer:
         (:mod:`.sharded_trace`: the kernel per shard, its plain version with
         ``kernels="off"`` or on the CPU); every other trace gathers
         ``dtau``, traces it once and scatters the columns back (the same
-        values as one device's)."""
+        values as one device's).  On a mesh of several processes that
+        gather is an all-gather, every rank traces the whole grid and keeps
+        its blocks, as GSPMD runs the JAX tracer
+        (``pion_tpu/raytracing/tracer.py:463-485``)."""
         from ..parallel.mesh import Sharded, shard_state
         from . import sharded_trace
 
@@ -406,7 +409,8 @@ class Raytracer:
                   if self.cfg.kernels == "off"
                   else sharded_trace.sharded_octant_trace)
             col = fn(dtau.blocks, dtau.mesh, tr.tau_min)
-            return Sharded([c - d for c, d in zip(col, dtau.blocks)],
+            return Sharded([None if d is None else c - d
+                            for c, d in zip(col, dtau.blocks)],
                            dtau.mesh, dtau.shape)
         tau, _, _ = self.trace_source(i, dtau.gather())
         return shard_state(tau, dtau.mesh)

@@ -120,7 +120,11 @@ class Simulation:
         one device named by ``device`` when the caller names one), stepped
         by ``make_step_fns`` with the mesh.  Every face and geometry takes
         a mesh; ``halo="explicit"`` keeps the JAX package's guards: pure
-        dynamics, local-data faces, Cartesian."""
+        dynamics, local-data faces, Cartesian.  On a mesh of several
+        processes (:mod:`.parallel.comm`) every rank gives the whole state
+        (the ICs from the seed, or a restart file every rank reads) and
+        keeps its blocks; the frozen INFLOW/FIXED strips come from that
+        whole state."""
         from .parallel.halo import check_explicit
         from .parallel.mesh import Sharded, make_mesh, shard_state
 
@@ -155,7 +159,8 @@ class Simulation:
             # carve the wind regions into the initial state, block by block
             if self.physics.winds:
                 self.P = Sharded(
-                    [self.physics.for_block(r).apply_internal_bcs(b, self.t)
+                    [None if b is None else
+                     self.physics.for_block(r).apply_internal_bcs(b, self.t)
                      for r, b in zip(self.mesh.ranges(cfg.shape),
                                      self.P.blocks)],
                     self.mesh, self.P.shape)
@@ -193,7 +198,13 @@ class Simulation:
     def save(self, path: Optional[str] = None, wait: bool = True) -> str:
         """Write a snapshot; with ``wait=False`` it is queued on the
         background writer thread and the step loop continues immediately
-        (the PMPIO-overlap equivalent)."""
+        (the PMPIO-overlap equivalent).  A sharded run writes its gathered
+        state; on a mesh of several processes it is gathered to rank 0 and
+        only rank 0 writes (the file is the one-process mesh's; with
+        ``wait`` every rank returns once it is written).  The JAX
+        package's ``save`` reads ``np.asarray(self.P)``
+        (``pion_tpu/sim.py:164``), which needs every shard in one process;
+        this snapshot is the same gathered state."""
         if path is None:
             if not self.outfile:
                 raise ValueError("set Simulation.outfile or pass a path")
@@ -201,13 +212,19 @@ class Simulation:
         extra = {"params": self.params} if self.params else None
         # a sharded run writes its gathered state: its snapshot restarts on
         # one device, or on a mesh, in either package
-        P = self.P.gather() if self.mesh is not None else self.P
+        P = self.P.gather(dst=0) if self.mesh is not None else self.P
         if wait:
             from .io import save_snapshot
 
             self.flush_io()
-            return save_snapshot(path, P, self.cfg, self.t,
-                                 self.step_count, extra=extra)
+            if P is not None:       # (else another process writes it)
+                path = save_snapshot(path, P, self.cfg, self.t,
+                                     self.step_count, extra=extra)
+            if self.mesh is not None:
+                self.mesh.barrier()     # the file is there for every rank
+            return path
+        if P is None:
+            return path
         if self._writer is None:
             from .io.snapshot import AsyncSnapshotWriter
 
@@ -359,7 +376,7 @@ class Simulation:
                 callback(self)
         if self.P.is_cuda:
             for dev in {b.device for b in getattr(self.P, "blocks",
-                                                   [self.P])}:
+                                                   [self.P]) if b is not None}:
                 torch.cuda.synchronize(dev)
         if self.outfile is not None:
             self.save()

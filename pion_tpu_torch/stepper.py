@@ -197,7 +197,7 @@ def select(live, a, b):
     from .parallel.mesh import Sharded
 
     if isinstance(a, Sharded):
-        return Sharded([torch.where(_on(live, x), x, y)
+        return Sharded([None if x is None else torch.where(_on(live, x), x, y)
                         for x, y in zip(a.blocks, b.blocks)], a.mesh, a.shape)
     return torch.where(live, a, b)
 
@@ -211,7 +211,9 @@ class _Shards:
     boundary data (``BoundaryData.block``), its ghosts from the exchange
     (:func:`.parallel.halo.apply_bcs_sharded`), its physics restricted to
     the block (``Physics.for_block``: wind regions sliced from the whole
-    grid's).  What couples the shards is reduced over them: the dt (a min),
+    grid's).  On a mesh of several processes each process steps its own
+    blocks (``mesh.local``; the lists here hold None at the others').
+    What couples the shards is reduced over them: the dt (a min),
     the plain chemistry ladder's stiffness (a max, ``MPv3.update_blocks``)
     and the point-source columns (``Physics.raytrace_sharded``: the sharded
     octant trace B6, or a gathered trace).  A nested-grid hierarchy keeps
@@ -225,11 +227,13 @@ class _Shards:
         self.ranges = mesh.ranges(cfg.shape)
         self.cfg = local_config(cfg, mesh)
         whole = make_geometry(cfg)
-        self.geoms = [block_geometry(whole, cfg, r) for r in self.ranges]
+        self.geoms = [block_geometry(whole, cfg, r) if mesh.owns(b) else None
+                      for b, r in enumerate(self.ranges)]
         self.bdatas = block_bdatas(bdata, cfg, mesh)
         self.physics = physics
         self.phys = [None] * mesh.size if physics is None else [
-            physics.for_block(r) for r in self.ranges]
+            physics.for_block(r) if mesh.owns(b) else None
+            for b, r in enumerate(self.ranges)]
 
     def state(self, P, dtype):
         """``P`` as a sharded state of ``dtype`` on this mesh."""
@@ -241,12 +245,13 @@ class _Shards:
             P = P.map(lambda b: b.to(dtype))
         return P
 
-    @staticmethod
-    def reduce(parts, op):
-        """``op`` (torch.min or torch.max) of 0-d tensors of the shards, on
-        the first shard's device."""
+    def reduce(self, parts, op):
+        """``op`` (torch.min or torch.max) of 0-d tensors of this process's
+        shards, on its first shard's device, then over the mesh's processes
+        (an all-reduce of :mod:`.parallel.comm`)."""
         dev = parts[0].device
-        return op(torch.stack([p.to(dev) for p in parts]))
+        local = op(torch.stack([p.to(dev) for p in parts]))
+        return self.mesh.reduce(local, "min" if op is torch.min else "max")
 
     def pads(self, P, t=0.0):
         from .parallel.halo import apply_bcs_sharded
@@ -268,9 +273,10 @@ class _Shards:
         if not hasattr(mp, "update_blocks") or mp._use_fused(self.cfg):
             return None
         if rt is None:
-            rt = [mp.default_rt(b) for b in P.blocks]
-        return mp.update_blocks(P.blocks, [_on(dt, b) for b in P.blocks],
-                                self.cfg, rt)
+            rt = [None if b is None else mp.default_rt(b) for b in P.blocks]
+        return mp.update_blocks(P.blocks, [None if b is None else _on(dt, b)
+                                           for b in P.blocks],
+                                self.cfg, rt, mesh=self.mesh)
 
     def partial(self, P, Ph, dt, order_space, cfg, geom, bdata, ch,
                 physics=None, t=0.0, rt=None, sp=None):
@@ -285,14 +291,15 @@ class _Shards:
             if rt is None and physics.sources:
                 rt = self.raytrace(Ph, sp)
             new = self.chemistry(P, dt, rt)
-        out = []
-        for i, blk in enumerate(P.blocks):
-            out.append(_partial_update(
+        out = [None] * self.mesh.size
+        for i in self.mesh.local:
+            blk = P.blocks[i]
+            out[i] = _partial_update(
                 blk, Ph.blocks[i], _on(dt, blk), order_space, self.cfg,
                 self.geoms[i], self.bdatas[i], _on(ch, blk), self.phys[i],
                 _on(t, blk),
                 rt=None if rt is None else rt[i], sp=sp, Ppad=pads[i],
-                mp_new=None if new is None else new[i]))
+                mp_new=None if new is None else new[i])
         return Sharded(out, self.mesh, P.shape)
 
 
@@ -346,9 +353,9 @@ def make_step_fns(cfg: SimConfig, geom: Geometry,
             return _dt_expr(P, rt0)
         pads = shards.pads(P) if cfg.conduction else [None] * mesh.size
         return shards.reduce([
-            _dt_expr(blk, None if rt0 is None else rt0[i], shards.cfg,
-                     shards.geoms[i], shards.phys[i], pads[i])
-            for i, blk in enumerate(P.blocks)], torch.min)
+            _dt_expr(P.blocks[i], None if rt0 is None else rt0[i],
+                     shards.cfg, shards.geoms[i], shards.phys[i], pads[i])
+            for i in mesh.local], torch.min)
 
     partial = _partial_update if shards is None else shards.partial
 
@@ -425,7 +432,8 @@ def make_step_fns(cfg: SimConfig, geom: Geometry,
         the CPU they run eagerly, step after step.  On a mesh the same:
         one graph when every shard lies on one card, eagerly when the
         shards span several devices (the clock, the dt and ``sp`` on the
-        first shard's device, taken to the others)."""
+        first shard's device, taken to the others), and eagerly on a mesh
+        of several processes (``graphs.on_one_card``)."""
         from . import graphs
 
         P = _state(P)

@@ -145,4 +145,7 @@ class StepLogger:
                                 else bool(torch.isfinite(P).all())))
         if not finite:
             line += "   *** NON-FINITE STATE ***"
-        print(line, flush=True)
+        # a state sharded over several processes: the check is theirs
+        # together, the line rank 0's
+        if getattr(getattr(P, "mesh", None), "rank", 0) == 0:
+            print(line, flush=True)
