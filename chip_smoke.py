@@ -686,25 +686,23 @@ MESH_WIND_LAUNCHES = dict({k: 8 * v for k, v in HII_LAUNCHES.items()},
                           sharded_octant_trace=2)
 
 
-def _wrappers():
-    from pion_tpu_torch.microphysics import fused_mpv3 as fm
-    from pion_tpu_torch.ops import fused_sweep as fs
-    from pion_tpu_torch.raytracing import fused_trace as ft
-    from pion_tpu_torch.raytracing import sharded_trace as st
-
-    return {"sweep_axis": fs.sweep_axis, "final_axis": fs.final_axis,
-            "mpv3_update": fm.update, "mpv3_ydot": fm.ydot,
-            "octant_trace": ft.octant_trace,
-            "sharded_octant_trace": st.sharded_octant_trace}
-
-
 def reset_counts():
-    for w in _wrappers().values():
-        w.launches = 0
+    from pion_tpu_torch import tracing
+
+    for fn, attr in tracing.launch_counters():
+        if attr == "launches":
+            fn.launches = 0
 
 
 def read_counts():
-    return {name: w.launches for name, w in _wrappers().items()}
+    """Each kernel wrapper's launches, from the program's one list of its
+    launch counters (``tracing.launch_counters``), under this script's
+    names (``mpv3_`` before the chemistry's)."""
+    from pion_tpu_torch import tracing
+
+    return {("mpv3_" if fn.__module__.endswith("fused_mpv3") else "")
+            + fn.__name__: fn.launches
+            for fn, attr in tracing.launch_counters() if attr == "launches"}
 
 
 # ---------------------------------------------------------------------------
@@ -4700,9 +4698,14 @@ def mp_run(case: str, mesh_of, device):
     MP_STEPS[case] steps on the host clock (``torch.cuda.synchronize`` on
     both ends), its launches (B1-B6, the updates seeded with ``f0``) and
     the bytes this process sent through the transport
-    (``parallel.comm.stats``) counted.  Returns the run and the record."""
+    (the counters ``comm.bytes_sent`` and ``comm.messages`` of
+    ``pion_tpu_torch.tracing``) counted.  Returns the run and the record."""
+    from pion_tpu_torch import tracing
     from pion_tpu_torch.microphysics import fused_mpv3 as fm
-    from pion_tpu_torch.parallel import comm
+
+    def sent():
+        c = tracing.summary()["counters"]
+        return c["comm.bytes_sent"], c["comm.messages"]
 
     warm = mp_make(case, mesh_of, device)
     mp_advance(warm, case, {"coupled": 1, "chunk": MP_CHUNK}.get(case, 2))
@@ -4711,17 +4714,17 @@ def mp_run(case: str, mesh_of, device):
     n = MP_STEPS[case]
     reset_counts()
     fm.update.launches_seeded = 0
-    sent0, msg0 = comm.stats["bytes_sent"], comm.stats["messages"]
+    sent0, msg0 = sent()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     mp_advance(run, case, n)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
+    sent1, msg1 = sent()
     return run, {"steps": n, "wall_ms_per_step": sec / n * 1e3,
                  "launches": read_counts(),
                  "updates_seeded": fm.update.launches_seeded,
-                 "bytes_sent": comm.stats["bytes_sent"] - sent0,
-                 "messages": comm.stats["messages"] - msg0}
+                 "bytes_sent": sent1 - sent0, "messages": msg1 - msg0}
 
 
 def mp_profile(run, case: str) -> dict:

@@ -16,7 +16,8 @@ body on clones of the inputs, on a side stream, whose results are dropped:
 the run's state does not move.  Memory the body allocates belongs to the
 graph's private pool, kept as long as the graph.
 
-Each kernel wrapper counts its launches in its ``launches`` attribute.  The
+Each kernel wrapper counts its launches in its ``launches`` attribute
+(listed by :func:`.tracing.launch_counters`).  The
 wrappers are called while the graph is recorded, when nothing is launched:
 what they add then is taken back, kept as the graph's launches a replay, and
 added at every replay.
@@ -37,26 +38,15 @@ from typing import Callable, List
 
 import torch
 
-
-def _counters():
-    """(wrapper, attribute) of every launch counter of the kernel wrappers."""
-    from .microphysics import fused_mpv3 as fm
-    from .ops import fused_sweep as fs
-    from .raytracing import fused_trace as ft
-    from .raytracing import sharded_trace as st
-
-    return ((fs.sweep_axis, "launches"), (fs.final_axis, "launches"),
-            (fm.ydot, "launches"), (fm.update, "launches"),
-            (fm.update, "launches_seeded"), (ft.octant_trace, "launches"),
-            (st.sharded_octant_trace, "launches"))
+from . import tracing
 
 
 def _read_counts() -> List[int]:
-    return [getattr(f, a) for f, a in _counters()]
+    return [getattr(f, a) for f, a in tracing.launch_counters()]
 
 
 def _add_counts(delta, base=None):
-    for (f, a), d, b in zip(_counters(), delta,
+    for (f, a), d, b in zip(tracing.launch_counters(), delta,
                             base if base is not None else _read_counts()):
         setattr(f, a, b + d)
 
@@ -140,6 +130,14 @@ def _distributed(tree) -> bool:
     return False
 
 
+def key(K: int, sp) -> tuple:
+    """What a run's cache of chunk graphs is keyed on: the chunk's K, the
+    layout of the sources' inputs (:func:`layout`) and the tracing mode
+    (:func:`.tracing.mode`), so that a graph recorded with tracing off is
+    never replayed with the counters on, nor the reverse."""
+    return (K, layout(sp), tracing.mode())
+
+
 def on_one_card(tree) -> bool:
     """Whether every tensor of ``tree`` lies on one CUDA device, and none
     is sharded over several processes: what a chunk must hold to be
@@ -160,7 +158,9 @@ class ChunkGraph:
     clones of its outputs.  ``capture_s``: seconds of the capture (recording and
     instantiation); ``pool_bytes``: device memory reserved by it, the
     graph's pool; ``per_replay``: the launch counts a replay adds, by
-    wrapper."""
+    wrapper.  Each call is the span ``run.replay``; the counters
+    ``graph.captures`` and ``graph.replays`` count the captures and calls
+    under the graph's ``name``."""
 
     def __init__(self, body: Callable, args: tuple, name: str = "chunk"):
         if not on_one_card(args):
@@ -209,7 +209,9 @@ class ChunkGraph:
             self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self._out = out
         self._out_leaves = _flatten(out, [])
+        tracing.count("graph.captures", key=name)
 
+    @tracing.spanned("run.replay")
     def __call__(self, args: tuple):
         leaves = _flatten(args, [])
         if len(leaves) != len(self._static):
@@ -220,4 +222,5 @@ class ChunkGraph:
             s.copy_(x)
         self.graph.replay()
         _add_counts(self.per_replay)
+        tracing.count("graph.replays", key=self.name)
         return _rebuild(self._out, iter([o.clone() for o in self._out_leaves]))

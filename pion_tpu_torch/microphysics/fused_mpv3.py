@@ -299,10 +299,17 @@ def update(mp, omx0: torch.Tensor, Eint0: torch.Tensor, nH: torch.Tensor, dt,
     seeds the first evaluation.  ``stats``: two int32 on the state's device
     to which the kernel adds the number of tiles that ran the ladder and the
     Newton iterations they took in all (diagnostics).  A CPU tensor takes
-    :func:`update_plain`; a CUDA tensor launches the kernel or raises."""
+    :func:`update_plain` (which counts the same into ``stats``); a CUDA
+    tensor launches the kernel or raises."""
     if not omx0.is_cuda:
-        return update_plain(mp, omx0, Eint0, nH, dt, rt, n_sub=n_sub,
-                            n_newton=n_newton, f0=f0)
+        if stats is None:
+            return update_plain(mp, omx0, Eint0, nH, dt, rt, n_sub=n_sub,
+                                n_newton=n_newton, f0=f0)
+        o1, e1, counts = update_plain(mp, omx0, Eint0, nH, dt, rt,
+                                      n_sub=n_sub, n_newton=n_newton, f0=f0,
+                                      return_stats=True)
+        stats += torch.tensor(counts, dtype=stats.dtype)
+        return o1, e1
     lib, head, tail, keep = _launch_args(mp, omx0, Eint0, nH, rt)
     dt_t = torch.as_tensor(dt, dtype=omx0.dtype,
                            device=omx0.device).reshape(())

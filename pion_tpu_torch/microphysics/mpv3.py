@@ -46,6 +46,7 @@ import numpy as np
 import torch
 import torch.autograd.forward_ad as fwAD
 
+from .. import tracing
 from ..config import SimConfig
 from ..constants import K_B, M_P, PG, RO
 from . import tables as TB
@@ -645,8 +646,10 @@ class MPv3(MicrophysicsBase):
 
         dt = torch.as_tensor(dt, dtype=P.dtype, device=P.device)
         omx, Eint, nH = self.local_state(P)
+        # the ladder's counters, with tracing on (None off)
         omx1, E1 = fused_mpv3.update(self, omx, Eint, nH, dt, rt,
-                                     f0=rt.get("f0"))
+                                     f0=rt.get("f0"),
+                                     stats=tracing.ladder_stats(omx.device))
         return self._finish_update(P, nH, omx1, E1)
 
     def update_blocks(self, Ps, dts, cfg: SimConfig, rts, mesh=None):

@@ -59,6 +59,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import tracing
 from .boundaries import (apply_bcs, apply_bcs_outflow_only, fill_ghost_side,
                          make_fixed_strips)
 from .config import SimConfig
@@ -248,7 +249,8 @@ class NGHierarchy:
         self._ckpt_flip = 0
         self._writer = None
         self._next_optime = None
-        # CUDA graphs of chunks, by K and the layout of the sources' inputs
+        # CUDA graphs of chunks, by K, the layout of the sources' inputs and
+        # the tracing mode (graphs.key)
         self._graphs: Dict = {}
 
     def set_states(self, states):
@@ -488,7 +490,21 @@ class NGHierarchy:
             return self._pad_blocks(level, Ph, parent_state)
         cfg = self.cfgs[level]
         if level == 0:
-            return apply_bcs(Ph, cfg, self.bdata)
+            with tracing.span("fill"):
+                return apply_bcs(Ph, cfg, self.bdata)
+        padded = self._prolong_ghosts(level, Ph, parent_state)
+        with tracing.span("fill"):
+            for ax, sd in self.dom_sides[level]:
+                padded = fill_ghost_side(
+                    padded, cfg, ax, sd,
+                    strip=self.level_strips[level].get((ax, sd)))
+        return padded
+
+    @tracing.spanned("glue.prolong")
+    def _prolong_ghosts(self, level: int, Ph, parent_state):
+        """``Ph`` of a fine level with its ghost shell prolonged from the
+        parent (:meth:`_prolong_window`), every face."""
+        cfg = self.cfgs[level]
         ng = cfg.ng
         nd = cfg.ndim
         n = cfg.shape
@@ -511,10 +527,6 @@ class NGHierarchy:
             lo = self._prolong_window(parent_state, level, fr_lo)
             hi = self._prolong_window(parent_state, level, fr_hi)
             padded = torch.cat([lo, padded, hi], dim=1 + ax)
-        for ax, sd in self.dom_sides[level]:
-            padded = fill_ghost_side(
-                padded, cfg, ax, sd,
-                strip=self.level_strips[level].get((ax, sd)))
         return padded
 
     def _pad_blocks(self, level: int, Ph: Sharded, parent: Sharded):
@@ -573,6 +585,7 @@ class NGHierarchy:
         return out
 
     # -- F2C restriction ---------------------------------------------------
+    @tracing.spanned("glue.restrict")
     def _restrict(self, Pc, Pf, level_f: int):
         """Replace covered coarse cells with the VOLUME-WEIGHTED
         conserved-variable average of their 2^ndim children (reference:
@@ -652,6 +665,7 @@ class NGHierarchy:
                 out[bx] = np.ones(cfg.shape[bx], dtype=cfg.np_dtype)
         return out
 
+    @tracing.spanned("glue.restrict")
     def _restrict_face_flux(self, Ff, ax, level_f: int, rng=None):
         """Area-weighted average of the fine boundary-plane flux onto
         coarse faces: 2^(nd-1) fine faces per coarse face (reference:
@@ -903,21 +917,24 @@ class NGHierarchy:
         # predictor half-step (1st-order space); the predictor needs no
         # face fluxes, so the fused kernels apply directly
         Ppad = self._pad_level(level, P, parent_state)
-        if fused:
-            dU_h = fused_sweep.dynamics_dU_fused(Ppad, cfg, geom, 0.5 * dt, 1,
-                                                 ch=ch, scma=scma)
-        else:
-            dU_h, _ = dynamics_dU(Ppad, cfg, geom, 0.5 * dt, 1, ch=ch,
-                                  scma=scma)
+        with tracing.span("sweep"):
+            if fused:
+                dU_h = fused_sweep.dynamics_dU_fused(
+                    Ppad, cfg, geom, 0.5 * dt, 1, ch=ch, scma=scma)
+            else:
+                dU_h, _ = dynamics_dU(Ppad, cfg, geom, 0.5 * dt, 1,
+                                      ch=ch, scma=scma)
         if phys is not None and phys.mp is not None:
             # reuse the columns traced through this pre-step state by the
             # fused dt computation, when available (first touch per level)
             rt_pre = (rt0_map or {}).get(level)
-            dU_h = dU_h + phys.mp_delta_U(P, P, 0.5 * dt, cfg, tau_in,
-                                          sp=sp, rt=rt_pre)
-        Ph = cell_advance(P, dU_h, cfg)
-        if glm:
-            Ph = glm_psi_damp(Ph, 0.5 * dt, ch, cfg, geom)
+            with tracing.span("chem"):
+                dU_h = dU_h + phys.mp_delta_U(P, P, 0.5 * dt, cfg, tau_in,
+                                              sp=sp, rt=rt_pre)
+        with tracing.span("update"):
+            Ph = cell_advance(P, dU_h, cfg)
+            if glm:
+                Ph = glm_psi_damp(Ph, 0.5 * dt, ch, cfg, geom)
         if phys is not None and phys.winds:
             Ph = phys.apply_internal_bcs(Ph, later(t0, 0.5 * dt))
 
@@ -943,36 +960,41 @@ class NGHierarchy:
         use_fast = (fused and cfg.coords is Coord.CARTESIAN
                     and cfg.av is AV.FALLE)
         if use_fast:
-            dU_f = fused_sweep.dynamics_dU_fused(Ppad, cfg, geom, dt, 2,
-                                                 ch=ch, scma=scma)
+            with tracing.span("sweep"):
+                dU_f = fused_sweep.dynamics_dU_fused(
+                    Ppad, cfg, geom, dt, 2, ch=ch, scma=scma)
             _fcache: Dict = {}
             pair_of = self._face_pairs(level)
 
             def get_face(ax_, i_):
+                # the interface planes BC89 reads, recomputed for it alone
                 if (ax_, i_) not in _fcache:
                     j2 = pair_of[ax_].get(i_)
-                    if j2 is not None and j2 != i_ \
-                            and (ax_, j2) not in _fcache:
-                        a, b = sorted((i_, j2))
-                        Fa, Fb = interface_flux_pair(
-                            Ppad, cfg, geom, ax_, a, b, dt, 2, ch=ch,
-                            scma=scma)
-                        _fcache[(ax_, a)] = Fa
-                        _fcache[(ax_, b)] = Fb
-                    else:
-                        _fcache[(ax_, i_)] = interface_flux(
-                            Ppad, cfg, geom, ax_, i_, dt, 2, ch=ch,
-                            scma=scma)
+                    with tracing.span("glue.bc89"):
+                        if j2 is not None and j2 != i_ \
+                                and (ax_, j2) not in _fcache:
+                            a, b = sorted((i_, j2))
+                            Fa, Fb = interface_flux_pair(
+                                Ppad, cfg, geom, ax_, a, b, dt, 2, ch=ch,
+                                scma=scma)
+                            _fcache[(ax_, a)] = Fa
+                            _fcache[(ax_, b)] = Fb
+                        else:
+                            _fcache[(ax_, i_)] = interface_flux(
+                                Ppad, cfg, geom, ax_, i_, dt, 2, ch=ch,
+                                scma=scma)
                 return _fcache[(ax_, i_)]
         else:
-            dU_f, faces = dynamics_dU(Ppad, cfg, geom, dt, 2, ch=ch,
-                                      scma=scma)
+            with tracing.span("sweep"):
+                dU_f, faces = dynamics_dU(Ppad, cfg, geom, dt, 2, ch=ch,
+                                          scma=scma)
 
             def get_face(ax_, i_):
                 return faces[ax_].select(1 + ax_, i_)
         if phys is not None and phys.mp is not None:
-            dU_f = dU_f + phys.mp_delta_U(P, Ph, dt, cfg, tau_in,
-                                          sp=sp)
+            with tracing.span("chem"):
+                dU_f = dU_f + phys.mp_delta_U(P, Ph, dt, cfg, tau_in,
+                                              sp=sp)
 
         # second fine substep
         fine_sums_2 = None
@@ -984,22 +1006,25 @@ class NGHierarchy:
         # BC89: correct this level's dU with the fine fluxes
         if level + 1 < self.n_levels:
             sums = []
-            for ax in range(cfg.ndim):
-                lo = 0.5 * (fine_sums_1[ax][0] + fine_sums_2[ax][0])
-                hi = 0.5 * (fine_sums_1[ax][1] + fine_sums_2[ax][1])
-                sums.append((lo, hi))
-            dU_f = self._bc89_correct(dU_f, get_face, sums, level, dt)
+            with tracing.span("glue.bc89"):
+                for ax in range(cfg.ndim):
+                    lo = 0.5 * (fine_sums_1[ax][0] + fine_sums_2[ax][0])
+                    hi = 0.5 * (fine_sums_1[ax][1] + fine_sums_2[ax][1])
+                    sums.append((lo, hi))
+                dU_f = self._bc89_correct(dU_f, get_face, sums, level, dt)
 
-        P_new = cell_advance(P, dU_f, cfg)
-        if glm:
-            P_new = glm_psi_damp(P_new, dt, ch, cfg, geom)
-        if phys is not None and phys.mp is not None:
-            # temperature ceiling (reference: grid_update_state_vector
-            # clamps, time_integrator.cpp:881-940)
-            T = phys.mp.temperature(P_new, cfg)
-            P_new = torch.where(T > cfg.max_temperature,
-                                phys.mp.set_temp(P_new, cfg.max_temperature,
-                                                 cfg), P_new)
+        with tracing.span("update"):
+            P_new = cell_advance(P, dU_f, cfg)
+            if glm:
+                P_new = glm_psi_damp(P_new, dt, ch, cfg, geom)
+            if phys is not None and phys.mp is not None:
+                # temperature ceiling (reference: grid_update_state_vector
+                # clamps, time_integrator.cpp:881-940)
+                T = phys.mp.temperature(P_new, cfg)
+                P_new = torch.where(T > cfg.max_temperature,
+                                    phys.mp.set_temp(P_new,
+                                                     cfg.max_temperature,
+                                                     cfg), P_new)
         if phys is not None and phys.winds:
             P_new = phys.apply_internal_bcs(P_new, later(t0, dt))
 
@@ -1343,8 +1368,9 @@ class NGHierarchy:
         float64 0-d tensors (a chunk).  Returns the new states and the 0-d
         ``dt``, unread."""
         rt0_map: Dict = {}
-        dtv = self._level_dt(states, sp, rt0_map)
-        dtv = limit_dt(dtv, last_dt, cap, self.cfgs[0].max_dt_growth)
+        with tracing.span("step.dt"):
+            dtv = self._level_dt(states, sp, rt0_map)
+            dtv = limit_dt(dtv, last_dt, cap, self.cfgs[0].max_dt_growth)
         states = list(states)
         self._advance_level(0, dtv, t0=t, states=states, sp=sp,
                             rt0_map=rt0_map)
@@ -1361,15 +1387,18 @@ class NGHierarchy:
         rows = []
         states = tuple(states)
         for _ in range(K):
-            live = t < t_stop
-            st, dtv = self._dt_and_advance(
-                states, t, last_dt, torch.where(live, t_target - t, 1.0), sp)
-            states = tuple(select(live, a, b) for a, b in zip(st, states))
-            dt64 = dtv.to(torch.float64)
-            dt_eff = torch.where(live, dt64, 0.0)
-            t = t + dt_eff
-            last_dt = torch.where(live, dt64, last_dt)
-            rows.append(torch.stack([dt_eff, live.to(torch.float64)]))
+            with tracing.span("step.select"):
+                live = t < t_stop
+                cap = torch.where(live, t_target - t, 1.0)
+            st, dtv = self._dt_and_advance(states, t, last_dt, cap, sp)
+            with tracing.span("step.select"):
+                states = tuple(select(live, a, b)
+                               for a, b in zip(st, states))
+                dt64 = dtv.to(torch.float64)
+                dt_eff = torch.where(live, dt64, 0.0)
+                t = t + dt_eff
+                last_dt = torch.where(live, dt64, last_dt)
+                rows.append(torch.stack([dt_eff, live.to(torch.float64)]))
         return states, torch.stack(rows, dim=1)
 
     def _multi_step_fn(self, K: int):
@@ -1379,17 +1408,20 @@ class NGHierarchy:
         ``last_dt`` and ``t_target``, ``sp`` from :meth:`_sources`, and
         ``info`` the ``(2, K)`` of :meth:`_chunk`.  On the card with the
         kernels on, one replay of a CUDA graph recorded at the first call
-        for each K and ``sp`` layout (raising if the recording fails); with
-        ``kernels="off"``, whose plain chemistry reads the host, and on the
-        CPU, eagerly, step after step.  On a mesh the same: one graph when
-        every shard lies on one card, eagerly over several devices."""
+        for each K, ``sp`` layout and tracing mode (:func:`.graphs.key`;
+        raising if the recording fails); with ``kernels="off"``, whose
+        plain chemistry reads the host, on the CPU and with tracing in its
+        "device" mode, eagerly, step after step.  On a mesh the same: one
+        graph when every shard lies on one card, eagerly over several
+        devices."""
         from . import graphs
 
         def run_k(states, t, last_dt, t_target, sp=None):
             states = tuple(states)
             clock = graphs.clock(self.device, t, last_dt, t_target)
-            if graphs.on_one_card(states) and self.cfg0.kernels != "off":
-                key = (K, graphs.layout(sp))
+            if (graphs.on_one_card(states) and self.cfg0.kernels != "off"
+                    and not tracing.eager()):
+                key = graphs.key(K, sp)
                 if key not in self._graphs:
                     self._graphs[key] = graphs.ChunkGraph(
                         lambda st, c, s: self._chunk(st, *c, s, K),
@@ -1519,17 +1551,21 @@ class NGHierarchy:
                     and not (self.step_count == 0
                              and self.physics is not None
                              and self.physics.wind_sources)):
-                states, info = self._multi_step_fn(chunk)(
-                    self.P, self.t, self.last_dt, tmax, self._sources())
-                dts, live = info.tolist()     # the chunk's one read-back
-                n = int(sum(live))
-                if n == 0:
-                    break
-                self.P = list(states)
-                for d in dts[:n]:
-                    self.t += d
-                self.last_dt = dt = dts[n - 1]
-                self.step_count += n
+                with tracing.span("run.chunk"):
+                    with tracing.span("run.sources"):
+                        sp = self._sources()
+                    states, info = self._multi_step_fn(chunk)(
+                        self.P, self.t, self.last_dt, tmax, sp)
+                    with tracing.span("run.readback"):
+                        dts, live = info.tolist()   # the chunk's one read-back
+                    n = int(sum(live))
+                    if n == 0:
+                        break
+                    self.P = list(states)
+                    for d in dts[:n]:
+                        self.t += d
+                    self.last_dt = dt = dts[n - 1]
+                    self.step_count += n
             else:
                 # fused dt+advance (dt capped to tmax / output times)
                 dt = self.step()

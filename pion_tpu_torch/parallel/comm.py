@@ -29,8 +29,8 @@ CUDA block is copied to the host, sent, and copied to the receiver's card.
 That is also the only way for two processes that share one card to
 exchange, since NCCL refuses two ranks on one device.
 
-``stats`` counts what this process sent to other processes (bytes and
-messages).
+The counters ``comm.bytes_sent`` and ``comm.messages`` of
+:mod:`..tracing` count what this process sent to other processes.
 """
 from __future__ import annotations
 
@@ -40,7 +40,7 @@ from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
-stats = {"bytes_sent": 0, "messages": 0}
+from .. import tracing
 
 _state = {"device": None, "started_here": False}
 
@@ -171,8 +171,8 @@ def transfer(moves: Sequence[Move]) -> List[Optional[torch.Tensor]]:
             t = m.send.detach().to("cpu" if _host() else m.send.device,
                                    m.dtype).contiguous()
             ops.append(dist.P2POp(dist.isend, t, m.dst, tag=k))
-            stats["bytes_sent"] += t.numel() * t.element_size()
-            stats["messages"] += 1
+            tracing.count("comm.bytes_sent", t.numel() * t.element_size())
+            tracing.count("comm.messages")
         elif m.dst == me:
             buf = torch.empty(m.shape, dtype=m.dtype,
                               device="cpu" if _host() else m.device)

@@ -26,6 +26,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .config import SimConfig
 from .constants import RO, Coord
 from .grid import Geometry
@@ -87,6 +88,7 @@ class Physics:
         self._excl_cache: Dict = {}
         return self
 
+    @tracing.spanned("winds")
     def apply_internal_bcs(self, P, t):
         """Overwrite wind regions (reference: TimeUpdateInternalBCs ->
         BC_update_STWIND, boundaries/stellar_wind_boundaries.cpp).  Returns
@@ -142,6 +144,7 @@ class Physics:
         """Path length through every cell for source ``i``."""
         return self._source_fields(i, src, Ph[RO])[0]
 
+    @tracing.spanned("trace")
     def trace_taus(self, Ph, tau_in: Optional[Dict] = None) -> Dict:
         """Per-source entry optical depths (incl. any upstream offsets) —
         what a nested-grid hierarchy hands down to child levels (reference: NG
@@ -313,6 +316,7 @@ class Physics:
                                        for i, t in taus.items()})
                 for k, (bp, b) in enumerate(zip(blocks, Ph.blocks))]
 
+    @tracing.spanned("trace")
     def raytrace(self, Ph, tau_in: Optional[Dict] = None,
                  sp: Optional[Dict] = None,
                  taus: Optional[Dict] = None) -> Dict:

@@ -18,6 +18,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .boundaries import BoundaryData, make_fixed_strips
 from .config import SimConfig
 from .constants import BC
@@ -314,9 +315,12 @@ class Simulation:
         taken once for all of them (as the JAX package does); the clock
         advances by each live step's dt in turn, as ``step`` advances it.
         Returns the last dt, or None when no step was live."""
-        Pn, info = self.fns.multi_step(self.P, self.t, self.last_dt, tmax,
-                                       self._sources(), K=chunk)
-        dts, raws, live = info.tolist()     # the chunk's one read-back
+        with tracing.span("run.sources"):
+            sp = self._sources()
+        Pn, info = self.fns.multi_step(self.P, self.t, self.last_dt, tmax, sp,
+                                       K=chunk)
+        with tracing.span("run.readback"):
+            dts, raws, live = info.tolist()     # the chunk's one read-back
         n = int(sum(live))
         if n and min(raws[:n]) < self.cfg.min_timestep:
             raise RuntimeError(f"timestep too small: {min(raws[:n])}")
@@ -365,7 +369,8 @@ class Simulation:
                     and not (self.step_count == 0
                              and self.physics is not None
                              and self.physics.wind_sources)):
-                dt = self._chunk(chunk, tmax)
+                with tracing.span("run.chunk"):
+                    dt = self._chunk(chunk, tmax)
                 if dt is None:
                     break
             else:

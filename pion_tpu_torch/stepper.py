@@ -17,7 +17,8 @@ reads them back.
 ``multi_step`` runs K steps with the dt policy on the device (the clock
 ``t`` and ``last_dt`` as float64 0-d tensors): on a CUDA state with the
 kernels on, as one replay of a CUDA graph (:mod:`.graphs`); otherwise
-eagerly, step after step.
+eagerly, step after step (as with :mod:`.tracing` in its "device" mode).
+The step's work is marked by the spans of :mod:`.tracing`.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import tracing
 from .boundaries import BoundaryData, apply_bcs
 from .config import SimConfig
 from .constants import K_B, M_P, PG, RO, SI, Eqn
@@ -113,7 +115,8 @@ def _partial_update(P, Ph, dt, order_space, cfg, geom, bdata, ch,
     the exchange); ``mp_new``: the chemistry's update of ``P``, already made
     (a shard's, made across the shards by :meth:`_Shards.partial`)."""
     if Ppad is None:
-        Ppad = apply_bcs(Ph, cfg, bdata, t=t)
+        with tracing.span("fill"):
+            Ppad = apply_bcs(Ph, cfg, bdata, t=t)
     dU = None
     if cfg.kernels != "off" and fused_sweep.supports(cfg):
         # The wrappers launch the CUDA kernels for a CUDA tensor and take
@@ -121,31 +124,37 @@ def _partial_update(P, Ph, dt, order_space, cfg, geom, bdata, ch,
         if physics is None and not cfg.conduction:
             # pure dynamics: the final-axis kernel also applies the
             # conserved update + floors + GLM damping (no separate passes)
-            return fused_sweep.advance_dynamics(P, Ppad, cfg, geom, dt,
-                                                order_space, ch=ch)
-        dU = fused_sweep.dynamics_dU_fused(Ppad, cfg, geom, dt, order_space,
-                                           ch=ch, scma=_scma_flag(physics))
+            with tracing.span("sweep"):
+                return fused_sweep.advance_dynamics(P, Ppad, cfg, geom, dt,
+                                                    order_space, ch=ch)
+        with tracing.span("sweep"):
+            dU = fused_sweep.dynamics_dU_fused(Ppad, cfg, geom, dt,
+                                               order_space, ch=ch,
+                                               scma=_scma_flag(physics))
     if dU is None:
-        dU, _faces = dynamics_dU(Ppad, cfg, geom, dt, order_space, ch=ch,
-                                 scma=(physics is not None
-                                       and physics.mp is not None))
+        with tracing.span("sweep"):
+            dU, _faces = dynamics_dU(Ppad, cfg, geom, dt, order_space,
+                                     ch=ch, scma=(physics is not None
+                                                  and physics.mp is not None))
     if physics is not None and physics.mp is not None:
-        dU = dU + physics.mp_delta_U(P, Ph, dt, cfg, rt=rt, sp=sp,
-                                     P_new=mp_new)
+        with tracing.span("chem"):
+            dU = dU + physics.mp_delta_U(P, Ph, dt, cfg, rt=rt, sp=sp,
+                                         P_new=mp_new)
     if cfg.conduction:
         Edot = conduction_Edot(Ppad, _temperature(Ppad, cfg, physics), cfg,
                                geom)
         dU = torch.cat([dU[:PG], (dU[PG] + dt * Edot)[None], dU[PG + 1:]])
-    Pnew = cell_advance(P, dU, cfg)
-    if cfg.eqn is Eqn.GLM:
-        Pnew = glm_psi_damp(Pnew, dt, ch, cfg, geom)
-    if physics is not None:
-        if physics.mp is not None:
+    with tracing.span("update"):
+        Pnew = cell_advance(P, dU, cfg)
+        if cfg.eqn is Eqn.GLM:
+            Pnew = glm_psi_damp(Pnew, dt, ch, cfg, geom)
+        if physics is not None and physics.mp is not None:
             # temperature clamps (reference: grid_update_state_vector:914-920)
             T = physics.mp.temperature(Pnew, cfg)
             Pnew = torch.where(
                 T > cfg.max_temperature,
                 physics.mp.set_temp(Pnew, cfg.max_temperature, cfg), Pnew)
+    if physics is not None:
         Pnew = physics.apply_internal_bcs(Pnew, later(t, dt))
     return Pnew
 
@@ -388,8 +397,9 @@ def make_step_fns(cfg: SimConfig, geom: Geometry,
         are host numbers; ``dt`` and ``dt_raw`` come back as 0-d tensors on
         the device, unread."""
         P = _state(P)
-        dt_raw, rt0 = _dt_of(P, sp)
-        dt = limit_dt(dt_raw, last_dt, dt_cap, cfg.max_dt_growth)
+        with tracing.span("step.dt"):
+            dt_raw, rt0 = _dt_of(P, sp)
+            dt = limit_dt(dt_raw, last_dt, dt_cap, cfg.max_dt_growth)
         Pn = advance(P, dt, cfg, geom, bdata, physics=physics, t=t, rt0=rt0,
                      sp=sp, partial=partial)
         return Pn, dt, dt_raw
@@ -404,19 +414,23 @@ def make_step_fns(cfg: SimConfig, geom: Geometry,
         state and ``(3, K)`` float64: dt (0 where not live), dt_raw, live."""
         rows = []
         for _ in range(K):
-            dt_raw, rt0 = _dt_of(P, sp)
-            dt = limit_dt(dt_raw, last_dt, t_target - t, cfg.max_dt_growth)
-            live = t < t_stop
-            Pn = advance(P, torch.where(live, dt, 1.0), cfg, geom, bdata,
-                         physics=physics, t=t, rt0=rt0, sp=sp,
-                         partial=partial)
-            P = select(live, Pn, P)
-            dt64 = dt.to(torch.float64)
-            dt_eff = torch.where(live, dt64, 0.0)
-            t = t + dt_eff
-            last_dt = torch.where(live, dt64, last_dt)
-            rows.append(torch.stack([dt_eff, dt_raw.to(torch.float64),
-                                     live.to(torch.float64)]))
+            with tracing.span("step.dt"):
+                dt_raw, rt0 = _dt_of(P, sp)
+                dt = limit_dt(dt_raw, last_dt, t_target - t,
+                              cfg.max_dt_growth)
+            with tracing.span("step.select"):
+                live = t < t_stop
+                dt_step = torch.where(live, dt, 1.0)
+            Pn = advance(P, dt_step, cfg, geom, bdata, physics=physics, t=t,
+                         rt0=rt0, sp=sp, partial=partial)
+            with tracing.span("step.select"):
+                P = select(live, Pn, P)
+                dt64 = dt.to(torch.float64)
+                dt_eff = torch.where(live, dt64, 0.0)
+                t = t + dt_eff
+                last_dt = torch.where(live, dt64, last_dt)
+                rows.append(torch.stack([dt_eff, dt_raw.to(torch.float64),
+                                         live.to(torch.float64)]))
         return P, torch.stack(rows, dim=1)
 
     def _multi_step(P, t, last_dt, t_target, sp=None, K=16):
@@ -427,7 +441,9 @@ def make_step_fns(cfg: SimConfig, geom: Geometry,
         once ``t`` has reached ``t_target``), its dt before the limits, and
         whether it was live.  On a CUDA state with the kernels on, the K
         steps are one replay of a CUDA graph, captured at the first call for
-        each K and ``sp`` layout (and raising if the capture fails);
+        each K, ``sp`` layout and tracing mode (:func:`.graphs.key`; raising
+        if the capture fails), and eagerly with tracing in its "device"
+        mode;
         with ``kernels="off"``, whose plain chemistry reads the host, and on
         the CPU they run eagerly, step after step.  On a mesh the same:
         one graph when every shard lies on one card, eagerly when the
@@ -439,8 +455,9 @@ def make_step_fns(cfg: SimConfig, geom: Geometry,
         P = _state(P)
         spt = physics.device_sp(sp, P) if physics is not None else None
         clock = graphs.clock(P.device, t, last_dt, t_target)
-        if graphs.on_one_card(P) and cfg.kernels != "off":
-            key = (K, graphs.layout(spt))
+        if (graphs.on_one_card(P) and cfg.kernels != "off"
+                and not tracing.eager()):
+            key = graphs.key(K, spt)
             if key not in recorded:
                 recorded[key] = graphs.ChunkGraph(
                     lambda P_, c, s: _chunk(P_, *c, s, K),
@@ -448,7 +465,7 @@ def make_step_fns(cfg: SimConfig, geom: Geometry,
             return recorded[key]((P, clock, spt))
         return _chunk(P, *clock, spt, K)
 
-    # the graphs by K and sources' layout; the function does not refer to
+    # the graphs by K, sources' layout and tracing mode; the function does not refer to
     # itself, so that a run's graphs go with it and not with a later
     # collection of reference cycles (which might fall inside a capture)
     recorded: dict = {}

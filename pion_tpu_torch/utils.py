@@ -33,7 +33,9 @@ def resolve_device(device=None) -> torch.device:
 
 class Timers:
     """Named wall-clock timers with start/pause/stop semantics
-    (reference: tools/timer.h — used e.g. to split RT waiting vs working).
+    (reference: tools/timer.h — used e.g. to split RT waiting vs working),
+    each with the number of intervals it has timed (``calls``).  The port's
+    user is :mod:`.tracing`, which keeps its spans' host seconds in one.
 
     They read the host clock.  Work queued on the card runs after the call
     that queued it returns, so synchronise the device
@@ -43,6 +45,7 @@ class Timers:
     def __init__(self):
         self._acc: Dict[str, float] = {}
         self._started: Dict[str, float] = {}
+        self._calls: Dict[str, int] = {}
 
     def start(self, name: str):
         self._started[name] = time.perf_counter()
@@ -52,7 +55,12 @@ class Timers:
         if t0 is not None:
             self._acc[name] = (self._acc.get(name, 0.0)
                                + time.perf_counter() - t0)
+            self._calls[name] = self._calls.get(name, 0) + 1
         return self._acc.get(name, 0.0)
+
+    def calls(self, name: str) -> int:
+        """The intervals ``name`` has timed (a start and a pause each)."""
+        return self._calls.get(name, 0)
 
     def stop(self, name: str) -> float:
         return self.pause(name)

@@ -50,7 +50,8 @@ def test_every_submodule_imports_without_jax_or_reference_package():
                    "pion_tpu_torch.analysis.projection",
                    "pion_tpu_torch.parallel", "pion_tpu_torch.parallel.mesh",
                    "pion_tpu_torch.parallel.halo",
-                   "pion_tpu_torch.raytracing.sharded_trace"):
+                   "pion_tpu_torch.raytracing.sharded_trace",
+                   "pion_tpu_torch.tracing"):
         assert needed in names
     code = (
         "import importlib, sys\n"
