@@ -392,6 +392,71 @@ def check_kernels(device):
     return worst, ncase, by_variant, radial
 
 
+# B1's interface planes against the plain sweep's face tensors: in float32
+# B1's own TOL (they are the faces B1 solves, and on a Cartesian axis its
+# reconstruction divides by dx where the plain one divides by the
+# centre-of-volume spacing), in float64 1e-12
+PLANES_TOL = {torch.float64: 1.0e-12, torch.float32: TOL[torch.float32]}
+
+
+def check_planes(device, dtype: str) -> dict:
+    """B1 with its interface-plane output (``sweep_axis(planes=...)``, the
+    ``PLANES = 1`` kernels, order 2: the nested-grid corrector's sweep) on
+    3D GLM-HLLD states with tracers (sCMA clamping; element slots) and
+    Euler-HLL ones, every axis: ``dU`` bit for bit the launch without
+    planes, and the planes at 0, a tile's edge, one inside a tile and n
+    within ``PLANES_TOL`` of the plain sweep's face tensor at those
+    indices; an order-1 launch with planes is refused.  Raises otherwise;
+    returns the worst scaled error by case."""
+    from pion_tpu_torch.ops import fused_sweep as fs
+    from pion_tpu_torch.ops.sweep import dynamics_dU
+
+    shape = (40, 34, 48)
+    cases = {
+        "glm_hlld_scma": (main_cfg(shape, dtype), True),
+        "glm_hlld_elements": (main_cfg(shape, dtype, ntracer=2), (9, 10)),
+        "euler_hll": (main_cfg(shape, dtype, eqn="euler", solver="hll",
+                               gamma=1.4, ntracer=2), False),
+        "euler_hll_scma": (main_cfg(shape, dtype, eqn="euler", solver="hll",
+                                    gamma=1.4), True),
+    }
+    tol = PLANES_TOL[getattr(torch, dtype)]
+    worst = {}
+    for i, (name, (cfg, scma)) in enumerate(cases.items()):
+        geom, _, Ppad, strong, dt, ch = kernel_inputs(cfg, 300 + i, device)
+        try:
+            fs.sweep_axis(Ppad, cfg, geom, 0, 1, dt, ch=ch, scma=scma,
+                          strong=strong, planes=[0])
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"{name}: planes at order 1 not refused")
+        w = 0.0
+        for axis in range(cfg.ndim):
+            n = cfg.shape[axis]
+            T = fs.sweep_plan(tuple(cfg.shape), axis, cfg.nvar, cfg.eqn.nbase,
+                              Ppad.element_size(), 2, strong is not None)["T"]
+            js = sorted({0, T, n // 2 + 1, n})
+            plain = fs.sweep_axis(Ppad, cfg, geom, axis, 2, dt, ch=ch,
+                                  scma=scma, strong=strong)
+            dU, F = fs.sweep_axis(Ppad, cfg, geom, axis, 2, dt, ch=ch,
+                                  scma=scma, strong=strong, planes=js)
+            _, faces = dynamics_dU(Ppad, cfg, geom, dt, 2, ch=ch, scma=scma,
+                                   axes=[axis])
+            torch.cuda.synchronize()
+            if not torch.equal(dU, plain):
+                raise AssertionError(f"{name} {dtype} axis {axis}: dU with "
+                                     f"planes differs")
+            for k, j in enumerate(js):
+                rel, _ = scaled_err(F[k], faces[axis].select(1 + axis, j))
+                if not rel <= tol:
+                    raise AssertionError(f"{name} {dtype} axis {axis} plane "
+                                         f"{j}: {rel:.3e} > {tol:.1e}")
+                w = max(w, rel)
+        worst[name] = w
+    return worst
+
+
 def fs_mask(cfg) -> bool:
     """Whether B1/B2 of ``cfg`` take the HLLD fallback mask."""
     from pion_tpu_torch.ops import fused_sweep as fs
@@ -1722,17 +1787,26 @@ def measure_ng_sweep(device, hier):
     state has prolonged ghosts instead of a domain boundary, the cell size is
     half the root's, and the wind region holds cells of rho = p = 1e-31 beside
     a 2000 km/s outflow.  All three axes, both orders, float32, 128^3:
-    against the plain version (errors by groups of variables), and timed."""
+    against the plain version (errors by groups of variables), and timed.
+    At order 2 also as the corrector launches it, with the interface planes
+    of ``_face_pairs(1)``: ``dU`` bit for bit the launch without planes,
+    each plane against the plain sweep's face at its index, its error in a
+    group of variables over the group's largest plain face flux on that
+    axis (a plane of fluid at rest carries next to no mass or energy flux
+    of its own, so its own largest value is no scale).  ``ms`` is the
+    path's mix: order 1 without planes, order 2 with them."""
     from pion_tpu_torch.constants import BX, PG, RO, SI, VX
     from pion_tpu_torch.ops import fused_sweep as fs
+    from pion_tpu_torch.ops.sweep import dynamics_dU
 
     cfg, geom, Ppad, strong, dt, ch, scma = ng_sweep_inputs(hier)
     nb = cfg.eqn.nbase
     groups = [[RO], [VX, VX + 1, VX + 2], [PG], [BX, BX + 1, BX + 2], [SI],
               list(range(nb, cfg.nvar))]
     tol = TOL[Ppad.dtype]
-    worst = abs_err = 0.0
+    worst = abs_err = plane_err = 0.0
     plain_ms = []
+    planes = [sorted(p) for p in hier._face_pairs(1)]
     for axis in range(cfg.ndim):
         for order in (1, 2):
             def plain():
@@ -1750,19 +1824,48 @@ def measure_ng_sweep(device, hier):
             worst = max(worst, rel)
             abs_err = max(abs_err, float((out - ref).abs().max()))
             plain_ms.append(time_ms(plain, 2, warmup=1))
+        js = planes[axis]
+        dU, F = fs.sweep_axis(Ppad, cfg, geom, axis, 2, dt, ch=ch, scma=scma,
+                              strong=strong, planes=js)
+        _, faces = dynamics_dU(Ppad, cfg, geom, dt, 2, ch=ch, scma=scma,
+                               axes=[axis])
+        if not torch.equal(dU, out):
+            raise AssertionError(f"sweep_axis on the nested-grid path "
+                                 f"axis={axis}: dU with planes {js} differs")
+        tiny = torch.finfo(F.dtype).tiny
+        for k, j in enumerate(js):
+            ref = faces[axis].select(1 + axis, j)
+            rel = max(float((F[k, g] - ref[g]).abs().max()) / max(
+                float(faces[axis][g].abs().max()), tiny) for g in groups)
+            if not rel <= tol:
+                raise AssertionError(
+                    f"sweep_axis on the nested-grid path axis={axis} plane "
+                    f"{j}: {rel:.3e} > {tol:.1e}")
+            plane_err = max(plane_err, rel)
     by_case = sweep_mix_ms(Ppad, cfg, geom, range(cfg.ndim), dt, ch, strong,
                            scma=scma)
+    for a in range(cfg.ndim):
+        by_case[f"axis{a}_order2_planes"] = time_ms(
+            lambda: fs.sweep_axis(Ppad, cfg, geom, a, 2, dt, ch=ch, scma=scma,
+                                  strong=strong, planes=planes[a]), 20)
+    path = [by_case[f"axis{a}_order1"] for a in range(cfg.ndim)] + [
+        by_case[f"axis{a}_order2_planes"] for a in range(cfg.ndim)]
     cells = int(np.prod(cfg.shape))
     esz = Ppad.element_size()
     n_if = cells // cfg.shape[0] * (cfg.shape[0] + 1)
+    # the mix's mean launch: half of them (order 2) write their planes
+    plane_bytes = cfg.nvar * esz * sum(
+        len(planes[a]) * cells // cfg.shape[a] for a in range(cfg.ndim))
     b_ms, b_by = bound(
-        Ppad.numel() * esz + strong.numel() + 2 * esz + cfg.nvar * cells * esz,
+        Ppad.numel() * esz + strong.numel() + 2 * esz + cfg.nvar * cells * esz
+        + plane_bytes // (2 * cfg.ndim),
         n_if * (fs.flops_per_interface(cfg, 1)
                 + fs.flops_per_interface(cfg, 2)) // 2, Ppad.dtype)
     return {"level": 1, "scma": True, "axes": [0, 1, 2], "orders": [1, 2],
-            "dx_over_root_dx": 0.5, "max_rel_err": worst, "launches": None,
+            "planes": planes, "dx_over_root_dx": 0.5, "max_rel_err": worst,
+            "max_plane_rel_err": plane_err, "launches": None,
             "max_abs_err": abs_err,
-            "ms": float(np.mean(list(by_case.values()))),
+            "ms": float(np.mean(path)),
             "plain_ms": float(np.mean(plain_ms)), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None, "ms_by_case": by_case}
 
@@ -5298,16 +5401,21 @@ def main(argv=None):
     info = _build.load_all()
     # per library: [kernel, registers, spill stores, spill loads] of the
     # instantiation with the most registers and of the one that spills most,
-    # and the same over the radial instantiations of B1/B2 (GEO = 1, the
-    # last template argument)
+    # and the same over the radial instantiations of B1/B2 (GEO = 1: the
+    # last template argument of final_axis, the one before PLANES of
+    # sweep_axis)
     def most(rows):
         return {"kernels": len(rows),
                 "max_registers": max(rows, key=lambda r: r["registers"]),
                 "max_spill": max(rows, key=lambda r: r["spill_stores"])}
 
+    def geo(kernel):
+        args = kernel.rstrip(">").split(",")
+        return args[-2] if kernel.startswith("sweep_axis<") else args[-1]
+
     def radial_rows(rows):
         return [r for r in rows if r["kernel"].startswith(
-            ("sweep_axis<", "final_axis<")) and r["kernel"].endswith(",1>")]
+            ("sweep_axis<", "final_axis<")) and geo(r["kernel"]) == "1"]
 
     emit("build", seconds=info["seconds"], built=info["built"],
          ptxas={name: dict(most(rows), radial=most(radial_rows(rows))
@@ -5332,6 +5440,10 @@ def main(argv=None):
              name: {k: {"sweep_axis": v[0], "final_axis": v[1]}
                     for k, v in by_dtype.items()}
              for name, by_dtype in radial_errs.items()})
+    emit("plane_checks", max_rel_err={
+        dtype: check_planes(device, dtype) for dtype in ("float64", "float32")},
+         tol={"float64": PLANES_TOL[torch.float64],
+              "float32": PLANES_TOL[torch.float32]})
     w_mp, n_mp, ladder = check_mpv3(device)
     emit("mpv3_checks", cases=n_mp, max_soft_rel_err=w_mp, ladder=ladder,
          ydot_grid=check_ydot_grid(device), mpv6=check_mpv6(device),

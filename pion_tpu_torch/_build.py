@@ -66,7 +66,8 @@ _I = ctypes.c_int
 _L = ctypes.c_long
 _D = ctypes.c_double
 _SWEEP_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-               ctypes.c_ulonglong, _I, _I, _D, _D, _D, _D, _D, _D, _P]
+               ctypes.c_ulonglong, _I, _I, _D, _D, _D, _D, _D, _D,
+               _P, _I, _I, _I, _I, _I, _P]
 _FINAL_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                _I, _I, _I, _D, _D, _D, _D, _D, _D, _P]
 _DP = ctypes.POINTER(ctypes.c_double)

@@ -30,6 +30,19 @@
 //   2. solves the T + 1 interfaces of the tile, one a thread, with the same
 //      `interface_flux` as the final kernel, and writes their base fluxes to
 //      shared memory (the mass flux among them is what the tracers need);
+//      with PLANES = 1 (order 2 on Cartesian tiles: the nested-grid
+//      corrector's sweep) the tile then copies the faces of up to
+//      MAX_PLANES requested interfaces j that it owns (its low faces; the
+//      last tile along the axis also the high face n) from shared memory to
+//      a plane output, unrotated, with each tracer's upwind flux formed as
+//      phase 3 forms it: the face fluxes of the plain sweep at those
+//      interfaces, which the hierarchy's BC89 correction and boundary
+//      restriction read.  PLANES = 0 compiles to the kernel without the
+//      copy.  The copy leaves dU's arithmetic as it was, but the compiler
+//      may contract it otherwise around it: at order 2 dU has come out bit
+//      for bit the PLANES = 0 launch's (chip_smoke.check_planes), at order
+//      1 not (the float32 GLM energy, 1 ulp in ~0.5 % of cells), so only
+//      order 2 is built with planes;
 //   3. after one barrier forms each cell's flux divergence, Powell and GLM
 //      sources and tracer updates from shared memory and writes dt*dU once.
 // So a cell costs (T+1)/T interface solves (the tile's two edge faces are
@@ -131,6 +144,17 @@ struct Tiling {
   long ps_along, ps_across, ps_third, p_origin;  // p_origin: interior (0,0,0)
   long os_along, os_across, os_third;
   int along_fast;                  // the sweep axis is the contiguous one
+};
+
+// The interface planes a sweep_axis launch with PLANES = 1 writes: n
+// interface indices j (0..n_along) on the sweep axis, and out, (n, nvar,
+// n_third, n_across) -- the (nvar, *transverse) plane of each in turn.
+constexpr int MAX_PLANES = 4;
+template <typename T>
+struct Planes {
+  T* out;
+  int n;
+  int j[MAX_PLANES];
 };
 
 // The sweep-frame slot j of the velocity/field triple lives in slot (k+j)%3.
@@ -408,6 +432,55 @@ __device__ __forceinline__ void tracer_updates(const Cells& P, const Layout& L, 
   }
 }
 
+// Edge states of tracer variable v at the face between the cell `P` is
+// centred on and the next one (Cartesian: the high face of tracer_edges).
+template <typename T, int ORDER, class Cells>
+__device__ __forceinline__ void face_tracer_edges(const Cells& P, int v, const Consts<T>& c, T& pl,
+                                                  T& pr) {
+  if (ORDER == 1) {
+    pl = P(v, 0);
+    pr = P(v, 1);
+  } else {
+    edge_pair<T, ORDER>(P(v, -1), P(v, 0), P(v, 1), P(v, 2), c, pl, pr);
+  }
+}
+
+// The upwind flux of every tracer through the face between the cell `P` is
+// centred on and the next one, on the mass flux fm, handed to
+// `sink(v, flux)`: tracer_updates' flux of that face, sCMA clamp and
+// element renormalisation included.
+template <typename T, int EQN, int ORDER, class Cells, typename Sink>
+__device__ __forceinline__ void face_tracer_fluxes(const Cells& P, const Layout& L,
+                                                   const Consts<T>& c, T fm, Sink sink) {
+  constexpr int NB = NBase<EQN>::value;
+  T fac_l = T(1.0), fac_r = T(1.0);
+  if (L.scma && L.el_mask) {
+    T sl = T(0.0), sr = T(0.0);
+    for (int e = NB; e < L.nvar; ++e) {
+      if (!((L.el_mask >> e) & 1ull)) continue;
+      T pl, pr;
+      face_tracer_edges<T, ORDER>(P, e, c, pl, pr);
+      sl = sl + fmin(fmax(pl, T(0.0)), T(1.0));
+      sr = sr + fmin(fmax(pr, T(0.0)), T(1.0));
+    }
+    fac_l = T(1.0) / fmax(sl, T(1.0e-30));
+    fac_r = T(1.0) / fmax(sr, T(1.0e-30));
+  }
+  for (int v = NB; v < L.nvar; ++v) {
+    T pl, pr;
+    face_tracer_edges<T, ORDER>(P, v, c, pl, pr);
+    if (L.scma) {
+      pl = fmin(pl, T(1.0));
+      pr = fmin(pr, T(1.0));
+      if ((L.el_mask >> v) & 1ull) {
+        pl = pl * fac_l;
+        pr = pr * fac_r;
+      }
+    }
+    sink(v, tracer_flux(fm, pl, pr));
+  }
+}
+
 // The van Albada slope of variable v at the cell `P` is centred on, over its
 // centre-of-volume spacing (the radial axis).
 template <typename T, class Cells>
@@ -638,15 +711,50 @@ __device__ __forceinline__ TileCells<T, GEO> cell_divergence(const Tile<T>& t, i
   return cells;
 }
 
-template <typename T, int EQN, int SOLVER, int AV, int ORDER, int GEO>
+// Phase 2's copy of the requested interface planes (PLANES = 1): each plane
+// j this tile owns -- a low face, or the high face n of the last tile along
+// the axis, so that no two tiles store one face -- one pencil a thread, the
+// base fluxes unrotated from the staged faces and the tracers' upwind flux
+// formed from the staged cells.
+template <typename T, int EQN, int ORDER>
+__device__ __forceinline__ void copy_planes(const Tile<T>& t, const Planes<T>& pl, const Layout& L,
+                                            const Tiling& tl, const Consts<T>& c) {
+  constexpr int NB = NBase<EQN>::value;
+  const long pn = (long)tl.n_across * tl.n_third;  // cells of a plane
+  for (int p = 0; p < pl.n; ++p) {
+    const int f = pl.j[p] - t.a0;
+    if (f < 0 || f > t.nA || (f == t.nA && t.a0 + t.nA != tl.n_along)) continue;
+    for (int w = threadIdx.x; w < t.nW; w += THREADS) {
+      T* o = pl.out + (long)p * L.nvar * pn + (long)t.t3 * tl.n_across + t.w0 + w;
+      const T* sf = t.s_flux + f * t.rs + w;  // variable v at sf[v * fstride]
+      const long fstride = (long)t.fs * t.rs;
+      o[RO * pn] = sf[RO * fstride];
+      o[PG * pn] = sf[PG * fstride];
+#pragma unroll
+      for (int jj = 0; jj < 3; ++jj) {
+        o[(VX + rot(L.k, jj)) * pn] = sf[(VX + jj) * fstride];
+        if constexpr (NB >= 8) o[(BX + rot(L.k, jj)) * pn] = sf[(BX + jj) * fstride];
+      }
+      if constexpr (NB == 9) o[SI * pn] = sf[(NB - 1) * fstride];
+      const TileCells<T, 0> cells = tile_cells<T, 0>(t, ORDER - 1 + f, w);
+      face_tracer_fluxes<T, EQN, ORDER>(cells, L, c, sf[RO * fstride],
+                                        [o, pn](int v, T val) { o[v * pn] = val; });
+    }
+  }
+}
+
+template <typename T, int EQN, int SOLVER, int AV, int ORDER, int GEO, int PLANES>
 __global__ void __launch_bounds__(THREADS)
 sweep_axis_kernel(const T* __restrict__ P, const uint8_t* __restrict__ mask,
                   const T* __restrict__ geo, T* __restrict__ out, const T* __restrict__ dt_p,
-                  const T* __restrict__ ch_p, Layout L, Tiling tl, Consts<T> c) {
+                  const T* __restrict__ ch_p, Layout L, Tiling tl, Consts<T> c, Planes<T> pl) {
+  static_assert(PLANES == 0 || (GEO == 0 && ORDER == 2),
+                "interface planes are written by order-2 sweeps on Cartesian tiles");
   constexpr int NB = NBase<EQN>::value;
   T dt, ch;
   const Tile<T> t =
       stage_and_solve<T, EQN, SOLVER, AV, ORDER, GEO>(P, mask, geo, dt_p, ch_p, L, tl, c, dt, ch);
+  if constexpr (PLANES != 0) copy_planes<T, EQN, ORDER>(t, pl, L, tl, c);
 
   // 3. each cell: divergence, sources, tracers; dt*dU written once
   const long o0 = (long)t.a0 * tl.os_along + (long)t.w0 * tl.os_across + (long)t.t3 * tl.os_third;
@@ -815,14 +923,15 @@ inline size_t tile_bytes(int nvar, int nb, int order, int T, int W, bool mask, b
 
 // Opt a tile kernel in to `bytes` of dynamic shared memory once it needs
 // more than the default (once per instantiation and size).  K < 0:
-// sweep_axis_kernel<E, S, A, O, G>; else final_axis_kernel<E, S, A, O, K, G>.
-template <typename T, int E, int S, int A, int O, int K, int G>
+// sweep_axis_kernel<E, S, A, O, G, PL>; else final_axis_kernel<E, S, A, O,
+// K, G>.
+template <typename T, int E, int S, int A, int O, int K, int G, int PL = 0>
 cudaError_t allow_tile_smem(size_t bytes) {
   static size_t allowed = SMEM_DEFAULT;
   if (bytes <= allowed) return cudaSuccess;
   cudaError_t e;
   if constexpr (K < 0) {
-    e = cudaFuncSetAttribute(sweep_axis_kernel<T, E, S, A, O, G>,
+    e = cudaFuncSetAttribute(sweep_axis_kernel<T, E, S, A, O, G, PL>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   } else {
     e = cudaFuncSetAttribute(final_axis_kernel<T, E, S, A, O, K, G>,
@@ -874,42 +983,60 @@ inline bool holds(int eqn) {
 // per-cell flags as bytes, or null; geo: the (6, ny + 4) geometry pack of the
 // radial axis (2D cylindrical, axis 0 only), or null; out: (nvar, [nz,] ny,
 // nx).  eqn: 0 MHD, 1 GLM, 2 Euler.  tile_t, tile_w: cells along and pencils across a block's tile
-// (fused_sweep.sweep_plan).  Returns cudaGetLastError() of the launch, or
-// cudaErrorInvalidValue for arguments no instantiation covers and tiles
-// whose shared memory exceeds what a block can have.
+// (fused_sweep.sweep_plan).  planes: null, or (nplanes, nvar, *transverse)
+// for the face fluxes of the nplanes (1..MAX_PLANES) interfaces j0.. on the
+// sweep axis (0..n; order 2, Cartesian only).  Returns cudaGetLastError() of the
+// launch, or cudaErrorInvalidValue for arguments no instantiation covers and
+// tiles whose shared memory exceeds what a block can have.
 extern "C" int pion_sweep_axis(const void* P, const void* mask, const void* geo, void* out,
                                const void* dt, const void* ch, int ndim, int nz, int ny, int nx,
                                int axis,
                                int nvar, int eqn, int av, int order, int scma,
                                unsigned long long el_mask, int tile_t, int tile_w, double dx,
                                double gamma, double etav, double rho_floor, double p_floor,
-                               double cr, void* stream) {
+                               double cr, void* planes, int nplanes, int j0, int j1, int j2,
+                               int j3, void* stream) {
   if ((ndim != 2 && ndim != 3) || axis < 0 || axis >= ndim || (order != 1 && order != 2) ||
       !holds(eqn) || nvar < nbase_of(eqn) || nvar > 64 || tile_t < 1 || tile_w < 1 ||
-      (geo != nullptr && (ndim != 2 || axis != 0))) {
+      (geo != nullptr && (ndim != 2 || axis != 0)) ||
+      (planes == nullptr) != (nplanes == 0) || nplanes < 0 || nplanes > MAX_PLANES ||
+      (planes != nullptr && (geo != nullptr || order != 2))) {
     return (int)cudaErrorInvalidValue;
   }
   const Layout L = make_layout(ndim, nz, ny, nx, axis, nvar, scma, el_mask);
   const Tiling tl = make_tiling(L, tile_t, tile_w);
+  Planes<real> pl;
+  pl.out = (real*)planes;
+  pl.n = nplanes;
+  const int js[MAX_PLANES] = {j0, j1, j2, j3};
+  for (int p = 0; p < MAX_PLANES; ++p) {
+    if (p < nplanes && (js[p] < 0 || js[p] > tl.n_along)) return (int)cudaErrorInvalidValue;
+    pl.j[p] = js[p];
+  }
   const size_t smem = tile_bytes(nvar, nbase_of(eqn), order, tile_t, tile_w,
                                  mask != nullptr, geo != nullptr, sizeof(real));
   const long nblocks = (long)tl.n_ta * tl.n_tw * tl.n_third;
   if (smem > SMEM_MAX || nblocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
   const Consts<real> c = make_consts<real>(dx, gamma, etav, rho_floor, p_floor, cr);
   cudaStream_t s = (cudaStream_t)stream;
-#define PION_SWEEP_LAUNCH(E, A, O, G)                                                       \
+#define PION_SWEEP_LAUNCH(E, A, O, G, PL)                                                   \
   {                                                                                         \
-    const cudaError_t e = allow_tile_smem<real, E, PION_SOLVER, A, O, -1, G>(smem);         \
+    const cudaError_t e = allow_tile_smem<real, E, PION_SOLVER, A, O, -1, G, PL>(smem);     \
     if (e != cudaSuccess) return (int)e;                                                    \
-    sweep_axis_kernel<real, E, PION_SOLVER, A, O, G><<<(unsigned)nblocks, THREADS, smem, s>>>( \
-        (const real*)P, (const uint8_t*)mask, (const real*)geo, (real*)out, (const real*)dt, \
-        (const real*)ch, L, tl, c);                                                         \
+    sweep_axis_kernel<real, E, PION_SOLVER, A, O, G, PL>                                    \
+        <<<(unsigned)nblocks, THREADS, smem, s>>>(                                          \
+            (const real*)P, (const uint8_t*)mask, (const real*)geo, (real*)out,             \
+            (const real*)dt, (const real*)ch, L, tl, c, pl);                                \
   }
-#define PION_SWEEP_CALL(E, A, O)       \
-  if (geo != nullptr) {                \
-    PION_SWEEP_LAUNCH(E, A, O, 1)      \
-  } else {                             \
-    PION_SWEEP_LAUNCH(E, A, O, 0)      \
+// (planes come with order 2 alone, checked above: O - 1 instantiates
+// PLANES = 1 for O = 2 only)
+#define PION_SWEEP_CALL(E, A, O)          \
+  if (geo != nullptr) {                   \
+    PION_SWEEP_LAUNCH(E, A, O, 1, 0)      \
+  } else if (nplanes > 0) {               \
+    PION_SWEEP_LAUNCH(E, A, O, 0, O - 1)  \
+  } else {                                \
+    PION_SWEEP_LAUNCH(E, A, O, 0, 0)      \
   }
   PION_DISPATCH(PION_SWEEP_CALL)
 #undef PION_SWEEP_CALL

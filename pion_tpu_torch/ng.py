@@ -951,39 +951,32 @@ class NGHierarchy:
                                               tau_child, t0, states, sp,
                                               rt0_map)
 
-        # corrector (2nd-order space).  On the fast path the fused kernels
-        # compute the dU and the handful of interface planes that BC89 /
-        # boundary restriction need are recomputed from 4-cell slabs
-        # (ops.sweep.interface_flux — equal to the plain sweep's face
-        # tensors); otherwise the plain sweep keeps its faces.
+        # second fine substep
+        fine_sums_2 = None
+        if level + 1 < self.n_levels:
+            fine_sums_2 = self._advance_level(level + 1, 0.5 * dt, Ph,
+                                              tau_child, later(t0, 0.5 * dt),
+                                              states, sp)
+
+        # corrector (2nd-order space), after the second fine substep, which
+        # reads nothing of it (only Ph), so that its dU and interface planes
+        # are not held through the finer levels' steps.  On the fast path
+        # the fused kernels compute the dU and write the handful of
+        # interface planes that BC89 / boundary restriction need as they
+        # solve them (the plain sweep's face tensors at those indices);
+        # otherwise the plain sweep keeps its faces.
         Ppad = self._pad_level(level, Ph, parent_state)
         use_fast = (fused and cfg.coords is Coord.CARTESIAN
                     and cfg.av is AV.FALLE)
         if use_fast:
             with tracing.span("sweep"):
-                dU_f = fused_sweep.dynamics_dU_fused(
-                    Ppad, cfg, geom, dt, 2, ch=ch, scma=scma)
-            _fcache: Dict = {}
-            pair_of = self._face_pairs(level)
+                dU_f, planes = fused_sweep.dynamics_dU_fused(
+                    Ppad, cfg, geom, dt, 2, ch=ch, scma=scma,
+                    planes={ax: sorted(p) for ax, p
+                            in enumerate(self._face_pairs(level))})
 
             def get_face(ax_, i_):
-                # the interface planes BC89 reads, recomputed for it alone
-                if (ax_, i_) not in _fcache:
-                    j2 = pair_of[ax_].get(i_)
-                    with tracing.span("glue.bc89"):
-                        if j2 is not None and j2 != i_ \
-                                and (ax_, j2) not in _fcache:
-                            a, b = sorted((i_, j2))
-                            Fa, Fb = interface_flux_pair(
-                                Ppad, cfg, geom, ax_, a, b, dt, 2, ch=ch,
-                                scma=scma)
-                            _fcache[(ax_, a)] = Fa
-                            _fcache[(ax_, b)] = Fb
-                        else:
-                            _fcache[(ax_, i_)] = interface_flux(
-                                Ppad, cfg, geom, ax_, i_, dt, 2, ch=ch,
-                                scma=scma)
-                return _fcache[(ax_, i_)]
+                return planes[(ax_, i_)]
         else:
             with tracing.span("sweep"):
                 dU_f, faces = dynamics_dU(Ppad, cfg, geom, dt, 2, ch=ch,
@@ -995,13 +988,6 @@ class NGHierarchy:
             with tracing.span("chem"):
                 dU_f = dU_f + phys.mp_delta_U(P, Ph, dt, cfg, tau_in,
                                               sp=sp)
-
-        # second fine substep
-        fine_sums_2 = None
-        if level + 1 < self.n_levels:
-            fine_sums_2 = self._advance_level(level + 1, 0.5 * dt, Ph,
-                                              tau_child, later(t0, 0.5 * dt),
-                                              states, sp)
 
         # BC89: correct this level's dU with the fine fluxes
         if level + 1 < self.n_levels:
@@ -1291,7 +1277,8 @@ class NGHierarchy:
     def _face_pairs(self, level: int):
         """The interface planes the corrector of ``level`` hands on (its
         boundary planes, the child's), a dict an axis from each to its
-        partner: a known pair is computed two at a time from one 8-cell
+        partner.  The one-device corrector has B1 write these planes; a
+        sharded level computes a known pair two at a time from one 8-cell
         slab."""
         cfg = self.cfgs[level]
         pair_of = [dict() for _ in range(cfg.ndim)]

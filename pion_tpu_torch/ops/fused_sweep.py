@@ -22,6 +22,12 @@ the plain version only because the tensor it was given lies on the CPU; for a
 CUDA tensor it launches the kernel or raises.  Each wrapper counts its
 launches in its ``launches`` attribute.
 
+:func:`sweep_axis` can also hand back the face fluxes of a few interfaces of
+its axis (``planes``, at order 2 on a Cartesian axis): the kernel writes the
+faces it solves there, so the nested-grid hierarchy's BC89 correction and
+boundary restriction read the fluxes that went into ``dU``
+(``sweep_axis.planes`` counts them, on either path).
+
 On a Cartesian axis the reconstruction differs in the last bit between the
 two: the plain sweep divides the one-sided differences by the
 centre-of-volume spacing and multiplies the slopes by ``del_n``/``del_p``;
@@ -60,6 +66,7 @@ from .eqns import BASE_RHO, cons_to_prim, prim_to_cons
 from .sweep import dynamics_dU, hlld_fallback_cells
 
 MAX_NVAR = 64  # element slots travel as a 64-bit mask
+MAX_PLANES = 4  # interface planes a sweep_axis launch writes (csrc/sweep.cu)
 
 SWEEP_THREADS = 128            # threads a block of sweep_axis_kernel
 SMEM_MAX = 232448              # shared memory a block can opt in to (H100)
@@ -349,21 +356,39 @@ def _launch_args(Ph_pad, cfg: SimConfig, geom: Geometry, strong):
     return lib, mask_ptr, strong, (nz, ny, nx), consts
 
 
+def _check_planes(cfg: SimConfig, axis: int, order: int, planes) -> list:
+    js = [int(j) for j in planes]
+    if cfg.coords is not Coord.CARTESIAN or order != 2:
+        raise ValueError("interface planes are written by order-2 sweeps "
+                         "of Cartesian axes (the nested-grid corrector's)")
+    if not 1 <= len(js) <= MAX_PLANES or len(set(js)) != len(js) or any(
+            not 0 <= j <= cfg.shape[axis] for j in js):
+        raise ValueError(f"planes {js}: 1 to {MAX_PLANES} distinct "
+                         f"interfaces in 0..{cfg.shape[axis]}")
+    return js
+
+
 def sweep_axis(Ph_pad: torch.Tensor, cfg: SimConfig, geom: Geometry,
                axis: int, order: int, dt, ch=None, scma=False,
-               strong: Optional[torch.Tensor] = None) -> torch.Tensor:
+               strong: Optional[torch.Tensor] = None, planes=None):
     """``dt*dU`` of one axis for the interior cells, ``(nvar, *shape)``.
 
     ``Ph_pad`` is the fully padded primitive state.  ``strong`` is the
     per-cell HLLD->HLL flag of :func:`..ops.sweep.hlld_fallback_cells`
     (padded, bool); it is computed here when the config needs it and the
     caller has none.  ``dt`` and ``ch`` may be numbers or 0-d tensors.
-    A CPU tensor takes :func:`sweep_axis_plain`; a CUDA tensor launches
-    the kernel or raises.
+    ``planes``: up to ``MAX_PLANES`` interface indices ``j`` (0..n) of a
+    Cartesian axis, at order 2; then ``(dU, F)`` is returned, ``F[i]`` the
+    face flux at ``planes[i]``, ``(nvar, *transverse)`` (the plain sweep's
+    ``face_fluxes[axis]`` at that index).  A CPU tensor takes
+    :func:`sweep_axis_plain`; a CUDA tensor launches the kernel or raises.
     """
+    js = None if planes is None else _check_planes(cfg, axis, order, planes)
+    if js is not None:
+        sweep_axis.planes += len(js)
     if not Ph_pad.is_cuda:
         return sweep_axis_plain(Ph_pad, cfg, geom, axis, order, dt, ch=ch,
-                                scma=scma)
+                                scma=scma, planes=js)
     if not 0 <= axis < cfg.ndim or order not in (1, 2):
         raise ValueError(f"bad axis {axis} or order {order}")
     lib, mask_ptr, strong, (nz, ny, nx), consts = _launch_args(
@@ -380,28 +405,41 @@ def sweep_axis(Ph_pad: torch.Tensor, cfg: SimConfig, geom: Geometry,
                       geo is not None)
     out = torch.empty((cfg.nvar,) + tuple(cfg.shape), dtype=Ph_pad.dtype,
                       device=Ph_pad.device)
+    F, planes_args = None, (None, 0, 0, 0, 0, 0)
+    if js is not None:
+        F = torch.empty((len(js), cfg.nvar) + tuple(
+            n for a, n in enumerate(cfg.shape) if a != axis),
+            dtype=Ph_pad.dtype, device=Ph_pad.device)
+        planes_args = (F.data_ptr(), len(js),
+                       *(js + [0] * (MAX_PLANES - len(js))))
     err = lib.pion_sweep_axis(
         Ph_pad.data_ptr(), mask_ptr,
         None if geo is None else geo.data_ptr(), out.data_ptr(),
         dt_t.data_ptr(),
         ch_t.data_ptr(), cfg.ndim, nz, ny, nx, axis, cfg.nvar,
         _EQN_CODE[cfg.eqn], 1 if cfg.av is AV.FALLE else 0,
-        order, clamp, bits, plan["T"], plan["W"], *consts,
+        order, clamp, bits, plan["T"], plan["W"], *consts, *planes_args,
         torch.cuda.current_stream(Ph_pad.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"sweep_axis kernel launch failed: CUDA error {err}")
     sweep_axis.launches += 1
-    return out
+    return out if F is None else (out, F)
 
 
 sweep_axis.launches = 0
+sweep_axis.planes = 0
 
 
 def sweep_axis_plain(Ph_pad, cfg: SimConfig, geom: Geometry, axis: int,
-                     order: int, dt, ch=None, scma=False) -> torch.Tensor:
-    """The plain PyTorch version of :func:`sweep_axis`."""
-    return dynamics_dU(Ph_pad, cfg, geom, dt, order, ch=ch, scma=scma,
-                       axes=[axis])[0]
+                     order: int, dt, ch=None, scma=False, planes=None):
+    """The plain PyTorch version of :func:`sweep_axis`: the plain sweep of
+    one axis, and with ``planes`` its face tensor at those indices."""
+    dU, faces = dynamics_dU(Ph_pad, cfg, geom, dt, order, ch=ch, scma=scma,
+                            axes=[axis])
+    if planes is None:
+        return dU
+    return dU, torch.stack([faces[axis].select(1 + axis, j)
+                            for j in planes])
 
 
 def final_axis(P: torch.Tensor, Ph_pad: torch.Tensor,
@@ -478,11 +516,14 @@ def final_axis_plain(P, Ph_pad, contribs, cfg: SimConfig, geom: Geometry,
 
 
 def dynamics_dU_fused(Ph_pad: torch.Tensor, cfg: SimConfig, geom: Geometry,
-                      dt, order: int, ch=None, scma=False) -> torch.Tensor:
+                      dt, order: int, ch=None, scma=False, planes=None):
     """``dt*dU`` of the whole sweep, every axis through :func:`sweep_axis`,
-    summed in ascending axis order (no face fluxes).  The partial update
-    takes this form when a microphysics term joins ``dU`` before the
-    conserved update, so that :func:`final_axis` cannot apply it."""
+    summed in ascending axis order.  The partial update takes this form
+    when a microphysics term joins ``dU`` before the conserved update, so
+    that :func:`final_axis` cannot apply it.  ``planes``: ``{axis: [j,
+    ...]}``, the interface planes to hand back; then ``(dU, {(axis, j):
+    face flux})`` is returned, each plane ``(nvar, *transverse)`` as
+    :func:`sweep_axis` gives it."""
     if not supports(cfg):
         raise ValueError("configuration outside fused_sweep.supports()")
     if cfg.eqn is Eqn.GLM and ch is None:
@@ -490,12 +531,16 @@ def dynamics_dU_fused(Ph_pad: torch.Tensor, cfg: SimConfig, geom: Geometry,
     strong = None
     if Ph_pad.is_cuda and _uses_mask(cfg):
         strong = hlld_fallback_cells(Ph_pad, cfg, geom.dx)
-    dU = None
+    dU, faces = None, {}
     for axis in range(cfg.ndim):
+        js = None if planes is None else planes.get(axis) or None
         contrib = sweep_axis(Ph_pad, cfg, geom, axis, order, dt, ch=ch,
-                             scma=scma, strong=strong)
+                             scma=scma, strong=strong, planes=js)
+        if js is not None:
+            contrib, F = contrib
+            faces.update(((axis, int(j)), F[i]) for i, j in enumerate(js))
         dU = contrib if dU is None else dU.add_(contrib)
-    return dU
+    return dU if planes is None else (dU, faces)
 
 
 def advance_dynamics(P: torch.Tensor, Ph_pad: torch.Tensor, cfg: SimConfig,

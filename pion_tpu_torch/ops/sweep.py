@@ -20,7 +20,8 @@ flux correction between refinement levels), with each flux tensor keeping the
 sweep axis in its natural position (length n+1 there).
 
 ``interface_flux`` and ``interface_flux_pair`` give single interface planes
-of those face fluxes from 4-cell slabs, for the nested-grid hierarchy.
+of those face fluxes from 4-cell slabs, for the sharded nested-grid
+hierarchy (``_slab_faces.sweeps`` counts the slab sweeps).
 
 Ported: Cartesian, 2D axisymmetric (cylindrical) and 1D spherical grids
 (the metric divergence and the radial geometric sources), the Euler, MHD and
@@ -612,7 +613,11 @@ def _slab_faces(Ph_pad, cfg: SimConfig, axis: int, starts, dt, order: int,
     cfg_slab, geom_slab = _slab_setup(cfg, axis, 4 * len(starts))
     _, faces = dynamics_dU(slab_pad, cfg_slab, geom_slab, dt, order, ch=ch,
                            scma=scma, axes=[axis])
+    _slab_faces.sweeps += 1
     return faces[axis]
+
+
+_slab_faces.sweeps = 0
 
 
 def interface_flux(Ph_pad, cfg: SimConfig, geom: Geometry, axis: int,
@@ -620,11 +625,12 @@ def interface_flux(Ph_pad, cfg: SimConfig, geom: Geometry, axis: int,
     """Face flux at ONE interface plane ``j`` (0..n) of ``axis``, equal to
     ``dynamics_dU(...)[1][axis]`` indexed at j, from a 4-cell slab.
 
-    Lets the nested-grid hierarchy use the fused kernels for the dU (which do
-    not expose face fluxes) and still obtain the handful of interface planes
-    that BC89 flux correction and the parent-boundary restriction need
-    (reference: NG_BC89flux save_fine/coarse_fluxes) — O(N^2) work per plane
-    instead of a second full plain sweep.
+    Gives a sharded nested-grid level, whose blocks each run the fused
+    kernels for their dU, the handful of interface planes that BC89 flux
+    correction and the parent-boundary restriction need (reference:
+    NG_BC89flux save_fine/coarse_fluxes) — O(N^2) work per plane instead of
+    a second full plain sweep.  A one-device level takes them from the
+    kernels' own plane output (``fused_sweep.sweep_axis(planes=...)``).
 
     The interface flux depends only on cells j-2..j+1 of the sweep axis
     (2nd-order MUSCL stencil), all present in ``Ph_pad``; the slab's own

@@ -28,8 +28,10 @@ its capture, and never at a replay:
 The graph cache key (:func:`.graphs.key`) holds the mode: a graph recorded
 with tracing off is never replayed with counters on, nor the reverse.
 
-Counters are plain ints (the kernel wrappers' ``launches`` attributes,
-listed by :func:`launch_counters`; ``graph.captures`` and ``graph.replays``
+Counters are plain ints (the kernel wrappers' ``launches`` attributes, the
+interface planes B1 hands back, ``sweep_axis.planes``, and the plain slab
+sweeps that recompute such planes, ``_slab_faces.sweeps``, listed by
+:func:`launch_counters`; ``graph.captures`` and ``graph.replays``
 by graph; ``comm.bytes_sent`` and ``comm.messages``), counted whether
 tracing is on or off, and the chemistry ladder's device counters
 ``chem.ladder_tiles`` and ``chem.newton_iters``: with tracing on, one int32
@@ -165,17 +167,20 @@ def count(name: str, n: int = 1, key: Optional[str] = None) -> None:
 
 
 def launch_counters():
-    """(wrapper, attribute) of every launch counter of the kernel
-    wrappers, in a fixed order."""
+    """(function, attribute) of every counter kept on a function: the
+    kernel wrappers' launches, B1's interface planes and the plain slab
+    sweeps, in a fixed order."""
     from .microphysics import fused_mpv3 as fm
     from .ops import fused_sweep as fs
+    from .ops import sweep as sw
     from .raytracing import fused_trace as ft
     from .raytracing import sharded_trace as st
 
     return ((fs.sweep_axis, "launches"), (fs.final_axis, "launches"),
             (fm.ydot, "launches"), (fm.update, "launches"),
             (fm.update, "launches_seeded"), (ft.octant_trace, "launches"),
-            (st.sharded_octant_trace, "launches"))
+            (st.sharded_octant_trace, "launches"),
+            (fs.sweep_axis, "planes"), (sw._slab_faces, "sweeps"))
 
 
 def ladder_stats(device) -> Optional[torch.Tensor]:

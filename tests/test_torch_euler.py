@@ -348,9 +348,9 @@ def test_euler_wind_bubble_float32_without_warnings(wind_run):
 
 def test_euler_hierarchy_three_steps_matches_reference():
     """A 2-level Euler blast ``NGHierarchy`` (HLL, Falle AV, one tracer;
-    its corrector takes the fused wrappers and ``interface_flux_pair``'s
-    Euler slabs), three steps against the JAX package: fields at 1e-9, dt
-    at 1e-12."""
+    its corrector takes the fused wrappers and their Euler interface
+    planes), three steps against the JAX package: fields at 1e-9, dt at
+    1e-12."""
     layout = dict(ndim=2, shape=(16, 16), xmin=(0.0, 0.0), xmax=(1.0, 1.0),
                   bcs=(("outflow", "outflow"),) * 2)
     rcfg = pion_tpu.SimConfig(eqn="euler", solver="hll", ntracer=1,

@@ -1,6 +1,7 @@
 """pion_tpu_torch.ng against pion_tpu.ng on the same seeded inputs: level
-layout, prolongation, restriction, BC89, the interface-flux slabs, and a
-2-level GLM-MHD blast over three hierarchy steps.  CPU, float64 unless a
+layout, prolongation, restriction, BC89, the interface-flux slabs, the
+corrector's planes from the fused sweep, and a 2-level GLM-MHD blast over
+three hierarchy steps.  CPU, float64 unless a
 test says otherwise."""
 import dataclasses
 
@@ -19,7 +20,7 @@ from pion_tpu.ops import sweep as ref_sweep
 
 from pion_tpu_torch import NGHierarchy, convert, ng
 from pion_tpu_torch.grid import make_geometry
-from pion_tpu_torch.ops import sweep
+from pion_tpu_torch.ops import fused_sweep, sweep
 
 torch.set_num_threads(1)
 
@@ -331,8 +332,9 @@ def test_blast_three_steps_matches_reference(layout):
 @pytest.mark.parametrize("layout", ["2d-centred"])
 def test_fast_corrector_matches_reference_interpret(layout):
     """``kernels="auto"``: every sweep through the fused wrappers (their
-    plain versions on the CPU) and the BC89 / leaf-boundary planes from
-    ``interface_flux_pair``, against the JAX package with its Pallas kernels
+    plain versions on the CPU) and the BC89 / leaf-boundary planes from the
+    corrector's own ``sweep_axis`` output, against the JAX package with its
+    Pallas kernels
     in interpret mode, float32, at the tolerance the JAX package's own test
     of that path uses (rtol 2e-5, atol 1e-6 of the largest value); and
     against the port's own ``kernels="off"`` path."""
@@ -356,9 +358,10 @@ def test_fast_corrector_matches_reference_interpret(layout):
 
 @pytest.mark.parametrize("layout", ["2d-corner", "3d-offcentre"])
 def test_fast_corrector_float64_is_the_plain_path(layout):
-    """At float64 the fast corrector (fused dU + slab faces) and the plain
-    sweep with its own faces agree to rounding after three steps, BC89
-    included: the slabs give the sweep's faces bit for bit."""
+    """At float64 the fast corrector (fused dU + the planes of its own
+    sweep) and the plain sweep with its own faces agree to rounding after
+    three steps, BC89 included: the planes are the sweep's faces bit for
+    bit."""
     rcfg = ref_cfg(layout)
     states = level_states(rcfg, 2, 7)
     fields = dataclasses.asdict(rcfg)
@@ -371,6 +374,103 @@ def test_fast_corrector_float64_is_the_plain_path(layout):
         auto.step()
     assert auto.t == pytest.approx(off.t, rel=1e-13)
     for l in range(2):
+        want = off.P[l].numpy()
+        err = np.abs(auto.P[l].numpy() - want) / scales(want)
+        assert err.max() <= 1e-12, (l, err.max())
+
+
+# ---------------------------------------------------------------------------
+# the corrector's interface planes from the fused sweep
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("eqn,scma", [
+    ("glm", True), ("glm", (9, 10)), ("glm", (9,)), ("euler", False),
+    ("euler", True), ("mhd", False)])
+def test_sweep_axis_planes_are_the_plain_faces(eqn, scma):
+    """``fused_sweep.sweep_axis(planes=...)`` on the CPU (its plain
+    version) hands back the plain sweep's face tensors at those indices,
+    bit for bit, and the same ``dU`` as without planes;
+    ``dynamics_dU_fused(planes=...)`` gathers them by ``(axis, j)``; the
+    planes counter counts them; planes at order 1 (the kernels write them
+    at the corrector's order 2 only), out of range or too many raise."""
+    order = 2
+    solver = "hll" if eqn == "euler" else "hlld"
+    cfg = convert.config_from_reference(dataclasses.asdict(ref_cfg(
+        "3d-offcentre", eqn=eqn, solver=solver, ntracer=2)))
+    geom = make_geometry(cfg)
+    rng = np.random.default_rng(12)
+    padded = tuple(n + 2 * cfg.ng for n in cfg.shape)
+    P = 0.1 * rng.standard_normal((cfg.nvar,) + padded)
+    P[0] = rng.uniform(0.5, 2.0, padded)
+    P[1] = rng.uniform(0.5, 2.0, padded)
+    # tracers beyond [0, 1], so that the sCMA clamp acts
+    P[cfg.eqn.nbase:] = rng.uniform(-0.2, 1.3, (cfg.ntracer,) + padded)
+    Ppad = torch.from_numpy(P)
+    dt = 2.0e-3
+    n0 = fused_sweep.sweep_axis.planes
+    for axis in range(cfg.ndim):
+        n = cfg.shape[axis]
+        js = [0, 3, n]
+        dU, F = fused_sweep.sweep_axis(Ppad, cfg, geom, axis, order, dt,
+                                       scma=scma, planes=js)
+        want, faces = sweep.dynamics_dU(Ppad, cfg, geom, dt, order,
+                                        scma=scma, axes=[axis])
+        assert torch.equal(dU, want)
+        assert torch.equal(dU, fused_sweep.sweep_axis(
+            Ppad, cfg, geom, axis, order, dt, scma=scma))
+        assert F.shape == (3, cfg.nvar) + tuple(
+            m for a, m in enumerate(cfg.shape) if a != axis)
+        for i, j in enumerate(js):
+            assert torch.equal(F[i], faces[axis].select(1 + axis, j))
+    assert fused_sweep.sweep_axis.planes == n0 + 3 * cfg.ndim
+    dU, planes = fused_sweep.dynamics_dU_fused(
+        Ppad, cfg, geom, dt, order, scma=scma, planes={0: [0, 8], 2: [5]})
+    assert torch.equal(dU, fused_sweep.dynamics_dU_fused(
+        Ppad, cfg, geom, dt, order, scma=scma))
+    _, faces = sweep.dynamics_dU(Ppad, cfg, geom, dt, order, scma=scma)
+    assert sorted(planes) == [(0, 0), (0, 8), (2, 5)]
+    for (axis, j), F in planes.items():
+        assert torch.equal(F, faces[axis].select(1 + axis, j))
+    for bad in ([0, 1, 2, 3, 4], [9], [-1], [2, 2]):
+        with pytest.raises(ValueError, match="planes"):
+            fused_sweep.sweep_axis(Ppad, cfg, geom, 0, order, dt,
+                                   planes=bad)
+    with pytest.raises(ValueError, match="order-2"):
+        fused_sweep.sweep_axis(Ppad, cfg, geom, 0, 1, dt, planes=[0])
+
+
+@pytest.mark.parametrize("layout,nlevels,eqn", [
+    ("2d-centred", 2, "glm"), ("2d-corner", 3, "glm"),
+    ("3d-offcentre", 3, "glm"), ("2d-centred", 3, "euler")])
+def test_corrector_takes_its_planes_from_the_fused_sweep(layout, nlevels,
+                                                        eqn):
+    """``kernels="auto"`` on one device: each level's corrector reads the
+    planes BC89 and the boundary restriction need from its fused sweep (the
+    planes of ``_face_pairs``, once a corrector: the counter reads their sum
+    over levels times 2^level, per step) and sweeps no slab; two steps
+    agree with ``kernels="off"`` to rounding."""
+    kw = dict(solver="hll", gamma=1.4) if eqn == "euler" else {}
+    rcfg = ref_cfg(layout, nlevels=nlevels, eqn=eqn, **kw)
+    glm = ref_cfg(layout, nlevels=nlevels)
+    states = level_states(glm, nlevels, 13)
+    if eqn == "euler":
+        states = [s[[0, 1, 2, 3, 4, 9]] for s in states]
+    fields = dataclasses.asdict(rcfg)
+    off = convert.hierarchy_from_reference(fields, states, device="cpu")
+    auto = convert.hierarchy_from_reference(dict(fields, pallas="auto"),
+                                            states, device="cpu")
+    assert auto.cfg0.kernels == "auto" and auto.n_levels == nlevels
+    per_step = sum(2 ** l * sum(len(p) for p in auto._face_pairs(l))
+                   for l in range(nlevels))
+    planes0 = fused_sweep.sweep_axis.planes
+    slabs0 = sweep._slab_faces.sweeps
+    for _ in range(2):
+        off.step()
+        auto.step()
+    assert fused_sweep.sweep_axis.planes - planes0 == 2 * per_step
+    assert sweep._slab_faces.sweeps == slabs0
+    assert auto.t == pytest.approx(off.t, rel=1e-13)
+    for l in range(nlevels):
         want = off.P[l].numpy()
         err = np.abs(auto.P[l].numpy() - want) / scales(want)
         assert err.max() <= 1e-12, (l, err.max())
