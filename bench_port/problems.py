@@ -5,12 +5,29 @@ The inputs (one primitive state a level, as float64 numpy) are made here from
 the seed, with the reference's own constants and initial conditions, and the
 same arrays go to the program and to the reference.  ``make_run`` builds the
 run of either package from the same configuration: ``pion_tpu_torch`` (the
-program) or ``bench_port.reference.port_plain`` (its frozen plain copy), whose
-public interfaces are the same.
+program) or the configuration's reference package, whose public interfaces
+are the same.
+
+The reference is the package ``bench_port/reference/<name>/`` that the file
+names under ``reference`` (default ``port_plain``), resolved by
+:func:`reference_of` alone.  A reference package offers ``port_plain``'s
+public interface: ``SimConfig``, ``Simulation``, ``NGHierarchy``,
+``WindSource`` and the submodules ``constants``, ``microphysics``,
+``physics``, ``raytracing`` and ``ics``.  It may import the frozen
+``port_plain`` to share its unchanged modules, and imports nothing of the
+program and no JAX.
+
+A file may also name a builder, ``bench_port/builders/<name>.py``, under
+``builder``, which defines ``initial_states(ref, config, traffic, seed)``:
+one float64 primitive state a level, made with the reference package
+``ref``.  So a configuration brings its own initial condition and traffic
+shaping as new files.  The physics, the lead steps and the cell-updates of
+a step are the functions here for every configuration.
 
 Configuration file keys read here:
 
 - ``sim``: the fields of ``SimConfig`` (lists for tuples);
+- ``reference``, ``builder`` (optional): the names above;
 - ``initial``: ``{"kind": "uniform_medium", "nH", "T", "B_gauss", "x0"}``
   (a neutral medium, field in gauss, ionised fraction ``x0`` in the first
   tracer) or ``{"kind": "blast", "rho0", "p0", "p_in", "r_in", "B0",
@@ -19,7 +36,8 @@ Configuration file keys read here:
   ``rstar_cm``, and ``dt_limit``;
 - ``sources``, ``winds`` (optional): point sources and stellar winds, their
   positions as fractions of the domain, a wind's radius in cells of the
-  finest level and its mass-loss rate in solar masses a year.
+  finest level and its mass-loss rate in solar masses a year.  Sources need
+  a chemistry; winds do not.
 
 Traffic keys read here: ``noise`` (the amplitude of icgen's density noise)
 and ``front`` (optional: ``{"radius_level0_cells", "x", "T"}``, a sphere
@@ -28,10 +46,42 @@ around the centre ionised and heated, its radius in level-0 cells).
 from __future__ import annotations
 
 import math
+from importlib import import_module
 
 import numpy as np
 
 RO, PG, BX = 0, 1, 5
+DEFAULT_REFERENCE = "port_plain"
+
+
+def _name(config: dict, key: str, default=None):
+    name = config.get(key, default)
+    if name is not None and not name.isidentifier():
+        raise ValueError(f"{key} {name!r} is not a module name")
+    return name
+
+
+def reference_of(config: dict):
+    """The reference package the configuration names:
+    ``bench_port/reference/<reference>/``, ``port_plain`` by default."""
+    name = _name(config, "reference", DEFAULT_REFERENCE)
+    return import_module(f"{__package__}.reference.{name}")
+
+
+def builder_of(config: dict):
+    """The module ``bench_port/builders/<builder>.py`` the configuration
+    names, or None."""
+    name = _name(config, "builder")
+    return None if name is None else import_module(
+        f"{__package__}.builders.{name}")
+
+
+def submodule(pkg, name: str):
+    """``pkg``'s submodule ``name``: its attribute where it has one (a
+    reference that re-exports another's), else imported."""
+    mod = getattr(pkg, name, None)
+    return (mod if mod is not None
+            else import_module(pkg.__name__ + "." + name))
 
 
 def _rng(seed: int, stream: int) -> np.random.Generator:
@@ -39,10 +89,9 @@ def _rng(seed: int, stream: int) -> np.random.Generator:
     return np.random.default_rng([seed % 2 ** 64, stream])
 
 
-def _medium(cfg, ini: dict, mpc) -> np.ndarray:
+def _medium(ref, cfg, ini: dict, mpc) -> np.ndarray:
     """A uniform neutral medium (the H II region of the Ostar3D class)."""
-    from bench_port.reference.port_plain.constants import K_B
-
+    K_B = submodule(ref, "constants").K_B
     P = np.zeros((cfg.nvar,) + cfg.shape)
     nH = float(ini["nH"])
     P[RO] = nH * mpc.mean_mass_per_h
@@ -54,12 +103,11 @@ def _medium(cfg, ini: dict, mpc) -> np.ndarray:
     return P
 
 
-def _front(P: np.ndarray, cfg, front: dict, level: int, mpc) -> None:
+def _front(ref, P: np.ndarray, cfg, front: dict, level: int, mpc) -> None:
     """Ionise and heat a sphere around the grid's centre in place (the
     developed H II region of ``front_state``): radius in level-0 cells, so
     ``2**level`` times that in this level's cells."""
-    from bench_port.reference.port_plain.constants import K_B
-
+    K_B = submodule(ref, "constants").K_B
     n = cfg.shape[0]
     ax = np.arange(n) - (n - 1) / 2.0
     r = np.sqrt(ax[:, None, None] ** 2 + ax[None, :, None] ** 2
@@ -72,11 +120,10 @@ def _front(P: np.ndarray, cfg, front: dict, level: int, mpc) -> None:
                      * float(front["T"]))[inside]
 
 
-def _blast(cfg, ini: dict) -> np.ndarray:
-    from bench_port.reference.port_plain.ics import blast_wave
-
-    P = blast_wave(cfg, rho0=ini["rho0"], p0=ini["p0"], p_in=ini["p_in"],
-                   r_in=ini["r_in"], B0=tuple(ini["B0"]))
+def _blast(ref, cfg, ini: dict) -> np.ndarray:
+    P = submodule(ref, "ics").blast_wave(
+        cfg, rho0=ini["rho0"], p0=ini["p0"], p_in=ini["p_in"],
+        r_in=ini["r_in"], B0=tuple(ini["B0"]))
     if cfg.ntracer:
         # the blast's own material: where blast_wave set the inner pressure
         P[cfg.eqn.nbase] = np.where(P[PG] == ini["p_in"],
@@ -96,25 +143,25 @@ def sim_config(pkg, config: dict, kernels: str = "auto"):
 def chemistry_config(pkg, config: dict, cfg):
     """``pkg``'s ``MPv3Config`` of the configuration file, its ionised
     fraction in the first tracer."""
-    from importlib import import_module
-
-    mp = import_module(pkg.__name__ + ".microphysics")
-    const = import_module(pkg.__name__ + ".constants")
     chem = dict(config["chemistry"])
     chem.pop("class")
     chem.pop("dt_limit", None)
     rsun = chem.pop("rstar_rsun", None)
     if rsun is not None:
-        chem["rstar_cm"] = rsun * const.RSUN
-    return mp.MPv3Config(tracer_slot=cfg.eqn.nbase, **chem)
+        chem["rstar_cm"] = rsun * submodule(pkg, "constants").RSUN
+    return submodule(pkg, "microphysics").MPv3Config(
+        tracer_slot=cfg.eqn.nbase, **chem)
 
 
 def initial_states(config: dict, traffic: dict, seed: int) -> list:
-    """One float64 primitive state a level, from the seed: the
-    configuration's initial condition, the mix's front, then icgen's
-    density noise (``ics/icgen.cpp:257``), one stream a level."""
-    from bench_port.reference import port_plain as ref
-
+    """One float64 primitive state a level, from the seed: the builder's
+    where the configuration names one; else the configuration's initial
+    condition, the mix's front, then icgen's density noise
+    (``ics/icgen.cpp:257``), one stream a level."""
+    ref = reference_of(config)
+    builder = builder_of(config)
+    if builder is not None:
+        return builder.initial_states(ref, config, traffic, seed)
     cfg0 = sim_config(ref, config, kernels="off")
     ini = config["initial"]
     nlev = cfg0.nlevels
@@ -123,13 +170,13 @@ def initial_states(config: dict, traffic: dict, seed: int) -> list:
     states = []
     for level in range(nlev):
         if ini["kind"] == "uniform_medium":
-            P = _medium(cfg0, ini, mpc)
+            P = _medium(ref, cfg0, ini, mpc)
         elif ini["kind"] == "blast":
-            P = _blast(cfg0, ini)
+            P = _blast(ref, cfg0, ini)
         else:
             raise ValueError(f"unknown initial condition {ini['kind']!r}")
         if traffic.get("front"):
-            _front(P, cfg0, traffic["front"], level, mpc)
+            _front(ref, P, cfg0, traffic["front"], level, mpc)
         amp = float(traffic.get("noise", 0.0))
         if amp:
             P[RO] *= 1.0 + amp * (_rng(seed, level).random(cfg0.shape) - 0.5)
@@ -138,24 +185,20 @@ def initial_states(config: dict, traffic: dict, seed: int) -> list:
 
 
 def _physics(pkg, config: dict, cfg):
-    from importlib import import_module
-
-    if "chemistry" not in config:
+    """``pkg``'s ``Physics`` of the chemistry, sources and winds of the
+    file, or None where it has none of them."""
+    chem = config.get("chemistry")
+    if chem is None and config.get("sources"):
+        raise ValueError("point sources need a chemistry to act on")
+    if chem is None and not config.get("winds"):
         return None
-    mp_mod = import_module(pkg.__name__ + ".microphysics")
-    const = import_module(pkg.__name__ + ".constants")
-    physics = import_module(pkg.__name__ + ".physics")
-    rt = import_module(pkg.__name__ + ".raytracing")
-    mpc = chemistry_config(pkg, config, cfg)
-    mp = getattr(mp_mod, config["chemistry"]["class"])(mpc)
+    const = submodule(pkg, "constants")
+    physics = submodule(pkg, "physics")
 
     def at(frac):
         return tuple(lo + f * (hi - lo)
                      for f, lo, hi in zip(frac, cfg.xmin, cfg.xmax))
 
-    sources = [rt.Source(position=at(s["position_frac"]),
-                         strength=s["strength"], effect=s["effect"])
-               for s in config.get("sources", [])]
     fine_dx = cfg.dx / 2 ** (cfg.nlevels - 1)
     winds = [pkg.WindSource(
         position=at(w["position_frac"]),
@@ -163,8 +206,16 @@ def _physics(pkg, config: dict, cfg):
         mdot=w["mdot_msun_yr"] * const.MSUN / const.YEAR, vinf=w["vinf"],
         t_wind=w["t_wind"], b_star=w["b_star"], tracers=tuple(w["tracers"]))
         for w in config.get("winds", [])]
+    if chem is None:
+        return physics.Physics(mp=None, wind_sources=winds)
+    rt = submodule(pkg, "raytracing")
+    mpc = chemistry_config(pkg, config, cfg)
+    mp = getattr(submodule(pkg, "microphysics"), chem["class"])(mpc)
+    sources = [rt.Source(position=at(s["position_frac"]),
+                         strength=s["strength"], effect=s["effect"])
+               for s in config.get("sources", [])]
     return physics.Physics(mp=mp, sources=sources,
-                           dt_limit=config["chemistry"].get("dt_limit", True),
+                           dt_limit=chem.get("dt_limit", True),
                            wind_sources=winds)
 
 

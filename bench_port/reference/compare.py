@@ -1,12 +1,16 @@
 """The plain reference's run of a cell, its control, and the comparison that
 decides ``correct``.
 
-The reference is ``port_plain``, a frozen copy of the port's plain path
-(``kernels="off"``: plain PyTorch, no kernel, no CUDA graph), built from the
-benchmark's own inputs and stepped one step at a time.  The control is the
-same reference with its state held in bfloat16, the precision below the
-configuration's float32: the inputs and the state after every step rounded to
-bfloat16.
+The reference is the package ``reference/<name>/`` that the configuration
+names under ``reference``, resolved by ``problems.reference_of``: by default
+``port_plain``, a frozen copy of the port's plain path (``kernels="off"``:
+plain PyTorch, no kernel, no CUDA graph).  A configuration that needs a path
+``port_plain`` leaves out brings a package of its own beside it, which may
+import ``port_plain`` to share its unchanged modules and imports nothing of
+the program.  It is built from the benchmark's own inputs and stepped one
+step at a time.  The control is the same reference with its state held in
+bfloat16, the precision below the configuration's float32: the inputs and
+the state after every step rounded to bfloat16.
 
 Three numbers are compared, each against a limit of the cell
 (``limits/<cell>.json``): over every level and every group of variables,
@@ -75,10 +79,10 @@ def reference_run(config: dict, states: list, steps: int, device,
     """The reference over ``steps`` single steps from the inputs
     ``states``: its level states and its clock.  ``control``: the state held
     in bfloat16."""
-    from bench_port.problems import make_run
-    from bench_port.reference import port_plain
+    from bench_port.problems import make_run, reference_of
 
-    run = make_run(port_plain, config, states, kernels="off", device=device)
+    run = make_run(reference_of(config), config, states, kernels="off",
+                   device=device)
     if control:
         _round_bf16(run)
     for _ in range(steps):

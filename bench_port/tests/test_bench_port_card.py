@@ -9,7 +9,9 @@ import pytest
 
 from bench_port import harness, problems
 from bench_port.reference import compare
-from conftest import tiny_cell
+from conftest import ROOT, tiny_cell
+
+CELLS = [w["name"] for w in harness.bench_file(ROOT)["workloads"]]
 
 
 @pytest.mark.card
@@ -27,7 +29,7 @@ def test_command_on_a_cell(card, root):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("name", ["blast3d.replay", "ostar3d.front"])
+@pytest.mark.parametrize("name", CELLS)
 def test_kernels_against_reference(card, name):
     import pion_tpu_torch
 

@@ -38,10 +38,23 @@ def test_no_jax_anywhere():
     assert not {p: b for p, b in bad.items() if b}
 
 
+def packages(under: str) -> list:
+    return sorted(d for d in os.listdir(under)
+                  if os.path.isfile(os.path.join(under, d, "__init__.py")))
+
+
 def test_reference_imports_no_program():
+    """Every reference package under ``reference/`` (each a configuration
+    may name), the comparison beside them, and every builder under
+    ``builders/`` (which makes the inputs both sides get)."""
     ref = os.path.join(HERE, "reference")
+    assert "port_plain" in packages(ref)
+    paths = [os.path.join(ref, "compare.py")]
+    for pkg in packages(ref):
+        paths += modules(os.path.join(ref, pkg))
+    paths += modules(os.path.join(HERE, "builders"))
     bad = {p: imported_tops(p) & (FORBIDDEN | {"pion_tpu_torch"})
-           for p in modules(ref)}
+           for p in paths}
     assert not {p: b for p, b in bad.items() if b}
 
 

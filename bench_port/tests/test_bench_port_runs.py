@@ -9,10 +9,12 @@ import torch
 
 from bench_port import harness, problems
 from bench_port.reference import compare
-from conftest import tiny_cell
+from conftest import ROOT, tiny_cell
 
 CPU = torch.device("cpu")
 SEED = 2 ** 31 + 12345
+# every cell of BENCHMARK.json, so a cell added there is held here too
+CELLS = [w["name"] for w in harness.bench_file(ROOT)["workloads"]]
 
 
 def run_tiny(root, name, cell=None, seconds=0.5, trace=False, **kw):
@@ -72,7 +74,7 @@ def test_result_line(root):
     assert back["device"]["count"] == 1
 
 
-@pytest.mark.parametrize("name", ["blast3d.replay", "ostar3d.front"])
+@pytest.mark.parametrize("name", CELLS)
 def test_reference_matches_port(name):
     """The port's plain path and the reference agree at a small size on
     the CPU: the lead steps and one chunk.  The dynamics are the same code
@@ -94,13 +96,14 @@ def test_reference_matches_port(name):
         assert v <= cell["limits"][k] / 10, (k, v)
 
 
-CELLS = ["blast3d.replay", "ostar3d.front"]
+def hierarchy(name: str) -> bool:
+    return harness.cell_of(ROOT, name)["config"]["sim"].get("nlevels", 1) > 1
 
 
 def small(name: str) -> dict:
-    """The cell at the size of these tests: 16^3 for the blast, two levels
-    of 8^3 for the wind bubble."""
-    return tiny_cell(name, n=16 if name.startswith("blast") else 8)
+    """The cell at the size of these tests: 16 cells along the first axis
+    of a single grid, two levels of 8 of a hierarchy."""
+    return tiny_cell(name, n=8 if hierarchy(name) else 16)
 
 
 def levels(run) -> list:
@@ -152,7 +155,7 @@ def test_a_fault_is_not_correct(root, monkeypatch, name, fault):
     ``correct`` comes out false."""
     import pion_tpu_torch
 
-    cls = (pion_tpu_torch.NGHierarchy if name.startswith("ostar")
+    cls = (pion_tpu_torch.NGHierarchy if hierarchy(name)
            else pion_tpu_torch.Simulation)
     monkeypatch.setattr(cls, "run", fault(cls.run))
     out = run_tiny(root, name, cell=small(name))
@@ -164,8 +167,6 @@ def test_a_fault_is_not_correct(root, monkeypatch, name, fault):
 def test_the_control_is_not_correct(name):
     """The reference with its state in bfloat16, put in the program's
     place, fails the cell's limits."""
-    from bench_port.reference import port_plain
-
     cell = small(name)
     config = cell["config"]
     states = problems.initial_states(config, cell["traffic"], SEED)
@@ -174,5 +175,6 @@ def test_the_control_is_not_correct(name):
                                        control=True)
     ref, ref_t = compare.reference_run(config, states, steps, CPU)
     nums = compare.numbers(ctl, ctl_t, ref, ref_t,
-                           problems.sim_config(port_plain, config, "off"))
+                           problems.sim_config(problems.reference_of(config),
+                                               config, "off"))
     assert any(v > cell["limits"][k] for k, v in nums.items()), nums
